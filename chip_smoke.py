@@ -11,13 +11,13 @@ caught:
 1. Environment: the card's name and power limit, torch and CUDA versions;
    TF32 and reduced-precision bf16 reductions off, so fp32 references are
    fp32.
-2. Build: every kernel of the slice from clip_lite_torch/ops/csrc, one
+2. Build: every kernel of the port from clip_lite_torch/ops/csrc, one
    nvcc per source, all started together.
-3. Each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, in fp32 and bf16; the kernel's, the
-   plain version's and the library call's times; the least time the card
-   could take (bytes over 3.35 TB/s or operations over the peak rate).
-4. Main path: the flagship model (configs/fs_bs1024_ni250k.yaml:
+3. K1 (attention forward) against its plain PyTorch version at the
+   flagship text batch, in fp32 and bf16; the kernel's, the plain
+   version's and the library call's times; the least time the card could
+   take (bytes over 3.35 TB/s or operations over the peak rate).
+4. Inference main path: the flagship model (configs/fs_bs1024_ni250k.yaml:
    ResNet-50 at 224 px, BERT-12/768 over 30 tokens, 2048-d projection
    heads, AMP bf16) with seeded random weights, as an EncoderBundle on the
    card, scores retrieval on 256 seeded images and captions at batch 128.
@@ -26,10 +26,32 @@ caught:
    text batches, and the text embeddings against the same model with
    FUSED_ATTENTION false (the plain attention) in bf16 and in fp32.
    Then images/s and captions/s through the bundle.
-5. One JSON line listing every ported kernel; then the device line last.
+5. K1 with dropout and K2 (attention backward) at the same shape, fp32
+   and bf16, dropout rate 0 and 0.1, each against its plain version given
+   the Philox keep mask that the kernels' own entry point writes; the
+   mask's keep fraction and its dependence on the seed; times and bounds.
+6. Training main path: the flagship at full width (dropout 0.1, SGD +
+   Lookahead, warmup-cosine) with seeded weights, 10 steps of 128 seeded
+   pairs through the engine and the train loop, then one eval sweep.
+   Counts set to 0 just before and read just after.  Checks: finite loss
+   and grad norm at every step, K1 and K2 launched 12 x 10 times (K1 12
+   more in the eval sweep), parameters unchanged by step 1 (LR multiplier
+   0) and changed by step 2, parameters equal to the Lookahead slow
+   weights after step 5, BatchNorm running statistics moved.  Then the
+   median step time over steps 3-10 (a sync per step), pairs/s and peak
+   memory.
+7. Training parity on the card: from one state, one step with
+   FUSED_ATTENTION true (K1/K2) and one with false (plain attention),
+   dropout 0, at batch 32 (to keep the phase short): loss, grad norm and
+   every layer's QKV weight gradient agree, in fp32 (AMP off) and in
+   bf16; and with the image tower kept in fp32, the bf16 step through
+   K1/K2 lies no further from the fp32 step than the plain bf16 step
+   does, within a factor.
+8. One JSON line listing every ported kernel; then the device line last.
 """
 
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -52,7 +74,31 @@ TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # carries through 12 layers; fp32 differs only in the sums' order.
 TEXT_TOL = {"bfloat16": dict(max_abs=1e-2, min_cos=0.999),
             "float32": dict(max_abs=1e-4, min_cos=0.99999)}
+# One training step through K1/K2 against one through the plain attention,
+# same state and batch, dropout 0.  fp32: only the sums' order differs
+# (kernels, cuDNN's convolution algorithms), through 12 layers and a
+# ResNet-50.  bf16: roundings flip where the sums' order differs and the
+# flips carry through the forward and backward of 12 layers.  The bf16 bar
+# is about twice the largest reading on an H100 (max rel 0.147, cosine
+# 0.99506), and two correct bf16 steps differ by as much: on the CPU the
+# port's and the JAX package's bf16 steps differ in their QKV gradients by
+# max rel 0.13-0.19 and cosine 0.987-0.992 (means over four batches with a
+# ResNet-18 image tower; ``python tests/test_torch_amp.py``).  ``rel``
+# bounds max|a - b| / max|b| of each QKV weight gradient, ``cos`` their
+# cosine, ``loss`` the relative difference of total_loss and grad_norm.
+PARITY_TOL = {"float32": dict(loss=1e-5, rel=1e-3, cos=0.99999),
+              "bfloat16": dict(loss=1e-2, rel=0.3, cos=0.99)}
+# And each bf16 step against the plain fp32 step: the K1/K2 step may lie at
+# most BF16_FLOOR_FACTOR times as far as the plain bf16 step (in rel and in
+# 1 - cos; the readings on an H100 are 0.98x and 1.00x).  Held with the
+# image tower in fp32: at initialisation ResNet-50's bf16 rounding moves
+# the text tower's QKV gradients to cosine 0.65-0.81 from fp32 in the JAX
+# package itself (tests/test_torch_amp.py readings), which would hide any
+# fault of the kernels.
+BF16_FLOOR_FACTOR = 1.5
+KEEP_RATE_TOL = 0.002
 N_ITEMS, BATCH = 256, 128
+TRAIN_STEPS, PARITY_BATCH, RATE = 10, 32, 0.1
 WORDS = ("a an the man woman child dog cat horse bus train car plate pizza "
          "table street city field beach kitchen red blue white black small "
          "large young old two three sitting standing riding eating holding "
@@ -97,7 +143,7 @@ def phase_build() -> None:
     from clip_lite_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["attention_fwd"])
+    logs = _build.build_all(["attention_fwd", "attention_bwd"])
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'none (cached)'}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -105,26 +151,42 @@ def phase_build() -> None:
                 log(f"  {name}: {line.strip()}")
 
 
-def phase_attention() -> dict:
-    """K1 at the flagship text batch: (128, 30, 2304), 12 heads of 64."""
-    from clip_lite_torch.ops.attention import (
-        MASK_VALUE, attention_reference, fused_short_attention)
+def attention_inputs():
+    """The flagship text batch's attention: qkv (128, 30, 2304) fp32, the
+    (128, 30) key bias and the (128, 30) bool of real keys."""
+    from clip_lite_torch.ops.attention import MASK_VALUE
 
-    b, s, nh, hd = BATCH, 30, 12, 64
-    h = nh * hd
+    b, s, h = BATCH, 30, 768
     g = torch.Generator(device="cuda").manual_seed(0)
     qkv32 = torch.randn(b, s, 3 * h, device="cuda", generator=g)
     # Caption-like lengths: keys 25..29 are padding on every row, more on most.
     lengths = torch.randint(1, 26, (b,), device="cuda", generator=g)
     keep = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
-    bias = (1.0 - keep.float()) * MASK_VALUE
+    return qkv32, (1.0 - keep.float()) * MASK_VALUE, keep
+
+
+def bound(n_bytes: int, n_ops: int, dtype: torch.dtype) -> dict:
+    """The least time for the work: bytes over the memory rate or
+    operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[dtype]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_attention() -> None:
+    """K1 at the flagship text batch: (128, 30, 2304), 12 heads of 64."""
+    from clip_lite_torch.ops.attention import (
+        attention_reference, fused_short_attention)
+
+    b, s, nh, hd = BATCH, 30, 12, 64
+    h = nh * hd
+    qkv32, bias, keep = attention_inputs()
     mask4 = keep[:, None, None, :]
 
     def library(qkv):
         q, k, v = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask4)
 
-    result = {}
     for dtype in (torch.float32, torch.bfloat16):
         qkv = qkv32.to(dtype)
         out = fused_short_attention(qkv, bias, nh)
@@ -141,18 +203,12 @@ def phase_attention() -> dict:
         item = qkv.element_size()
         n_bytes = qkv.numel() * item + bias.numel() * 4 + b * s * h * item
         n_ops = 4 * b * nh * s * s * hd  # two products, 2 operations a MAC
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[dtype]
-        name = str(dtype).replace("torch.", "")
-        result[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"K1 {name}: max|kernel-plain| {err} (tol {TOLS[dtype]}), "
-            f"max|library-plain| {lib_err}; kernel {ms} ms, plain "
-            f"{plain_ms} ms, library {library_ms} ms, bound "
-            f"{result[name]['bound_ms']} ms ({result[name]['bound_by']}: "
-            f"{n_bytes} bytes, {n_ops} operations)")
-    return result
+        least = bound(n_bytes, n_ops, dtype)
+        log(f"K1 {str(dtype).replace('torch.', '')}: max|kernel-plain| {err} "
+            f"(tol {TOLS[dtype]}), max|library-plain| {lib_err}; kernel {ms} "
+            f"ms, plain {plain_ms} ms, library {library_ms} ms, bound "
+            f"{least['bound_ms']} ms ({least['bound_by']}: {n_bytes} bytes, "
+            f"{n_ops} operations)")
 
 
 def captions(rng: np.random.Generator, n: int) -> list:
@@ -251,6 +307,294 @@ def phase_main_path() -> dict:
     return launches
 
 
+def phase_attention_training() -> dict:
+    """K1 with dropout and K2 at the flagship text batch, fp32 and bf16,
+    rate 0 and RATE, each against its plain version given the Philox
+    mask that the kernels' own entry point writes."""
+    from clip_lite_torch.ops.attention import (
+        attention_backward, attention_backward_reference, attention_forward,
+        attention_reference, dropout_keep_mask)
+
+    b, s, nh, hd = BATCH, 30, 12, 64
+    h = nh * hd
+    qkv32, bias, valid = attention_inputs()
+    g32 = torch.randn(b, s, h, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    seed = 2024
+    keep = dropout_keep_mask(seed, b, nh, s, RATE, "cuda")
+    frac = keep.float().mean().item()
+    same = torch.equal(keep, dropout_keep_mask(seed, b, nh, s, RATE, "cuda"))
+    other = not torch.equal(keep, dropout_keep_mask(seed + 1, b, nh, s, RATE,
+                                                    "cuda"))
+    log(f"Philox keep mask, rate {RATE}: keep fraction {frac} over "
+        f"{keep.numel()} draws (want {1 - RATE} +- {KEEP_RATE_TOL}); same seed "
+        f"same mask {same}; next seed another mask {other}")
+    if abs(frac - (1.0 - RATE)) > KEEP_RATE_TOL or not same or not other:
+        raise AssertionError("the dropout mask fails its checks")
+    mask4 = valid[:, None, None, :]
+
+    def views(qkv):
+        return qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        item = torch.empty((), dtype=dtype).element_size()
+        for rate in (0.0, RATE):
+            qkv, g = qkv32.to(dtype), g32.to(dtype)
+            km = keep if rate else None
+            out = attention_forward(qkv, bias, nh, dropout_rate=rate, seed=seed)
+            ref = attention_reference(qkv, bias, nh, rate, km)
+            dqkv = attention_backward(qkv, bias, g, nh, dropout_rate=rate,
+                                      seed=seed)
+            dref = attention_backward_reference(qkv, bias, g, nh, rate, km)
+            torch.cuda.synchronize()
+            errs = [(a.float() - r.float()).abs().max().item()
+                    for a, r in ((out, ref), (dqkv, dref))]
+            torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+            torch.testing.assert_close(dqkv.float(), dref.float(),
+                                       **TOLS[dtype])
+            copies = [(qkv.clone(), g.clone()) for _ in range(4)]
+
+            def library_fwd(x, _):
+                q, k, v = views(x)
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
+                                                      dropout_p=rate)
+
+            graphs = []
+            for x, y in copies:
+                leaf = x.detach().requires_grad_()
+                lib_out = library_fwd(leaf, None)
+                graphs.append((lib_out, leaf, y.view(b, s, nh, hd).transpose(1, 2)))
+            k1 = dict(
+                max_abs_err=errs[0],
+                ms=time_ms(lambda x, _: attention_forward(
+                    x, bias, nh, dropout_rate=rate, seed=seed), copies),
+                plain_ms=time_ms(lambda x, _: attention_reference(
+                    x, bias, nh, rate, km), copies),
+                library_ms=time_ms(library_fwd, copies),
+                **bound(qkv.numel() * item + bias.numel() * 4 + b * s * h * item,
+                        4 * b * nh * s * s * hd, dtype))
+            k2 = dict(
+                max_abs_err=errs[1],
+                ms=time_ms(lambda x, y: attention_backward(
+                    x, bias, y, nh, dropout_rate=rate, seed=seed), copies),
+                plain_ms=time_ms(lambda x, y: attention_backward_reference(
+                    x, bias, y, nh, rate, km), copies),
+                library_ms=time_ms(lambda o, x, y: torch.autograd.grad(
+                    o, x, y, retain_graph=True), graphs),
+                # qkv, bias and g read once, dqkv written once; five products.
+                **bound(2 * qkv.numel() * item + bias.numel() * 4
+                        + g.numel() * item, 10 * b * nh * s * s * hd, dtype))
+            del graphs, copies
+            result[(name, rate)] = dict(k1=k1, k2=k2)
+            for kname, r in (("K1", k1), ("K2", k2)):
+                log(f"{kname} {name} rate {rate}: max|kernel-plain| "
+                    f"{r['max_abs_err']} (tol {TOLS[dtype]}); kernel {r['ms']} "
+                    f"ms, plain {r['plain_ms']} ms, library {r['library_ms']} "
+                    f"ms, bound {r['bound_ms']} ms ({r['bound_by']})")
+    return result
+
+
+def training_batch(rng: np.random.Generator, tok, n: int, crop: int) -> dict:
+    enc = tok(captions(rng, n), max_length=tok.max_length)
+    return {"image": rng.standard_normal((n, crop, crop, 3), dtype=np.float32),
+            "input_ids": np.asarray(enc["input_ids"], np.int32),
+            "attention_mask": np.asarray(enc["attention_mask"], np.int32)}
+
+
+def lr_group(name: str) -> str:
+    return ("image_encoder" if "image_encoder" in name else
+            "text_encoder" if "text_encoder" in name else "rest")
+
+
+def phase_training() -> dict:
+    """The training main path: flagship, 10 steps of 128 pairs through the
+    engine and the loop, then one eval sweep of one batch."""
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.tokenizers import HashingTokenizer
+    from clip_lite_torch.engine import (
+        create_train_state, make_eval_step, make_train_step, metrics_to_floats)
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+    from clip_lite_torch.train import train_loop
+
+    cfg = Config(str(FLAGSHIP))
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, device="cuda")
+    n_layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+    log(f"training: {cfg.MODEL.VISUAL.NETWORK_NAME} + BERT-{n_layers}/"
+        f"{cfg.MODEL.TEXTUAL.HIDDEN_SIZE}, dropout {cfg.MODEL.TEXTUAL.DROPOUT}, "
+        f"AMP {cfg.AMP} {cfg.DTYPE}, {cfg.OPTIM.OPTIMIZER_NAME} + Lookahead "
+        f"k={cfg.OPTIM.LOOKAHEAD.STEPS}, warmup {cfg.OPTIM.WARMUP_STEPS}; "
+        f"state built in {time.perf_counter() - t0} s")
+    rng = np.random.default_rng(1)
+    tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE,
+                           cfg.DATA.MAX_CAPTION_LENGTH)
+    crop = cfg.DATA.IMAGE_CROP_SIZE
+    batches = [training_batch(rng, tok, BATCH, crop) for _ in range(TRAIN_STEPS)]
+    val_batches = [training_batch(rng, tok, BATCH, crop)]
+    params = dict(state.model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    stats_before = {n: b.clone() for n, b in state.model.named_buffers()}
+    train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
+    steps, evals = [], []
+
+    def checked_step(st, batch):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st, metrics = train_step(st, batch)
+        values = metrics_to_floats(metrics)  # this step's one sync
+        steps.append(dict(seconds=time.perf_counter() - start, **values))
+        if not (math.isfinite(values["total_loss"])
+                and math.isfinite(values["grad_norm"])):
+            raise AssertionError(f"step {st.step}: {values}")
+        if st.step == 1 and not all(torch.equal(p, before[n])
+                                    for n, p in params.items()):
+            raise AssertionError("step 1 (LR multiplier 0) moved parameters")
+        if st.step == 2:
+            moved = {}
+            for n, p in params.items():
+                moved.setdefault(lr_group(n), []).append(
+                    not torch.equal(p, before[n]))
+            log(f"tensors moved by step 2, by LR group: "
+                f"{ {k: f'{sum(v)}/{len(v)}' for k, v in moved.items()} }")
+            if not all(any(v) for v in moved.values()):
+                raise AssertionError("step 2 left an LR group unmoved")
+        if st.step == 5:
+            slow = st.optimizer.slow_state()
+            if not all(torch.equal(p, slow[n]) for n, p in params.items()):
+                raise AssertionError("after step 5 the parameters are not the "
+                                     "Lookahead slow weights")
+        return st, metrics
+
+    def recorded_eval(st, batch, index=0):
+        comps = eval_step(st, batch, index)
+        evals.append(metrics_to_floats(comps))
+        return comps
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_short_attention.launches = 0
+    attention_backward.launches = 0
+    t0 = time.perf_counter()
+    state = train_loop(state, checked_step, iter(batches), TRAIN_STEPS,
+                       log_every=TRAIN_STEPS, eval_step=recorded_eval,
+                       val_batches=val_batches, val_every=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"attention_fwd": fused_short_attention.launches,
+                "attention_bwd": attention_backward.launches}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for i, rec in enumerate(steps):
+        log(f"step {i + 1}: {json.dumps(rec)}")
+    log(f"eval sweep: {json.dumps(evals)}")
+    log(f"training main path: {TRAIN_STEPS} steps + eval in {wall} s; "
+        f"launches {launches}")
+    expected = {"attention_fwd": n_layers * (TRAIN_STEPS + len(val_batches)),
+                "attention_bwd": n_layers * TRAIN_STEPS}
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    if state.step != TRAIN_STEPS or len(evals) != 1 or not all(
+            math.isfinite(v) for v in evals[0].values()):
+        raise AssertionError(f"step {state.step}, evals {evals}")
+    unmoved = [n for n, b in state.model.named_buffers()
+               if torch.equal(b, stats_before[n])]
+    if unmoved:
+        raise AssertionError(f"BatchNorm statistics that did not move: {unmoved}")
+    times = [rec["seconds"] for rec in steps[2:]]
+    median = statistics.median(times)
+    log(f"training throughput at batch {BATCH}: median step {median} s over "
+        f"steps 3-{TRAIN_STEPS} ({times}), {BATCH / median} pairs/s; peak "
+        f"memory {peak_mb} MiB")
+    return dict(launches=launches, step_s=median, pairs_per_s=BATCH / median,
+                peak_mib=peak_mb)
+
+
+def parity(a, b) -> dict:
+    """How far run ``a`` lies from run ``b``: the larger relative difference
+    of total_loss and grad_norm, and over the layers' QKV weight gradients
+    the largest max|a - b| / max|b| and the smallest cosine."""
+    (ma, ga), (mb, gb) = a, b
+    return dict(
+        loss_rel=max(abs(ma[k] - mb[k]) / abs(mb[k])
+                     for k in ("total_loss", "grad_norm")),
+        qkv_grad_rel_max=max(((x - y).abs().max() / y.abs().max()).item()
+                             for x, y in zip(ga, gb)),
+        qkv_grad_cos_min=min(F.cosine_similarity(x.flatten(), y.flatten(),
+                                                 dim=0).item()
+                             for x, y in zip(ga, gb)))
+
+
+def within(got: dict, tol: dict) -> bool:
+    return (got["loss_rel"] <= tol["loss"] and got["qkv_grad_rel_max"] <= tol["rel"]
+            and got["qkv_grad_cos_min"] >= tol["cos"])
+
+
+def phase_training_parity() -> dict:
+    """One step through K1/K2 against one through the plain attention, same
+    state and batch, dropout 0, at batch PARITY_BATCH: in fp32, in bf16
+    (AMP), and in bf16 with the image tower in fp32 ("text_bf16"); and each
+    bf16 step against the plain fp32 step, the bf16 noise floor."""
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.tokenizers import HashingTokenizer
+    from clip_lite_torch.engine import (
+        create_train_state, make_train_step, metrics_to_floats)
+
+    runs, state_dict, batch = {}, None, None
+    for name in ("float32", "bfloat16", "text_bf16"):
+        for flag in ("true", "false"):
+            cfg = Config(str(FLAGSHIP), ["MODEL.TEXTUAL.DROPOUT", 0.0,
+                                         "AMP", name != "float32",
+                                         "MODEL.TEXTUAL.FUSED_ATTENTION", flag])
+            if batch is None:
+                tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE,
+                                       cfg.DATA.MAX_CAPTION_LENGTH)
+                batch = training_batch(np.random.default_rng(2), tok,
+                                       PARITY_BATCH, cfg.DATA.IMAGE_CROP_SIZE)
+            state = create_train_state(cfg, device="cuda", state_dict=state_dict)
+            if state_dict is None:
+                state_dict = {k: v.detach().cpu()
+                              for k, v in state.model.state_dict().items()}
+            if name == "text_bf16":  # all but the text tower in fp32
+                text = set(state.model.text_encoder.modules())
+                for module in state.model.modules():
+                    if module not in text and hasattr(module, "compute_dtype"):
+                        module.compute_dtype = torch.float32
+            state, metrics = make_train_step(cfg)(state, batch)
+            layers = state.model.text_encoder.transformer
+            runs[name, flag] = (metrics_to_floats(metrics),
+                                [getattr(layers, n).qkv.weight.grad.float().clone()
+                                 for n in layers.layer_names])
+            log(f"training parity {name}, FUSED_ATTENTION {flag}, batch "
+                f"{PARITY_BATCH}: {runs[name, flag][0]}")
+            del state, layers
+            torch.cuda.empty_cache()
+    out = {name: parity(runs[name, "true"], runs[name, "false"])
+           for name in ("float32", "bfloat16")}
+    for name, got in out.items():
+        log(f"training parity {name}, K1/K2 vs plain attention: {got} "
+            f"(tol {PARITY_TOL[name]})")
+    floor = {(name, flag): parity(runs[name, flag], runs["float32", "false"])
+             for name in ("bfloat16", "text_bf16") for flag in ("true", "false")}
+    for (name, flag), got in floor.items():
+        log(f"{name} step, FUSED_ATTENTION {flag}, against the plain fp32 "
+            f"step: {got}")
+    for name, got in out.items():
+        if not within(got, PARITY_TOL[name]):
+            raise AssertionError(f"{name} training step parity fails: {got}")
+    fused, plain = floor["text_bf16", "true"], floor["text_bf16", "false"]
+    if (fused["qkv_grad_rel_max"] > BF16_FLOOR_FACTOR * plain["qkv_grad_rel_max"]
+            or 1 - fused["qkv_grad_cos_min"]
+            > BF16_FLOOR_FACTOR * (1 - plain["qkv_grad_cos_min"])):
+        raise AssertionError(
+            f"the bf16 step through K1/K2 lies more than {BF16_FLOOR_FACTOR}x "
+            "as far from fp32 as the plain attention's")
+    out["bf16_vs_float32"] = {f"{name} {flag}": got
+                              for (name, flag), got in floor.items()}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -260,14 +604,32 @@ def main() -> int:
 
     if Path(clip_lite_torch.__file__).resolve().parents[1] != ROOT:
         raise RuntimeError("run chip_smoke.py from the root of a checkout")
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format="%(name)s: %(message)s")
     phase_environment()
     phase_build()
-    k1 = phase_attention()
-    launches = phase_main_path()
-    kernels = [dict(name="attention_fwd (K1)", route="cuda",
-                    source="clip_lite_torch/ops/csrc/attention_fwd.cu",
-                    replaces="clip_lite_tpu/ops/attention.py:95",
-                    launches=launches["attention_fwd"], **k1["bfloat16"])]
+    phase_attention()
+    inference = phase_main_path()
+    attn = phase_attention_training()
+    training = phase_training()
+    phase_training_parity()
+    k1_launches = {"inference": inference["attention_fwd"],
+                   "training": training["launches"]["attention_fwd"]}
+    kernels = [
+        dict(name="attention_fwd (K1)", route="cuda",
+             source="clip_lite_torch/ops/csrc/attention_fwd.cu",
+             replaces="clip_lite_tpu/ops/attention.py:95",
+             launches=sum(k1_launches.values()), launches_by_path=k1_launches,
+             **attn[("bfloat16", RATE)]["k1"],
+             dropout_rate=RATE,
+             ms_no_dropout=attn[("bfloat16", 0.0)]["k1"]["ms"]),
+        dict(name="attention_bwd (K2)", route="cuda",
+             source="clip_lite_torch/ops/csrc/attention_bwd.cu",
+             replaces="clip_lite_tpu/ops/attention.py:122",
+             launches=training["launches"]["attention_bwd"],
+             launches_by_path={"training": training["launches"]["attention_bwd"]},
+             **attn[("bfloat16", RATE)]["k2"], dropout_rate=RATE),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

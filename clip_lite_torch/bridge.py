@@ -16,6 +16,10 @@ renamed:
 
 BERT's fused ``qkv`` (H, 3H) is an ordinary Dense.  Every leaf must be
 used exactly once and every port key filled, with matching shapes.
+
+:func:`jax_path` goes the other way for one key: the JAX package's dotted
+path of a port parameter, so that a path regex written for the JAX
+package (``OPTIM.NO_DECAY``) selects the same parameters in the port.
 """
 
 from __future__ import annotations
@@ -27,11 +31,19 @@ import torch
 from torch import nn
 
 from clip_lite_torch.config import Config
+from clip_lite_torch.models.bert import BertEmbeddings, BertLayer
+from clip_lite_torch.models.resnet import ConvBN
+from clip_lite_torch.ops.layers import BatchNorm, LayerNorm
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "mean": "running_mean", "var": "running_var",
                "temperature": "temperature"}
 _WRAPPER_LEVELS = {"BatchNorm_0", "LayerNorm_0"}
+# The port's norm layers held by these modules are flax's own in the JAX
+# package, with no wrapper level in their path; all others are the
+# package's wrappers around flax's, one ``BatchNorm_0``/``LayerNorm_0``
+# level deeper.
+_FLAX_NORM_OWNERS = (ConvBN, BertEmbeddings, BertLayer)
 _COLLECTIONS = ("params", "batch_stats")
 
 
@@ -73,6 +85,23 @@ def convert(variables: dict, module: nn.Module) -> Dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"port keys with no JAX leaf: {missing}")
     return out
+
+
+def jax_path(module: nn.Module, key: str) -> str:
+    """The JAX package's dotted path (``optim._path_str`` of its
+    parameter tree) of the state_dict key ``key`` of ``module``."""
+    *mods, leaf = key.split(".")
+    owner = module.get_submodule(".".join(mods))
+    if isinstance(owner, (BatchNorm, LayerNorm)) and not isinstance(
+            module.get_submodule(".".join(mods[:-1])), _FLAX_NORM_OWNERS):
+        mods.append(f"{type(owner).__name__}_0")
+    if leaf == "weight":
+        leaf = ("scale" if isinstance(owner, (BatchNorm, LayerNorm))
+                else "embedding" if isinstance(owner, nn.Embedding)
+                else "kernel")
+    else:
+        leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+    return ".".join(mods + [leaf])
 
 
 def from_jax_variables(variables: dict, config: Config) -> Dict[str, torch.Tensor]:

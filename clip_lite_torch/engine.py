@@ -1,0 +1,149 @@
+"""Training engine: the train state and the train and eval steps, the
+counterpart of the JAX package's ``engine.py``.
+
+One card runs one replica's batch.  A step is: model in training mode,
+forward (the loss dict), backward, the fused optimizer update, BatchNorm
+running statistics kept as the modules moved them, and metrics = the loss
+components + the gradients' global norm.  PyTorch runs eagerly, so there
+is no compiled program: the step updates the state in place and returns
+it.  Under ``AMP`` the modules compute in bf16 with fp32 parameters; like
+the JAX package (``engine.py:16-18`` there) there is no GradScaler, since
+bf16 has fp32's exponent range.
+
+The step's random draws (dropout masks, the attention kernels' Philox
+seeds, prior noise) are a function of (``RANDOM_SEED``, step) alone
+(:class:`~clip_lite_torch.ops.layers.StepRNG`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from clip_lite_torch.config import Config
+from clip_lite_torch.eval_utils import resolve_device
+from clip_lite_torch.factories import OptimizerFactory, PretrainingModelFactory
+from clip_lite_torch.models.model import VLInfoModel
+from clip_lite_torch.ops.layers import StepRNG, init_weights
+from clip_lite_torch.optim.fused import FusedOptimizer
+
+Batch = Dict[str, object]
+
+
+@dataclass
+class TrainState:
+    """The training state: the model (its parameters and BatchNorm
+    statistics), the optimizer with its buffers and counters, and the
+    number of steps taken."""
+
+    step: int
+    model: VLInfoModel
+    optimizer: FusedOptimizer
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+
+def _check_supported(config: Config) -> None:
+    if config.PARALLEL.STEPS_PER_CALL > 1:
+        raise NotImplementedError(
+            "PARALLEL.STEPS_PER_CALL > 1 folds steps into one XLA program; "
+            "the port runs one step per call (ROADMAP Queue 3, deliberate "
+            "differences)")
+    if config.PARALLEL.ZERO1:
+        raise NotImplementedError("PARALLEL.ZERO1 lands with multi-GPU "
+                                  "training (ROADMAP Queue 1, item 5)")
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise NotImplementedError("training across ranks lands with "
+                                  "multi-GPU training (ROADMAP Queue 1, item 5)")
+
+
+def create_train_state(config: Config, device="cuda",
+                       state_dict: Optional[dict] = None) -> TrainState:
+    """The pretraining model of ``config`` on ``device`` (CUDA unless the
+    caller asks for the CPU), with the weights of ``state_dict`` or, by
+    default, random ones drawn from ``RANDOM_SEED``, and a fresh
+    optimizer at step 0."""
+    _check_supported(config)
+    device = resolve_device(device)
+    model = PretrainingModelFactory.from_config(config)
+    if state_dict is None:
+        init_weights(model, torch.Generator().manual_seed(config.RANDOM_SEED))
+    else:
+        model.load_state_dict(state_dict)
+    memory_format = (torch.channels_last if device.type == "cuda"
+                     else torch.preserve_format)
+    model = model.to(device, memory_format=memory_format)
+    return TrainState(step=0, model=model,
+                      optimizer=OptimizerFactory.from_config(config, model))
+
+
+def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def make_train_step(config: Config) -> Callable:
+    """``train_step(state, batch, prior_noise=None) -> (state, metrics)``.
+
+    ``batch`` holds ``image`` (B, H, W, 3) float32 and ``input_ids``,
+    ``attention_mask`` (B, L), as numpy arrays or tensors; ``prior_noise``
+    optionally replaces the prior terms' draws.  The metrics are 0-d
+    device tensors (reading one waits for the step).  After the step the
+    parameters' ``.grad`` hold its gradients, unclipped."""
+    _check_supported(config)
+    seed = config.RANDOM_SEED
+
+    def train_step(state: TrainState, batch: Batch,
+                   prior_noise: Optional[Dict[str, torch.Tensor]] = None):
+        model = state.model
+        model.train()
+        model.zero_grad(set_to_none=True)
+        rng = StepRNG(seed, state.step, state.device)
+        out = model(_to_device(batch, state.device), rng=rng,
+                    prior_noise=prior_noise)
+        out["loss"].backward()
+        grad_norm = state.optimizer.step()
+        state.step += 1
+        metrics = dict(out["loss_components"])
+        metrics["grad_norm"] = grad_norm
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(config: Config) -> Callable:
+    """``eval_step(state, batch, index=0, prior_noise=None) -> components``:
+    the loss components under eval-mode norms and no dropout (the val
+    sweep).  ``index`` (the batch's place in the sweep) varies the prior
+    noise across a sweep, as the JAX loop folds it into the key."""
+    seed = config.RANDOM_SEED
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Batch, index: int = 0,
+                  prior_noise: Optional[Dict[str, torch.Tensor]] = None):
+        model = state.model
+        model.eval()
+        rng = StepRNG(seed, state.step, state.device, stream=1 + index)
+        out = model(_to_device(batch, state.device), rng=rng,
+                    prior_noise=prior_noise)
+        return out["loss_components"]
+
+    return eval_step
+
+
+def metrics_to_floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Device metrics -> Python floats, with one copy to the host."""
+    names = list(metrics)
+    values = torch.stack([metrics[k].float() for k in names]).cpu()
+    return dict(zip(names, np.asarray(values, np.float64).tolist()))
+
+
+__all__ = ["TrainState", "create_train_state", "make_train_step",
+           "make_eval_step", "metrics_to_floats"]

@@ -62,10 +62,12 @@ class LossFactory:
             image_dim=image_dim,
             text_dim=text_dim,
             critic_type=_C.MODEL.LOSS.TYPE,
+            prior_weight=_C.MODEL.LOSS.PRIOR_WEIGHT,
             image_prior=_C.MODEL.LOSS.IMAGE_PRIOR,
             text_prior=_C.MODEL.LOSS.TEXT_PRIOR,
             visual_self_supervised=_C.MODEL.VISUAL.SELF_SUPERVISED,
             textual_self_supervised=_C.MODEL.TEXTUAL.SELF_SUPERVISED,
+            negatives=_C.MODEL.LOSS.NEGATIVES,
             compute_dtype=compute_dtype(_C),
         )
 
@@ -83,6 +85,42 @@ class PretrainingModelFactory:
             loss=LossFactory.from_config(config, image.feature_size,
                                          text.feature_size),
         )
+
+
+class OptimizerFactory:
+    """The fused update over ``model``'s parameters
+    (:mod:`clip_lite_torch.optim.fused`).  ``OPTIM.FUSED`` false selects
+    the JAX package's optax chain, which computes the same update
+    (``tests/test_optim.py::test_fused_matches_chain``); the port has the
+    fused form only."""
+
+    @classmethod
+    def from_config(cls, config: Config, model):
+        from clip_lite_torch.optim.fused import FusedOptimizer
+
+        return FusedOptimizer(model, config,
+                              LRSchedulerFactory.from_config(config))
+
+
+class LRSchedulerFactory:
+    """The warmup + decay multiplier schedule of ``OPTIM.LR_DECAY_NAME``."""
+
+    @classmethod
+    def from_config(cls, config: Config):
+        from clip_lite_torch.optim.schedules import SCHEDULES
+
+        _C = config
+        kwargs = dict(total_steps=_C.OPTIM.NUM_ITERATIONS,
+                      warmup_steps=_C.OPTIM.WARMUP_STEPS)
+        name = _C.OPTIM.LR_DECAY_NAME
+        if name == "multistep":
+            kwargs.update(gamma=_C.OPTIM.LR_GAMMA,
+                          milestones=list(_C.OPTIM.LR_STEPS))
+        if name == "cosine":
+            kwargs.update(min_mult=_C.OPTIM.MIN_LR_MULT)
+        if name not in SCHEDULES:
+            raise KeyError(f"Unknown LR schedule {name!r}")
+        return SCHEDULES[name](**kwargs)
 
 
 class TokenizerFactory:

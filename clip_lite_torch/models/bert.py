@@ -6,6 +6,11 @@ LayerNorm eps 1e-12), a fused (H, 3H) QKV projection, the token-flattened
 pooler over the first token.  Padding enters as the additive key bias
 ``(1 - mask) * MASK_VALUE``.  Dense layers and embeddings are initialised
 N(0, 0.02) with zero biases.  Module names follow the JAX parameter tree.
+
+Dropout (embeddings, attention probabilities, both residual branches, all
+at ``dropout_rate`` as the JAX tower sets them) is active in training mode
+and draws from the step's :class:`StepRNG`: the hidden masks from its
+device generator, the attention kernels' Philox seeds from its CPU one.
 """
 
 from __future__ import annotations
@@ -22,7 +27,14 @@ from clip_lite_torch.ops.attention import (
     fused_short_attention,
     resolve_fused_flag,
 )
-from clip_lite_torch.ops.layers import LayerNorm, Linear, normal_init, zeros_init
+from clip_lite_torch.ops.layers import (
+    LayerNorm,
+    Linear,
+    StepRNG,
+    dropout,
+    normal_init,
+    zeros_init,
+)
 
 bert_dense_init = normal_init(0.02)
 
@@ -51,15 +63,16 @@ class BertEmbeddings(nn.Module):
             bert_dense_init(emb.weight.data, generator)
 
     def forward(self, input_ids: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                rng: Optional[StepRNG] = None) -> torch.Tensor:
         s = input_ids.shape[1]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         pos = torch.arange(s, device=input_ids.device)[None, :]
         x = self.word(input_ids) + self.position(pos) + self.token_type(
             token_type_ids)
-        x = F.dropout(self.ln(x), self.dropout_rate, self.training)
-        return x.to(self.compute_dtype)
+        rate = self.dropout_rate if self.training else 0.0
+        return dropout(self.ln(x), rate, rng).to(self.compute_dtype)
 
 
 class BertLayer(nn.Module):
@@ -81,23 +94,29 @@ class BertLayer(nn.Module):
         self.output = _dense(intermediate_size, h, dt)
         self.out_ln = LayerNorm(h, layer_norm_eps, dt)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+                rng: Optional[StepRNG] = None) -> torch.Tensor:
         """x: (B*S, H); mask_bias: (B, S) fp32."""
         b, s = mask_bias.shape
         h = x.shape[-1]
         rate = self.dropout_rate if self.training else 0.0
+        if rate > 0.0 and rng is None:
+            raise ValueError("BERT dropout in training needs the step's StepRNG")
         xin = x.to(self.compute_dtype)
         qkv = self.qkv(xin).view(b, s, 3 * h)
         if resolve_fused_flag(self.fused_attention, qkv.device):
-            ctx = fused_short_attention(qkv, mask_bias, self.num_heads,
-                                        dropout_rate=rate,
-                                        deterministic=not self.training)
+            ctx = fused_short_attention(
+                qkv, mask_bias, self.num_heads, dropout_rate=rate,
+                deterministic=rate <= 0.0,
+                seed=rng.kernel_seed() if rate > 0.0 else None)
         else:
-            ctx = attention_reference(qkv, mask_bias, self.num_heads, rate)
-        attn = F.dropout(self.attn_out(ctx.view(b * s, h)), rate, self.training)
+            keep = (rng.keep_mask((b, self.num_heads, s, s), rate)
+                    if rate > 0.0 else None)
+            ctx = attention_reference(qkv, mask_bias, self.num_heads, rate, keep)
+        attn = dropout(self.attn_out(ctx.view(b * s, h)), rate, rng)
         x = self.attn_ln(xin + attn)
         inter = F.gelu(self.intermediate(x))
-        out = F.dropout(self.output(inter), rate, self.training)
+        out = dropout(self.output(inter), rate, rng)
         return self.out_ln(x + out)
 
 
@@ -127,15 +146,16 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                token_type_ids: Optional[torch.Tensor] = None
+                token_type_ids: Optional[torch.Tensor] = None,
+                rng: Optional[StepRNG] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         mask_bias = (1.0 - attention_mask.float()) * MASK_VALUE
         b, s = input_ids.shape
-        x = self.embeddings(input_ids, token_type_ids).view(b * s, -1)
+        x = self.embeddings(input_ids, token_type_ids, rng).view(b * s, -1)
         for name in self.layer_names:
-            x = getattr(self, name)(x, mask_bias)
+            x = getattr(self, name)(x, mask_bias, rng)
         sequence_output = x.view(b, s, self.hidden_size).float()
         pooled = None
         if self.pooler is not None:

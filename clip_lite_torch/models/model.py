@@ -1,16 +1,17 @@
-"""VLInfoModel: the image tower, the text tower and the JSD loss's
-critics, with the encoding and projection API the downstream evals use.
-The training forward (the loss dict) lands with the training slice."""
+"""VLInfoModel: the image tower, the text tower and the JSD loss, with
+the training forward (the loss dict) and the encoding and projection API
+the downstream evals use."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from clip_lite_torch.models.image_encoder import ImageEncoder
 from clip_lite_torch.models.text_encoder import TextEncoder
+from clip_lite_torch.ops.layers import StepRNG
 from clip_lite_torch.ops.loss import JSDInfoMaxLoss
 
 
@@ -21,6 +22,29 @@ class VLInfoModel(nn.Module):
         self.image_encoder = image_encoder
         self.text_encoder = text_encoder
         self.loss = loss
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[StepRNG] = None,
+                prior_noise: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, Any]:
+        """``{"loss", "loss_components"}`` for a batch of ``image``
+        (B, H, W, 3), ``input_ids`` and ``attention_mask`` (B, L), the
+        components detached (``models/model.py:29-70`` of the JAX
+        package).  Norms and dropout follow the module's training mode;
+        ``rng`` is the step's draws, ``prior_noise`` an optional
+        replacement for the prior terms' noise."""
+        extra = sorted(k for k in batch if k.startswith(("neg_", "aug_")))
+        if extra:
+            raise NotImplementedError(
+                f"batch keys {extra}: hard negatives and augmented pairs are "
+                "not ported yet (ROADMAP Queue 1, item 7)")
+        image_features = self.image_encoder(batch["image"])
+        text_features = self.text_encoder(batch, rng=rng)
+        components = self.loss(image_features, text_features,
+                               prior_noise=prior_noise, rng=rng)
+        return {"loss": components["total_loss"],
+                "loss_components": {k: v.detach()
+                                    for k, v in components.items()}}
 
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
         return self.image_encoder(image)

@@ -9,12 +9,13 @@ in ROADMAP.md (Queue 1, "The rest of the model matrix").
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from clip_lite_torch.models.bert import BertModel
+from clip_lite_torch.ops.layers import StepRNG
 
 
 class TextEncoder(nn.Module):
@@ -41,9 +42,12 @@ class TextEncoder(nn.Module):
             dropout_rate=transformer_dropout)
         self.feature_size = h
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[StepRNG] = None) -> torch.Tensor:
         """batch: input_ids, attention_mask (B, L) int.  Returns the
-        (B, hidden) fp32 pooler output."""
+        (B, hidden) fp32 pooler output.  ``rng``: the step's draws, which
+        BERT's dropout needs in training."""
         _, pooled = self.transformer(batch["input_ids"],
-                                     attention_mask=batch.get("attention_mask"))
+                                     attention_mask=batch.get("attention_mask"),
+                                     rng=rng)
         return pooled

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/lib<name>-<hash>.so`` at the root of the checkout, for
-``sm_90a`` (Hopper).  The hash covers the source and the flags, so an
-edited source never loads a stale library.  Builds happen at first use,
+``sm_90a`` (Hopper).  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header never loads
+a stale library.  Builds happen at first use,
 never at import; :func:`build_all` starts one nvcc per source at once.
 """
 
@@ -40,6 +41,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

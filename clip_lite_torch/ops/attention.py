@@ -1,17 +1,32 @@
 """Multi-head self-attention over packed QKV for short sequences.
 
-``fused_short_attention`` is the wrapper of K1, the hand-written CUDA
-kernel in ``csrc/attention_fwd.cu`` (the port of the JAX package's Pallas
-``_attention_fwd_kernel``).  ``attention_reference`` is its plain PyTorch
-version: the CPU tests use it, the wrapper takes it for CPU tensors, and
-``chip_smoke.py`` holds the kernel against it on the card.
+Two hand-written CUDA kernels, the port of the JAX package's Pallas pair
+(``clip_lite_tpu/ops/attention.py``):
+
+- K1, ``csrc/attention_fwd.cu``: scores, key bias, softmax, dropout and
+  context in one launch; wrapper :func:`attention_forward`.
+- K2, ``csrc/attention_bwd.cu``: the recompute backward (probabilities and
+  dropout mask regenerated, nothing saved but the inputs); wrapper
+  :func:`attention_backward`.
+
+:func:`fused_short_attention` ties them together as a
+``torch.autograd.Function``, in the role of the JAX package's
+``jax.custom_vjp`` ``_fused``.  Each kernel has a plain PyTorch twin in
+this module (:func:`attention_reference`,
+:func:`attention_backward_reference`, and :func:`philox_keep_mask` for
+the dropout mask): the wrappers take the twins for CPU tensors, and
+``chip_smoke.py`` holds the kernels against them on the card.
 
 Layout contract, as in the JAX package: q/k/v arrive packed as the fused
 projection's output (B, S, 3*NH*HD), head h of q/k/v in lanes
 [h*HD, (h+1)*HD) of each third; the context leaves as (B, S, NH*HD).
 Semantics: additive fp32 score bias (``MASK_VALUE`` on padded keys), fp32
-softmax, probabilities cast to the compute type before the context
-product, fp32 accumulation.
+softmax, dropout (keep / (1 - rate)), probabilities cast to the compute
+type before the context product, fp32 accumulation.
+
+Dropout draws: the keep decision for element (b, h, i, j) is Philox's
+function of (seed, b, h, i, j) (``csrc/attention_common.cuh``), the same
+in K1, K2 and the CPU twin; tests may pass an explicit keep mask instead.
 """
 
 from __future__ import annotations
@@ -19,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,101 +43,336 @@ MASK_VALUE = float(np.finfo(np.float32).min) * 0.5
 MAX_SEQ = 256
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_M32 = 0xFFFFFFFF
+
+
+def dropout_threshold(rate: float) -> int:
+    """Keep iff 32 random bits >= this (``attention.py:268`` of the JAX
+    package)."""
+    return min(int(rate * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def _inv_keep(rate: float) -> float:
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def _philox_bits(seed: int, b, h, i, j) -> np.ndarray:
+    """First output word of Philox4x32-10 on counter (j, i, h, b) (uint64
+    arrays holding 32-bit words) and key (seed low, seed high): numpy's
+    twin of ``philox_bits`` in ``csrc/attention_common.cuh`` (64-bit
+    products of 32-bit words are exact in uint64)."""
+    c0, c1, c2, c3 = j, i, h, b
+    k0, k1 = seed & _M32, (seed >> 32) & _M32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & _M32, (k1 + 0xBB67AE85) & _M32
+        p0 = np.uint64(0xD2511F53) * c0
+        p1 = np.uint64(0xCD9E8D57) * c2
+        c0, c1, c2, c3 = ((p1 >> np.uint64(32)) ^ c1 ^ np.uint64(k0),
+                          p1 & np.uint64(_M32),
+                          (p0 >> np.uint64(32)) ^ c3 ^ np.uint64(k1),
+                          p0 & np.uint64(_M32))
+    return c0
+
+
+def philox_keep_mask(seed: int, batch: int, num_heads: int, seq: int,
+                     rate: float) -> torch.Tensor:
+    """(B, NH, S, S) bool keep mask of seed ``seed``: the plain twin of the
+    kernels' draw, kept iff the element's bits >= the rate's threshold."""
+    b, h, i, j = np.meshgrid(*(np.arange(n, dtype=np.uint64)
+                               for n in (batch, num_heads, seq, seq)),
+                             indexing="ij")
+    bits = _philox_bits(seed, b, h, i, j)
+    return torch.from_numpy(bits >= np.uint64(dropout_threshold(rate)))
+
+
+def _heads(qkv: torch.Tensor, num_heads: int):
+    b, s, three_h = qkv.shape
+    hd = three_h // 3 // num_heads
+    return qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    return torch.softmax(scores / math.sqrt(q.shape[-1])
+                         + bias[:, None, None, :], dim=-1)
+
+
+def _drop(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor]):
+    if rate <= 0.0:
+        return x
+    if keep is None:
+        raise ValueError("attention dropout needs a keep mask")
+    return torch.where(keep.bool(), x * _inv_keep(rate), 0.0)
 
 
 def attention_reference(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
-                        dropout_rate: float = 0.0) -> torch.Tensor:
-    """Plain PyTorch attention on the packed layout; ``bias`` is the
-    (B, S) fp32 key bias."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout lands with the training slice "
-            "(ROADMAP Queue 2, K1 dropout)")
+                        dropout_rate: float = 0.0,
+                        keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch attention on the packed layout, K1's twin; ``bias`` is
+    the (B, S) fp32 key bias, ``keep_mask`` the (B, NH, S, S) keep mask
+    that dropout at ``dropout_rate`` > 0 needs."""
     b, s, three_h = qkv.shape
-    hidden = three_h // 3
-    hd = hidden // num_heads
-    q, k, v = qkv.view(b, s, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    probs = torch.softmax(scores / math.sqrt(hd) + bias[:, None, None, :],
-                          dim=-1)
+    q, k, v = _heads(qkv, num_heads)
+    probs = _drop(_probs(q, k, bias), dropout_rate, keep_mask)
     ctx = torch.matmul(probs.to(qkv.dtype), v)  # (B, NH, S, HD)
-    return ctx.transpose(1, 2).reshape(b, s, hidden)
+    return ctx.transpose(1, 2).reshape(b, s, three_h // 3)
+
+
+def attention_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
+                                 g: torch.Tensor, num_heads: int,
+                                 dropout_rate: float = 0.0,
+                                 keep_mask: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """K2's twin, step by step: d(qkv) of :func:`attention_reference` for
+    the output gradient ``g`` (B, S, H), in the compute type of ``qkv``.
+    Probabilities and ``ds`` in fp32; ``p_d`` and ``ds / sqrt(HD)``
+    rounded to the compute type before their products; fp32 accumulation
+    and one rounding at the output."""
+    cdt = qkv.dtype
+    b, s, three_h = qkv.shape
+    q, k, v = _heads(qkv, num_heads)
+    gh = g.to(cdt).view(b, s, num_heads, -1).transpose(1, 2).float()
+    probs = _probs(q, k, bias)
+    pd = _drop(probs, dropout_rate, keep_mask).to(cdt).float()
+    dv = torch.matmul(pd.transpose(-1, -2), gh)
+    dp = _drop(torch.matmul(gh, v.float().transpose(-1, -2)), dropout_rate,
+               keep_mask)
+    ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+    ds = (ds * (1.0 / math.sqrt(q.shape[-1]))).to(cdt).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dqkv = torch.stack([dq, dk, dv])  # (3, B, NH, S, HD)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, three_h).to(cdt)
 
 
 @functools.cache
-def _kernel() -> ctypes.CDLL:
+def _library(name: str) -> ctypes.CDLL:
     from clip_lite_torch.ops import _build
 
-    lib = _build.load("attention_fwd")
-    lib.attention_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    lib.attention_fwd.restype = ctypes.c_int
+    lib = _build.load(name)
+    dropout_args = [ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+                    ctypes.c_uint64, ctypes.c_void_p]
+    if name == "attention_fwd":
+        lib.attention_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                                      + dropout_args)
+        lib.attention_fwd.restype = ctypes.c_int
+        lib.attention_dropout_mask.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 3
+            + [ctypes.c_uint32, ctypes.c_uint64, ctypes.c_void_p])
+        lib.attention_dropout_mask.restype = ctypes.c_int
+    else:
+        lib.attention_bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                                      + dropout_args)
+        lib.attention_bwd.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
-                          num_heads: int, *, dropout_rate: float = 0.0,
-                          deterministic: bool = True) -> torch.Tensor:
-    """Multi-head self-attention over packed QKV through K1.
-
-    Args:
-      qkv: (B, S, 3*H) fused projection output, float32 or bfloat16.
-      mask_bias: (B, S) float32 additive key bias (0 on real tokens,
-        ``MASK_VALUE`` on padding).
-      num_heads: number of heads; H / num_heads must be 64.
-      dropout_rate, deterministic: attention dropout; only rate 0 (or
-        ``deterministic=True``) is supported yet.
-
-    CPU tensors take :func:`attention_reference`.  CUDA tensors launch the
-    kernel or raise; every launch adds one to
-    ``fused_short_attention.launches``.
-    """
-    rate = 0.0 if deterministic else float(dropout_rate)
-    if rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout in K1 lands with the training slice "
-            "(ROADMAP Queue 2)")
-    if mask_bias.ndim != 2:
-        raise NotImplementedError(
-            "K1 takes a (B, S) key bias; the full (B, NH, S, S) bias "
-            "variant is queued for MPNet (ROADMAP Queue 2)")
+def _check_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
+                keep_mask: Optional[torch.Tensor], *others: torch.Tensor):
+    """Raise on what the kernels do not take; return the keep mask as a
+    contiguous int8 tensor (or None)."""
     b, s, three_h = qkv.shape
-    hidden = three_h // 3
-    if s > MAX_SEQ:
-        raise ValueError(f"K1 covers sequences up to {MAX_SEQ}, got {s}")
-    if qkv.device.type == "cpu":
-        return attention_reference(qkv, mask_bias, num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {qkv.device}")
     if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"K1 takes float32 or bfloat16 qkv, got {qkv.dtype}")
-    if mask_bias.dtype != torch.float32 or mask_bias.device != qkv.device:
+        raise TypeError(f"the attention kernels take float32 or bfloat16 qkv, "
+                        f"got {qkv.dtype}")
+    if bias.dtype != torch.float32 or bias.device != qkv.device:
         raise TypeError("mask_bias must be float32 on the device of qkv")
-    if three_h % 3 or hidden != num_heads * HEAD_DIM:
-        raise ValueError(f"K1 needs head_dim {HEAD_DIM}: got width {three_h} "
-                         f"for {num_heads} heads")
-    if mask_bias.shape != (b, s) or b == 0 or s == 0:
+    if three_h % 3 or three_h // 3 != num_heads * HEAD_DIM:
+        raise ValueError(f"the attention kernels need head_dim {HEAD_DIM}: got "
+                         f"width {three_h} for {num_heads} heads")
+    if bias.shape != (b, s) or b == 0 or s == 0:
         raise ValueError(f"bad shapes qkv {tuple(qkv.shape)}, "
-                         f"mask_bias {tuple(mask_bias.shape)}")
-    if not (qkv.is_contiguous() and mask_bias.is_contiguous()):
-        raise ValueError("K1 takes contiguous qkv and mask_bias")
-    out = torch.empty((b, s, hidden), dtype=qkv.dtype, device=qkv.device)
-    lib = _kernel()
+                         f"mask_bias {tuple(bias.shape)}")
+    if not all(t.is_contiguous() for t in (qkv, bias, *others)):
+        raise ValueError("the attention kernels take contiguous tensors")
+    if keep_mask is None:
+        return None
+    if keep_mask.shape != (b, num_heads, s, s) or keep_mask.device != qkv.device:
+        raise ValueError(f"keep_mask must be (B, NH, S, S) = "
+                         f"{(b, num_heads, s, s)} on the device of qkv")
+    return keep_mask.to(torch.int8).contiguous()
+
+
+def _dropout_args(rate: float, seed: int):
+    if rate <= 0.0:
+        return 0, 0, 1.0, 0
+    return 1, dropout_threshold(rate), _inv_keep(rate), int(seed)
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.kernel_error_string(err).decode())
+
+
+def _check_seq(qkv: torch.Tensor, bias: torch.Tensor) -> None:
+    if bias.ndim != 2:
+        raise NotImplementedError(
+            "the attention kernels take a (B, S) key bias; the full "
+            "(B, NH, S, S) bias and its dbias are queued for MPNet (ROADMAP "
+            "Queue 2)")
+    if qkv.shape[1] > MAX_SEQ:
+        raise ValueError(f"the attention kernels cover sequences up to "
+                         f"{MAX_SEQ}, got {qkv.shape[1]}")
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {qkv.device}")
+
+
+def _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask):
+    if rate <= 0.0 or keep_mask is not None:
+        return keep_mask
+    b, s, _ = qkv.shape
+    return philox_keep_mask(seed, b, num_heads, s, rate)
+
+
+def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
+                      num_heads: int, *, dropout_rate: float = 0.0,
+                      seed: int = 0,
+                      keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1's wrapper (no autograd): the context of ``qkv`` (B, S, 3H) under
+    the (B, S) fp32 key bias, with attention dropout at ``dropout_rate``
+    drawn from Philox(``seed``) or taken from ``keep_mask``.
+
+    CPU tensors take :func:`attention_reference`.  CUDA tensors launch K1
+    or raise; every launch adds one to ``fused_short_attention.launches``.
+    """
+    _check_seq(qkv, mask_bias)
+    rate = float(dropout_rate)
+    if qkv.device.type == "cpu":
+        keep = _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask)
+        return attention_reference(qkv, mask_bias, num_heads, rate, keep)
+    keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask)
+    b, s, three_h = qkv.shape
+    out = torch.empty((b, s, three_h // 3), dtype=qkv.dtype, device=qkv.device)
+    lib = _library("attention_fwd")
     with torch.cuda.device(qkv.device):
         err = lib.attention_fwd(
-            qkv.data_ptr(), mask_bias.data_ptr(), out.data_ptr(), b, s,
+            qkv.data_ptr(), mask_bias.data_ptr(),
+            None if keep is None else keep.data_ptr(), out.data_ptr(), b, s,
             num_heads, HEAD_DIM, _DTYPE_CODES[qkv.dtype],
+            *_dropout_args(rate, seed),
             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError("K1 launch failed: "
-                           + lib.kernel_error_string(err).decode())
+    _raise_on(lib, err, "K1")
     fused_short_attention.launches += 1
     return out
 
 
+def attention_backward(qkv: torch.Tensor, mask_bias: torch.Tensor,
+                       g: torch.Tensor, num_heads: int, *,
+                       dropout_rate: float = 0.0, seed: int = 0,
+                       keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2's wrapper: d(qkv) (B, S, 3H) in the type of ``qkv`` for the
+    output gradient ``g`` of :func:`attention_forward` with the same
+    arguments (``g`` is cast to the compute type first).
+
+    CPU tensors take :func:`attention_backward_reference`.  CUDA tensors
+    launch K2 or raise; every launch adds one to
+    ``attention_backward.launches``.
+    """
+    _check_seq(qkv, mask_bias)
+    rate = float(dropout_rate)
+    g = g.to(qkv.dtype).contiguous()
+    if qkv.device.type == "cpu":
+        keep = _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask)
+        return attention_backward_reference(qkv, mask_bias, g, num_heads,
+                                            rate, keep)
+    keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask, g)
+    b, s, three_h = qkv.shape
+    if g.shape != (b, s, three_h // 3) or g.device != qkv.device:
+        raise ValueError(f"g must be (B, S, H) = {(b, s, three_h // 3)} on the "
+                         "device of qkv")
+    dqkv = torch.empty_like(qkv)
+    lib = _library("attention_bwd")
+    with torch.cuda.device(qkv.device):
+        err = lib.attention_bwd(
+            qkv.data_ptr(), mask_bias.data_ptr(), g.data_ptr(),
+            None if keep is None else keep.data_ptr(), dqkv.data_ptr(), b, s,
+            num_heads, HEAD_DIM, _DTYPE_CODES[qkv.dtype],
+            *_dropout_args(rate, seed),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "K2")
+    attention_backward.launches += 1
+    return dqkv
+
+
+def dropout_keep_mask(seed: int, batch: int, num_heads: int, seq: int,
+                      rate: float, device="cpu") -> torch.Tensor:
+    """The (B, NH, S, S) bool keep mask that K1 and K2 draw for ``seed``:
+    written by the kernels' own entry point on CUDA, by
+    :func:`philox_keep_mask` on the CPU.  For tests and checks; the
+    training path never materialises it."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return philox_keep_mask(seed, batch, num_heads, seq, rate)
+    keep = torch.empty((batch, num_heads, seq, seq), dtype=torch.int8,
+                       device=device)
+    lib = _library("attention_fwd")
+    with torch.cuda.device(device):
+        err = lib.attention_dropout_mask(
+            keep.data_ptr(), batch, num_heads, seq, dropout_threshold(rate),
+            int(seed), torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "dropout mask")
+    return keep.view(torch.bool)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K1 forward, K2 backward; saves ``qkv``, ``bias`` and the dropout
+    seed (and the keep mask only when the caller gave one)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads, rate, seed, keep_mask):
+        ctx.save_for_backward(qkv, bias, keep_mask)
+        ctx.args = (num_heads, rate, seed)
+        return attention_forward(qkv, bias, num_heads, dropout_rate=rate,
+                                 seed=seed, keep_mask=keep_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias, keep_mask = ctx.saved_tensors
+        num_heads, rate, seed = ctx.args
+        dqkv = attention_backward(qkv, bias, g, num_heads, dropout_rate=rate,
+                                  seed=seed, keep_mask=keep_mask)
+        return dqkv, None, None, None, None, None
+
+
+def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
+                          num_heads: int, *, dropout_rate: float = 0.0,
+                          deterministic: bool = True, seed: Optional[int] = None,
+                          keep_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Multi-head self-attention over packed QKV, differentiable: K1
+    forward, K2 backward.
+
+    Args:
+      qkv: (B, S, 3*H) fused projection output, float32 or bfloat16.
+      mask_bias: (B, S) float32 additive key bias (0 on real tokens,
+        ``MASK_VALUE`` on padding); it gets no gradient.
+      num_heads: number of heads; H / num_heads must be 64 on CUDA.
+      dropout_rate, deterministic: attention-probability dropout, off when
+        ``deterministic``.
+      seed: the dropout draw's key (an int below 2**64); required when
+        dropout is active and no ``keep_mask`` is given.
+      keep_mask: optional (B, NH, S, S) keep mask replacing Philox's draw
+        (the parity tests' hook).
+
+    CPU tensors run the plain twins in both directions; CUDA tensors launch
+    the kernels or raise.
+    """
+    rate = 0.0 if deterministic else float(dropout_rate)
+    _check_seq(qkv, mask_bias)
+    if rate > 0.0 and seed is None and keep_mask is None:
+        raise ValueError("attention dropout needs a seed or a keep mask")
+    if rate <= 0.0:
+        keep_mask = None
+    return _FusedAttention.apply(qkv, mask_bias, num_heads, rate,
+                                 0 if seed is None else int(seed), keep_mask)
+
+
 fused_short_attention.launches = 0
+attention_backward.launches = 0
 
 
 def resolve_fused_flag(flag, device) -> bool:
@@ -136,5 +387,7 @@ def resolve_fused_flag(flag, device) -> bool:
     return bool(flag)
 
 
-__all__ = ["fused_short_attention", "attention_reference",
-           "resolve_fused_flag", "MASK_VALUE"]
+__all__ = ["fused_short_attention", "attention_forward", "attention_backward",
+           "attention_reference", "attention_backward_reference",
+           "dropout_keep_mask", "philox_keep_mask", "resolve_fused_flag",
+           "MASK_VALUE"]

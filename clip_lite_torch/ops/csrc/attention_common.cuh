@@ -1,0 +1,99 @@
+// Shared pieces of the attention kernels K1 (attention_fwd.cu) and K2
+// (attention_bwd.cu): type conversions, warp reductions, and the dropout
+// keep decision.
+//
+// Dropout: the TPU kernels draw their keep bits from the core's own PRNG,
+// seeded per batch block, so forward and backward must pick the same
+// block (clip_lite_tpu/ops/attention.py:49-54).  Here the bits come from
+// Philox4x32-10 (Salmon et al., SC'11), a counter-based generator: the
+// keep decision for element (b, h, i, j) is a pure function of
+// (seed, b, h, i, j), whatever block or thread computes it.  K1, K2 and
+// the mask entry point all call keep_at() below, so they agree element
+// for element.  The threshold follows the JAX kernel: keep iff
+// bits >= min(rate * 2^32, 2^32 - 1).  numpy's twin of philox_bits is
+// clip_lite_torch/ops/attention.py::philox_keep_mask.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace attn {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Round an fp32 value to T and back: "astype(compute dtype)".
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_float(from_float<T>(v));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Philox4x32-10 on counter (j, i, h, b) and key (seed low, seed high);
+// the first output word.
+__host__ __device__ inline uint32_t philox_bits(uint64_t seed, uint32_t b,
+                                                uint32_t h, uint32_t i,
+                                                uint32_t j) {
+  uint32_t c0 = j, c1 = i, c2 = h, c3 = b;
+  uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint64_t p0 = (uint64_t)0xD2511F53u * c0;
+    const uint64_t p1 = (uint64_t)0xCD9E8D57u * c2;
+    const uint32_t n0 = (uint32_t)(p1 >> 32) ^ c1 ^ k0;
+    const uint32_t n2 = (uint32_t)(p0 >> 32) ^ c3 ^ k1;
+    c1 = (uint32_t)p1;
+    c3 = (uint32_t)p0;
+    c0 = n0;
+    c2 = n2;
+  }
+  return c0;
+}
+
+// Attention-probability dropout.  ``active`` is 0 in eval mode or at rate
+// 0.  ``keep`` is an optional external (B, NH, S, S) int8 mask (the
+// parity tests' pattern, clip_lite_tpu/ops/attention.py:255-261); when it
+// is null the mask is Philox's.
+struct Dropout {
+  const int8_t* keep;
+  unsigned long long seed;
+  uint32_t threshold;
+  float inv_keep;
+  int active;
+};
+
+__device__ __forceinline__ bool keep_at(const Dropout& d, int b, int h, int i,
+                                        int j, int NH, int S) {
+  if (d.keep) return d.keep[(((size_t)b * NH + h) * S + i) * S + j] != 0;
+  return philox_bits(d.seed, b, h, i, j) >= d.threshold;
+}
+
+}  // namespace attn

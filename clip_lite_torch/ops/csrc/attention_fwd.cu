@@ -6,21 +6,26 @@
 //
 //   per (batch item b, head h):
 //     s    = q_h k_h^T / sqrt(HD) + bias[b, :]    (fp32, key bias)
-//     p    = softmax(s) in fp32, then rounded to the compute type
+//     p    = softmax(s) in fp32
+//     p    = keep ? p / (1 - rate) : 0            (dropout, training only)
+//     p    = p rounded to the compute type
 //     ctx  = p v_h, accumulated in fp32, rounded to the output type
 //   written straight into out[b, :, h*HD:(h+1)*HD] of a (B, S, H) tensor,
 //   reading q/k/v from the packed (B, S, 3H) projection, so no
-//   (B, NH, S, HD) tensor ever exists in device memory.
+//   (B, NH, S, HD) tensor ever exists in device memory.  The keep mask is
+//   Philox's, keyed by (seed, b, h, i, j) (attention_common.cuh), so K2
+//   regenerates it without storing it.
 //
 // What bounds it on an H100: bytes.  At the flagship shape (B=128, S=30,
 // NH=12, HD=64, bf16) one launch must read 17.7 MB of qkv and write
 // 5.9 MB of context, about 7 us at 3.35 TB/s, against 0.35 GFLOP of
-// products (well under a microsecond on the tensor cores).  So the design
-// reads every input byte once and writes every output byte once: one
-// thread block per (b, h) stages its q, k and v rows (S x HD each) in
-// shared memory, and nothing but the context leaves the block.  The
-// products run on the CUDA cores in fp32; at S <= 256 they are small and
-// a tensor-core (wgmma / mma.sync) version is later work.
+// products (well under a microsecond on the tensor cores); dropout adds
+// 1.4 M Philox draws of arithmetic and no bytes.  So the design reads
+// every input byte once and writes every output byte once: one thread
+// block per (b, h) stages its q, k and v rows (S x HD each) in shared
+// memory, and nothing but the context leaves the block.  The products run
+// on the CUDA cores in fp32; at S <= 256 they are small and a tensor-core
+// (wgmma / mma.sync) version is later work.
 //
 // Layout of the work inside a block: each warp owns query rows
 // i = warp, warp + kWarps, ...; for its row it keeps q in registers, lane
@@ -30,42 +35,17 @@
 // owns HD / 32 output columns.  Padded key columns (j >= S) never enter
 // the softmax and no padded query row is written.
 //
-// C interface (loaded with ctypes): attention_fwd(...) returns the
-// cudaError_t of the launch; 0 is success.
+// C interface (loaded with ctypes): attention_fwd(...) and
+// attention_dropout_mask(...) return the cudaError_t of the launch; 0 is
+// success.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using namespace attn;
 
 // Shared memory: q (S*HD), k (S*(HD+1)), v (S*HD), bias (S), and one row of
 // probabilities per warp (kWarps*S), all fp32.
@@ -77,7 +57,8 @@ __host__ __device__ inline size_t smem_bytes(int S, int HD) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                     T* __restrict__ out, int S, int NH, float scale) {
+                     T* __restrict__ out, int S, int NH, float scale,
+                     Dropout drop) {
   static_assert(HD % 32 == 0, "head_dim must be a multiple of the warp size");
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / 32;
@@ -132,8 +113,10 @@ attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
     }
     sum = warp_sum(sum);
     for (int j = lane; j < S; j += 32) {
+      float pj = p[j] / sum;
+      if (drop.active) pj = keep_at(drop, b, h, i, j, NH, S) ? pj * drop.inv_keep : 0.f;
       // probs.astype(compute dtype) before the context product.
-      p[j] = to_float(from_float<T>(p[j] / sum));
+      p[j] = round_to<T>(pj);
     }
     __syncwarp();
 
@@ -153,9 +136,22 @@ attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
+__global__ void dropout_mask_kernel(int8_t* __restrict__ keep, int B, int NH,
+                                    int S, Dropout drop) {
+  const size_t n = (size_t)B * NH * S * S;
+  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    const int j = (int)(idx % S);
+    const int i = (int)(idx / S % S);
+    const int h = (int)(idx / ((size_t)S * S) % NH);
+    const int b = (int)(idx / ((size_t)S * S * NH));
+    keep[idx] = keep_at(drop, b, h, i, j, NH, S) ? 1 : 0;
+  }
+}
+
 template <typename T, int HD>
 int launch(const void* qkv, const void* bias, void* out, int B, int S, int NH,
-           cudaStream_t stream) {
+           const Dropout& drop, cudaStream_t stream) {
   auto kernel = attention_fwd_kernel<T, HD>;
   const size_t smem = smem_bytes(S, HD);
   if (smem > 48 * 1024) {
@@ -166,7 +162,7 @@ int launch(const void* qkv, const void* bias, void* out, int B, int S, int NH,
   const float scale = 1.0f / sqrtf((float)HD);
   kernel<<<dim3(NH, B), kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(bias),
-      static_cast<T*>(out), S, NH, scale);
+      static_cast<T*>(out), S, NH, scale, drop);
   return (int)cudaGetLastError();
 }
 
@@ -176,15 +172,38 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (qkv and out); bias is always float32.
 // qkv (B, S, 3*NH*HD), bias (B, S) and out (B, S, NH*HD) are contiguous.
-int attention_fwd(const void* qkv, const void* bias, void* out, int B, int S,
-                  int NH, int HD, int dtype, void* stream) {
+// dropout != 0 applies attention dropout: keep (B, NH, S, S) int8 when not
+// null, else Philox(seed) against threshold; kept values scale by inv_keep.
+int attention_fwd(const void* qkv, const void* bias, const void* keep,
+                  void* out, int B, int S, int NH, int HD, int dtype,
+                  int dropout, unsigned int threshold, float inv_keep,
+                  unsigned long long seed, void* stream) {
   if (HD != 64 || B < 1 || B > 65535 || S < 1 || NH < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  const Dropout drop{static_cast<const int8_t*>(keep), seed, threshold,
+                     inv_keep, dropout != 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, 64>(qkv, bias, out, B, S, NH, st);
-  if (dtype == 1) return launch<__nv_bfloat16, 64>(qkv, bias, out, B, S, NH, st);
+  if (dtype == 0) return launch<float, 64>(qkv, bias, out, B, S, NH, drop, st);
+  if (dtype == 1) return launch<__nv_bfloat16, 64>(qkv, bias, out, B, S, NH, drop, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Writes the Philox keep mask that K1 and K2 use for (seed, threshold)
+// into keep (B, NH, S, S) int8, 1 = kept.
+int attention_dropout_mask(void* keep, int B, int NH, int S,
+                           unsigned int threshold, unsigned long long seed,
+                           void* stream) {
+  if (B < 1 || NH < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const Dropout drop{nullptr, seed, threshold, 1.0f, 1};
+  const size_t n = (size_t)B * NH * S * S;
+  const int threads = 256;
+  const int blocks = (int)((n + threads - 1) / threads < 65536
+                               ? (n + threads - 1) / threads
+                               : 65536);
+  dropout_mask_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(keep), B, NH, S, drop);
+  return (int)cudaGetLastError();
 }
 
 const char* kernel_error_string(int err) {

@@ -8,13 +8,17 @@ type.  Normalization statistics are always taken in float32.
 Weights are set by :func:`init_weights`, which walks a model and calls
 each layer's ``init_weights(generator)``: every layer initialises its own
 direct parameters, with the same distributions as the JAX package.
+
+Training draws its randomness from a :class:`StepRNG`, which the step owns
+and passes down; nothing draws from torch's global generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -41,6 +45,51 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         if init is not None:
             init(generator)
     return model
+
+
+class StepRNG:
+    """The random draws of one step, a function of (seed, step, stream)
+    alone, as the JAX package folds the step into its key
+    (``engine.py:88-90``).
+
+    Dropout masks and prior noise come from a generator on the step's
+    device; the attention kernels' Philox seeds come from a CPU generator,
+    so drawing one never waits on the device.  ``stream`` tells apart the
+    draws of steps that share a step count (the batches of a val sweep).
+    """
+
+    def __init__(self, seed: int, step: int, device, stream: int = 0):
+        words = np.random.SeedSequence((seed, step, stream)).generate_state(
+            2, np.uint64)
+        self.device = torch.device(device)
+        self.device_gen = torch.Generator(device=self.device).manual_seed(
+            int(words[0]) >> 1)
+        self.cpu_gen = torch.Generator().manual_seed(int(words[1]) >> 1)
+
+    def kernel_seed(self) -> int:
+        """A fresh 62-bit seed for an attention kernel's Philox draw."""
+        return int(torch.randint(0, 2 ** 62, (), generator=self.cpu_gen))
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        """U[0, 1) float32 of ``shape`` on the step's device."""
+        return torch.rand(tuple(shape), generator=self.device_gen,
+                          device=self.device)
+
+    def keep_mask(self, shape: Sequence[int], rate: float) -> torch.Tensor:
+        """Bool mask, each element kept with probability 1 - ``rate``."""
+        keep = torch.empty(tuple(shape), device=self.device)
+        return keep.bernoulli_(1.0 - rate, generator=self.device_gen).bool()
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[StepRNG]) -> torch.Tensor:
+    """flax ``nn.Dropout``: kept values scale by 1 / (1 - rate).  A no-op
+    at rate 0 (eval mode passes 0); training at a rate above 0 needs the
+    step's ``rng``."""
+    if rate <= 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout above rate 0 needs the step's StepRNG")
+    return torch.where(rng.keep_mask(x.shape, rate), x / (1.0 - rate), 0.0)
 
 
 class Linear(nn.Module):
@@ -112,19 +161,21 @@ class BatchNorm(nn.Module):
         nn.init.ones_(self.running_var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            dims = [d for d in range(x.ndim) if d != 1]
-            xf = x.float()
-            mean = xf.mean(dims)
-            var = xf.var(dims, unbiased=False)
-            with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-        else:
-            mean, var = self.running_mean, self.running_var
-        # Mixed types (bf16 input, fp32 statistics) normalize in fp32.
-        out = F.batch_norm(x, mean, var, self.weight, self.bias, False, 0.0,
+        # Mixed types (bf16 input, fp32 parameters and statistics)
+        # normalize in fp32.
+        if not self.training:
+            out = F.batch_norm(x, self.running_mean, self.running_var,
+                               self.weight, self.bias, False, 0.0, self.eps)
+            return out.to(self.compute_dtype)
+        # Normalize by the biased batch statistics (differentiable), then
+        # move the running ones towards them.
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                            self.eps)
+        with torch.no_grad():
+            dims = [d for d in range(x.ndim) if d != 1]
+            var, mean = torch.var_mean(x.float(), dims, unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
         return out.to(self.compute_dtype)
 
 

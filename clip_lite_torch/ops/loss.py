@@ -1,23 +1,31 @@
-"""The JSD InfoMax loss's modules, as far as inference needs them.
+"""The JSD InfoMax loss and its critics.
 
 The counterpart of the JAX package's ``ops/loss.py``.  The projection
 heads (``MILinearBlock``) live inside the loss, because every downstream
-eval projects through ``loss.global_d.{img_block, text_block}``.  This
-slice carries the modules and their parameters (so a JAX parameter tree
-maps onto them whole) and the projection API.  The objective itself, with
-its priors and negatives, lands with the training slice (ROADMAP Queue 1,
-``ops/loss.py``).
+eval projects through ``loss.global_d.{img_block, text_block}``.  The
+objective is ported in its normal mode with the ``dot`` critic and both
+priors; cluster mode and the SSL terms raise (ROADMAP Queue 1, item 7).
+All critic math (normalize, softplus, log) runs in float32 whatever the
+compute type of the projections.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clip_lite_torch.ops.layers import BatchNorm, LayerNorm, Linear
+from clip_lite_torch.ops.layers import (
+    BatchNorm,
+    LayerNorm,
+    Linear,
+    StepRNG,
+    l2_normalize,
+)
+from clip_lite_torch.parallel.collectives import roll_shifted_left
 
 
 def shortcut_init(t: torch.Tensor, generator: torch.Generator) -> None:
@@ -77,6 +85,15 @@ class GlobalDiscriminatorDot(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         nn.init.constant_(self.temperature.data, math.log(1.0 / 0.07))
 
+    def forward(self, features1: torch.Tensor,
+                features2: torch.Tensor) -> torch.Tensor:
+        """Paired critic T(x, y): both projected, L2-normalized, dotted
+        row by row and scaled by exp(temperature), in float32.  The heads'
+        BatchNorm follows the module's training mode."""
+        f1 = l2_normalize(self.img_block(features1))
+        f2 = l2_normalize(self.text_block(features2))
+        return (f1 * f2).sum(-1) * torch.exp(self.temperature)
+
     def project_image(self, features: torch.Tensor) -> torch.Tensor:
         return self.img_block(features)
 
@@ -84,14 +101,32 @@ class GlobalDiscriminatorDot(nn.Module):
         return self.text_block(features)
 
 
+def _jsd_pair_terms(critic: nn.Module, pos1: torch.Tensor, pos2: torch.Tensor,
+                    neg2: torch.Tensor) -> torch.Tensor:
+    """Em - Ej with Ej = -softplus(-T(x, y)).mean() and
+    Em = softplus(T(x, y')).mean().  Two critic calls, as in the JAX
+    package (``ops/loss.py:149-154``): in training each moves the heads'
+    BatchNorm running statistics once."""
+    ej = -F.softplus(-critic(pos1, pos2)).mean()
+    em = F.softplus(critic(pos1, neg2)).mean()
+    return em - ej
+
+
 class JSDInfoMaxLoss(nn.Module):
-    """Holds the critics of the JSD InfoMax objective (``dot`` critic,
-    optional image and text priors) and exposes the projection API."""
+    """JSD InfoMax objective, normal mode, ``dot`` critic, optional image
+    and text priors:
+
+        total = (1 - prior_weight) * cross_modal + prior_weight * prior
+
+    Negatives pair each item with the next one in the batch
+    (:func:`roll_shifted_left`)."""
 
     def __init__(self, image_dim: int, text_dim: int, critic_type: str = "dot",
+                 prior_weight: float = 0.1,
                  image_prior: bool = True, text_prior: bool = False,
                  visual_self_supervised: bool = False,
                  textual_self_supervised: bool = False,
+                 negatives: str = "local",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if critic_type != "dot" or visual_self_supervised \
@@ -106,6 +141,53 @@ class JSDInfoMaxLoss(nn.Module):
                         if image_prior else None)
         self.text_prior_d = (PriorDiscriminator(text_dim, compute_dtype)
                              if text_prior else None)
+        self.prior_weight = prior_weight
+        self.negatives = negatives
+
+    def forward(self, image_features: torch.Tensor,
+                text_features: torch.Tensor,
+                neg_image_features: Optional[torch.Tensor] = None,
+                neg_text_features: Optional[torch.Tensor] = None,
+                aug_image_features: Optional[torch.Tensor] = None,
+                aug_text_features: Optional[torch.Tensor] = None,
+                prior_noise: Optional[Dict[str, torch.Tensor]] = None,
+                rng: Optional[StepRNG] = None) -> Dict[str, torch.Tensor]:
+        """The loss components (fp32 scalars), as the JAX package's
+        ``JSDInfoMaxLoss.__call__`` returns them.
+
+        ``prior_noise``: optional ``{"image": ..., "text": ...}`` U[0, 1)
+        inputs of the prior terms, shaped as the features; by default
+        drawn from ``rng``, the step's generator.
+        """
+        if any(f is not None for f in (neg_image_features, neg_text_features,
+                                       aug_image_features, aug_text_features)):
+            raise NotImplementedError(
+                "cluster-mode negatives and the SSL terms are not ported yet "
+                "(ROADMAP Queue 1, item 7)")
+        zero = image_features.new_zeros((), dtype=torch.float32)
+        prior_total = zero
+        for key, critic, feats in (("image", self.prior_d, image_features),
+                                   ("text", self.text_prior_d, text_features)):
+            if critic is None:
+                continue
+            if prior_noise is not None:
+                noise = prior_noise[key].to(feats.device, torch.float32)
+            elif rng is not None:
+                noise = rng.uniform(feats.shape)
+            else:
+                raise ValueError("the prior terms need prior_noise or the "
+                                 "step's StepRNG")
+            term_a = torch.log(critic(noise)).mean()
+            term_b = torch.log(1.0 - critic(feats)).mean()
+            prior_total = prior_total - (term_a + term_b)
+
+        text_prime = roll_shifted_left(text_features, self.negatives)
+        cross_modal = _jsd_pair_terms(self.global_d, image_features,
+                                      text_features, text_prime)
+        total = ((1.0 - self.prior_weight) * cross_modal
+                 + self.prior_weight * prior_total)
+        return {"total_loss": total, "cross_modal_loss": cross_modal,
+                "visual_loss": zero, "textual_loss": zero}
 
     def project_image(self, features: torch.Tensor) -> torch.Tensor:
         return self.global_d.project_image(features)

@@ -97,11 +97,12 @@ def test_bf16_reference_rounds_like_jax(inputs):
 
 
 def test_rate_above_zero_raises(inputs):
+    """Dropout without a seed or a keep mask has no draw to make."""
     qkv, bias = (torch.from_numpy(a) for a in inputs)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         fused_short_attention(qkv, bias, NH, dropout_rate=0.1,
                               deterministic=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         attention_reference(qkv, bias, NH, dropout_rate=0.1)
     # Eval mode ignores the rate, as in the JAX package.
     fused_short_attention(qkv, bias, NH, dropout_rate=0.1, deterministic=True)

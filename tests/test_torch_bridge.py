@@ -30,9 +30,11 @@ def variables():
     sample = {"image": jnp.zeros((1, 32, 32, 3)),
               "input_ids": jnp.zeros((1, 8), jnp.int32),
               "attention_mask": jnp.ones((1, 8), jnp.int32)}
-    v = model.init({"params": jax.random.PRNGKey(0),
-                    "prior": jax.random.PRNGKey(1),
-                    "dropout": jax.random.PRNGKey(2)}, sample, train=False)
+    # Jitted: flax's eager init compiles op by op, several times as slow.
+    v = jax.jit(lambda x: model.init({"params": jax.random.PRNGKey(0),
+                                      "prior": jax.random.PRNGKey(1),
+                                      "dropout": jax.random.PRNGKey(2)},
+                                     x, train=False))(sample)
     return jax.tree.map(np.asarray, {"params": v["params"],
                                      "batch_stats": v["batch_stats"]})
 

@@ -1,4 +1,5 @@
-"""K1, the CUDA attention kernel, against its plain version on the card.
+"""K1 and K2, the CUDA attention kernels, against their plain versions on
+the card: forward and backward, with dropout off and on (Philox masks).
 
 These tests need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  The
 file imports no JAX, so it also runs where JAX is absent:
@@ -12,8 +13,13 @@ import torch
 from clip_lite_torch.models.bert import BertModel
 from clip_lite_torch.ops.attention import (
     MASK_VALUE,
+    attention_backward,
+    attention_backward_reference,
+    attention_forward,
     attention_reference,
+    dropout_keep_mask,
     fused_short_attention,
+    philox_keep_mask,
 )
 from clip_lite_torch.ops.layers import init_weights
 
@@ -44,10 +50,14 @@ def _inputs(device, b, s, nh, seed=0):
     return qkv, (1.0 - mask.float()) * MASK_VALUE
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("b,s,nh", [(128, 30, 12), (3, 1, 2), (5, 33, 4),
-                                    (2, 256, 2), (1, 64, 1), (7, 17, 12)])
+SHAPES = [(128, 30, 12), (3, 1, 2), (5, 33, 4), (2, 256, 2), (1, 64, 1),
+          (7, 17, 12)]
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["fp32", "bf16"])
+
+
+@DTYPES
+@pytest.mark.parametrize("b,s,nh", SHAPES)
 def test_kernel_matches_reference(device, dtype, b, s, nh):
     qkv, bias = _inputs(device, b, s, nh)
     qkv = qkv.to(dtype)
@@ -93,3 +103,84 @@ def test_bert_fused_matches_plain_on_card(device):
         outs.append(model.eval().to(device)(ids * mask, mask))
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@DTYPES
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("b,s,nh", SHAPES)
+def test_backward_kernel_matches_reference(device, dtype, rate, b, s, nh):
+    """K2 against its step-by-step twin, given the Philox mask that the
+    kernels' own entry point writes for the same seed."""
+    qkv, bias = _inputs(device, b, s, nh)
+    qkv = qkv.to(dtype)
+    g = torch.randn(b, s, nh * 64, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    seed = 12345
+    keep = dropout_keep_mask(seed, b, nh, s, rate, device) if rate else None
+    before = attention_backward.launches
+    dqkv = attention_backward(qkv, bias, g, nh, dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    assert attention_backward.launches == before + 1
+    ref = attention_backward_reference(qkv, bias, g, nh, rate, keep)
+    assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    torch.testing.assert_close(dqkv.float(), ref.float(), **TOLS[dtype])
+    if rate:
+        out = attention_forward(qkv, bias, nh, dropout_rate=rate, seed=seed)
+        torch.testing.assert_close(
+            out.float(), attention_reference(qkv, bias, nh, rate, keep).float(),
+            **TOLS[dtype])
+
+
+def test_dropout_mask_matches_cpu_twin_and_rate(device):
+    """The kernels' Philox mask equals numpy's twin bit for bit; its keep
+    fraction over 1.38 M draws lies within 0.002 of 0.9; another seed
+    draws another mask."""
+    keep = dropout_keep_mask(99, 128, 12, 30, 0.1, device)
+    assert keep.dtype == torch.bool and keep.shape == (128, 12, 30, 30)
+    assert torch.equal(keep.cpu(), philox_keep_mask(99, 128, 12, 30, 0.1))
+    assert abs(keep.float().mean().item() - 0.9) < 0.002
+    assert torch.equal(keep, dropout_keep_mask(99, 128, 12, 30, 0.1, device))
+    assert not torch.equal(keep, dropout_keep_mask(100, 128, 12, 30, 0.1, device))
+
+
+def test_autograd_function_launches_k2(device):
+    """The repaired fault: a CUDA tensor that requires grad gets its
+    gradient from K2, equal to autograd through the plain version."""
+    qkv, bias = _inputs(device, 16, 30, 12)
+    x = qkv.clone().requires_grad_()
+    k1, k2 = fused_short_attention.launches, attention_backward.launches
+    out = fused_short_attention(x, bias, 12, dropout_rate=0.1,
+                                deterministic=False, seed=7)
+    assert out.grad_fn is not None
+    w = torch.randn_like(out)
+    (out * w).sum().backward()
+    assert (fused_short_attention.launches, attention_backward.launches) == \
+        (k1 + 1, k2 + 1)
+    y = qkv.clone().requires_grad_()
+    keep = dropout_keep_mask(7, 16, 12, 30, 0.1, device)
+    (attention_reference(y, bias, 12, 0.1, keep) * w).sum().backward()
+    torch.testing.assert_close(x.grad, y.grad, **TOLS[torch.float32])
+
+
+def test_bert_training_step_fused_matches_plain_on_card(device):
+    """A 2-layer BertModel in training mode (dropout 0, fp32): pooled
+    output and every parameter's gradient through K1/K2 and through the
+    plain attention agree."""
+    ids = torch.randint(103, 500, (8, 30), device=device)
+    mask = (torch.arange(30, device=device)[None, :]
+            < torch.randint(2, 31, (8, 1), device=device)).long()
+    runs = []
+    for flag in ("true", "false"):
+        model = BertModel(vocab_size=500, hidden_size=128, num_hidden_layers=2,
+                          num_heads=2, intermediate_size=512, dropout_rate=0.0,
+                          fused_attention=flag)
+        init_weights(model, torch.Generator().manual_seed(0))
+        model = model.train().to(device)
+        _, pooled = model(ids * mask, mask)
+        pooled.square().sum().backward()
+        runs.append((pooled, {n: p.grad for n, p in model.named_parameters()}))
+    (a, ga), (b, gb) = runs
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for name in ga:
+        torch.testing.assert_close(ga[name], gb[name], rtol=1e-4, atol=1e-4,
+                                   msg=name)

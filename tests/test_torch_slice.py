@@ -57,9 +57,11 @@ def bundles(tmp_path_factory):
     sample = {"image": jnp.zeros((1, 32, 32, 3)),
               "input_ids": jnp.zeros((1, 8), jnp.int32),
               "attention_mask": jnp.ones((1, 8), jnp.int32)}
-    v = JFactory.from_config(jcfg).init(
+    model = JFactory.from_config(jcfg)
+    # Jitted: flax's eager init compiles op by op, several times as slow.
+    v = jax.jit(lambda x: model.init(
         {"params": jax.random.PRNGKey(0), "prior": jax.random.PRNGKey(1),
-         "dropout": jax.random.PRNGKey(2)}, sample, train=False)
+         "dropout": jax.random.PRNGKey(2)}, x, train=False))(sample)
     v = jax.tree.map(np.asarray, {"params": v["params"],
                                   "batch_stats": v["batch_stats"]})
     _perturb(v["batch_stats"], np.random.RandomState(1))
