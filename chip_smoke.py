@@ -39,7 +39,9 @@ caught:
    0) and changed by step 2, parameters equal to the Lookahead slow
    weights after step 5, BatchNorm running statistics moved.  Then the
    median step time over steps 3-10 (a sync per step), pairs/s and peak
-   memory.
+   memory; each step's line also holds the host time until the step was
+   enqueued (``enqueue_seconds``), near the whole step when the host, not
+   the card, sets the pace.
 7. Training parity on the card: from one state, one step with
    FUSED_ATTENTION true (K1/K2) and one with false (plain attention),
    dropout 0, at batch 32 (to keep the phase short): loss, grad norm and
@@ -47,9 +49,31 @@ caught:
    bf16; and with the image tower kept in fp32, the bf16 step through
    K1/K2 lies no further from the fp32 step than the plain bf16 step
    does, within a factor.
-8. One JSON line listing every ported kernel; then the device line last.
+8. K3 (the ImageNet normalize) against its plain PyTorch version at the
+   flagship image batch (128, 224, 224, 3), uint8 and float32 in, fp32
+   and bf16 out, bit for bit; its output's NCHW view is channels_last;
+   the kernel's, the plain version's and the library call's
+   (``torch.addcmul``, uint8 or float32 in) times and the bound; then
+   ``device_preprocess`` whole (flip + normalize, and with colour jitter)
+   in ms per batch.
+9. The uint8 training path: configs/fs_tpu_tuned.yaml with DATA.DEVICE_CACHE
+   (PARALLEL.ZERO1 falls back to the replicated update on one card), a
+   DeviceDataCache over a synthetic decoded corpus the size of COCO
+   train2017 (118,287 tiles of 256 px, 23.26 GB of uint8 filled on the
+   card from a seeded generator; 5 captions an item of 8-20 tokens, so
+   the static bucket is 20), 10 steps of 128 through the train loop with
+   the cache as its batch iterator, then one eval sweep over one uint8
+   cache batch.  Counts set to 0 just before and read just after.  Checks:
+   finite loss and grad norm at every step; uint8 (128, 224, 224, 3)
+   batches with S = 20; the images the model received in step 1 differ
+   from a normalize-only pass exactly where that step's draws flipped or
+   jittered; K3 launched 10 + 1 times, K1 12 x 11, K2 12 x 10; BatchNorm
+   statistics moved.  Then the median step over steps 3-10, pairs/s, peak
+   memory, the cache's bytes, and K1/K2 times at qkv (128, 20, 2304).
+10. One JSON line listing every ported kernel; then the device line last.
 """
 
+import gc
 import json
 import logging
 import math
@@ -65,6 +89,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "configs" / "fs_bs1024_ni250k.yaml"
+TUNED = ROOT / "configs" / "fs_tpu_tuned.yaml"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per second
 TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -97,8 +122,12 @@ PARITY_TOL = {"float32": dict(loss=1e-5, rel=1e-3, cos=0.99999),
 # fault of the kernels.
 BF16_FLOOR_FACTOR = 1.5
 KEEP_RATE_TOL = 0.002
+L2_SPILL_BYTES = 120e6  # timed inputs together: over twice the 50 MB L2
 N_ITEMS, BATCH = 256, 128
 TRAIN_STEPS, PARITY_BATCH, RATE = 10, 32, 0.1
+IMAGE_SHAPE = (BATCH, 224, 224, 3)
+# COCO train2017's image count, at the configs' CACHE_IMAGE_SIZE of 256.
+N_CORPUS, CACHE_SIZE, N_CAPS, CAPTION_TOKENS = 118_287, 256, 5, (8, 20)
 WORDS = ("a an the man woman child dog cat horse bus train car plate pizza "
          "table street city field beach kitchen red blue white black small "
          "large young old two three sitting standing riding eating holding "
@@ -111,7 +140,7 @@ def log(msg: str) -> None:
 
 def time_ms(fn, args_list, iters=40, warmup=5) -> float:
     """Mean ms per call over ``iters`` calls, cycling through
-    ``args_list`` (copies whose total exceeds the 50 MB L2, so every call
+    ``args_list`` (copies from :func:`l2_spilling_copies`, so every call
     reads its inputs from device memory)."""
     for i in range(warmup):
         fn(*args_list[i % len(args_list)])
@@ -124,6 +153,13 @@ def time_ms(fn, args_list, iters=40, warmup=5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def l2_spilling_copies(x: torch.Tensor) -> list:
+    """Enough copies of ``x`` (at least 2) that together they exceed the
+    50 MB L2 more than twice over, as one-tuples for :func:`time_ms`."""
+    return [(x.clone(),) for _ in range(max(2, math.ceil(L2_SPILL_BYTES
+                                                         / x.nbytes)))]
 
 
 def phase_environment() -> None:
@@ -143,7 +179,7 @@ def phase_build() -> None:
     from clip_lite_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["attention_fwd", "attention_bwd"])
+    logs = _build.build_all(["attention_fwd", "attention_bwd", "normalize"])
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'none (cached)'}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -151,16 +187,19 @@ def phase_build() -> None:
                 log(f"  {name}: {line.strip()}")
 
 
-def attention_inputs():
-    """The flagship text batch's attention: qkv (128, 30, 2304) fp32, the
-    (128, 30) key bias and the (128, 30) bool of real keys."""
+def attention_inputs(s: int = 30, lengths=(1, 25)):
+    """The flagship text batch's attention: qkv (128, s, 2304) fp32, the
+    (128, s) key bias and the (128, s) bool of real keys, with real
+    lengths drawn in ``lengths`` (inclusive)."""
     from clip_lite_torch.ops.attention import MASK_VALUE
 
-    b, s, h = BATCH, 30, 768
+    b, h = BATCH, 768
     g = torch.Generator(device="cuda").manual_seed(0)
     qkv32 = torch.randn(b, s, 3 * h, device="cuda", generator=g)
-    # Caption-like lengths: keys 25..29 are padding on every row, more on most.
-    lengths = torch.randint(1, 26, (b,), device="cuda", generator=g)
+    # Caption-like lengths: at s = 30 keys 25..29 are padding on every row,
+    # more on most.
+    lengths = torch.randint(lengths[0], lengths[1] + 1, (b,), device="cuda",
+                            generator=g)
     keep = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
     return qkv32, (1.0 - keep.float()) * MASK_VALUE, keep
 
@@ -444,8 +483,10 @@ def phase_training() -> dict:
         torch.cuda.synchronize()
         start = time.perf_counter()
         st, metrics = train_step(st, batch)
+        enqueued = time.perf_counter() - start  # the host's share
         values = metrics_to_floats(metrics)  # this step's one sync
-        steps.append(dict(seconds=time.perf_counter() - start, **values))
+        steps.append(dict(seconds=time.perf_counter() - start,
+                          enqueue_seconds=enqueued, **values))
         if not (math.isfinite(values["total_loss"])
                 and math.isfinite(values["grad_norm"])):
             raise AssertionError(f"step {st.step}: {values}")
@@ -504,9 +545,10 @@ def phase_training() -> dict:
         raise AssertionError(f"BatchNorm statistics that did not move: {unmoved}")
     times = [rec["seconds"] for rec in steps[2:]]
     median = statistics.median(times)
+    enqueue = statistics.median(rec["enqueue_seconds"] for rec in steps[2:])
     log(f"training throughput at batch {BATCH}: median step {median} s over "
-        f"steps 3-{TRAIN_STEPS} ({times}), {BATCH / median} pairs/s; peak "
-        f"memory {peak_mb} MiB")
+        f"steps 3-{TRAIN_STEPS} ({times}), {BATCH / median} pairs/s; median "
+        f"host enqueue {enqueue} s; peak memory {peak_mb} MiB")
     return dict(launches=launches, step_s=median, pairs_per_s=BATCH / median,
                 peak_mib=peak_mb)
 
@@ -595,6 +637,253 @@ def phase_training_parity() -> dict:
     return out
 
 
+def phase_normalize() -> dict:
+    """K3 at the flagship image batch in its four variants, against its
+    plain version bit for bit; then device_preprocess whole."""
+    from clip_lite_torch.ops.image_ops import AugDraws, device_preprocess
+    from clip_lite_torch.ops.layers import StepRNG
+    from clip_lite_torch.ops.normalize import (
+        INV_STD_255, MEAN_255, normalize_reference, normalize_u8)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    u8 = torch.randint(0, 256, IMAGE_SHAPE, dtype=torch.uint8, device="cuda",
+                       generator=g)
+    # Float input as the colour jitter leaves it: [0, 255], not integral.
+    f32 = torch.rand(IMAGE_SHAPE, device="cuda", generator=g) * 255.0
+    scale = torch.tensor(INV_STD_255, device="cuda")
+    shift = -torch.tensor(MEAN_255, device="cuda") * scale
+    result = {}
+    for x in (u8, f32):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = (f"{str(x.dtype).replace('torch.', '')}->"
+                    f"{str(dtype).replace('torch.', '')}")
+            out = normalize_u8(x, dtype)
+            ref = normalize_reference(x, dtype)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if out.dtype != dtype or out.shape != x.shape or not torch.equal(out, ref):
+                raise AssertionError(f"K3 {name}: not bit for bit its plain "
+                                     f"version (max abs err {err})")
+            if not out.permute(0, 3, 1, 2).is_contiguous(
+                    memory_format=torch.channels_last):
+                raise AssertionError(f"K3 {name}: the NCHW view is not "
+                                     "channels_last")
+            copies = l2_spilling_copies(x)
+            # One call for the same affine map (up to rounding): addcmul
+            # promotes uint8 x float32 to float32 and casts into ``buf``.
+            buf = torch.empty(x.shape, dtype=dtype, device="cuda")
+            torch.addcmul(shift, x, scale, out=buf)
+            lib_err = (buf.float() - ref.float()).abs().max().item()
+            if not torch.allclose(buf.float(), ref.float(), **TOLS[dtype]):
+                raise AssertionError(f"torch.addcmul {name}: not K3's map "
+                                     f"(max abs err {lib_err})")
+            library_ms = time_ms(
+                lambda y: torch.addcmul(shift, y, scale, out=buf), copies)
+            n_bytes = x.numel() * (x.element_size() + out.element_size())
+            result[name] = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda y: normalize_u8(y, dtype), copies),
+                plain_ms=time_ms(lambda y: normalize_reference(y, dtype), copies),
+                library_ms=library_ms,
+                **bound(n_bytes, 2 * x.numel(), torch.float32))
+            r = result[name]
+            log(f"K3 {name}: max|kernel-plain| {err} (bit for bit); kernel "
+                f"{r['ms']} ms, plain {r['plain_ms']} ms, library "
+                f"(torch.addcmul on {x.dtype} input, max|lib-plain| "
+                f"{lib_err}) {library_ms} ms, bound {r['bound_ms']} ms "
+                f"({r['bound_by']}: {n_bytes} bytes); {len(copies)} input "
+                f"copies; NCHW view channels_last")
+            del copies, buf, out, ref
+    draws = AugDraws.sample(StepRNG(0, 0, "cuda"), BATCH)
+    copies = l2_spilling_copies(u8)
+    pre = {jitter: time_ms(lambda y: device_preprocess(
+        y, draws, flip=True, color_jitter=jitter), copies, iters=20)
+        for jitter in (False, True)}
+    log(f"device_preprocess at {IMAGE_SHAPE} uint8: flip + normalize "
+        f"{pre[False]} ms, flip + colour jitter + normalize {pre[True]} ms "
+        f"per batch")
+    result["device_preprocess_ms"] = {"flip": pre[False],
+                                      "flip_jitter": pre[True]}
+    return result
+
+
+def synthetic_corpus(cfg, rng: np.random.Generator):
+    """A decoded corpus the size of COCO train2017: N_CORPUS uint8 tiles
+    filled on the card from a seeded generator, N_CAPS captions an item
+    of 8-20 real tokens (ids drawn with numpy), as DecodedCorpus."""
+    from clip_lite_torch.data.device_cache import DecodedCorpus
+
+    images = torch.empty((N_CORPUS, CACHE_SIZE, CACHE_SIZE, 3),
+                         dtype=torch.uint8, device="cuda")
+    images.random_(0, 256, generator=torch.Generator(device="cuda").manual_seed(5))
+    seq = cfg.DATA.MAX_CAPTION_LENGTH
+    lengths = rng.integers(CAPTION_TOKENS[0], CAPTION_TOKENS[1] + 1,
+                           (N_CORPUS, N_CAPS))
+    mask = (np.arange(seq) < lengths[..., None]).astype(np.int32)
+    ids = rng.integers(1, cfg.MODEL.TEXTUAL.VOCAB_SIZE,
+                       (N_CORPUS, N_CAPS, seq)).astype(np.int32) * mask
+    return DecodedCorpus(images, list(ids), list(mask),
+                         np.full(N_CORPUS, N_CAPS, np.int32),
+                         np.arange(N_CORPUS, dtype=np.int64))
+
+
+def attention_times_at(s: int) -> dict:
+    """K1 (dropout RATE) and K2 in bf16 at qkv (128, s, 2304), with the
+    uint8 path's 8-20 real tokens: times and bounds."""
+    from clip_lite_torch.ops.attention import attention_backward, attention_forward
+
+    b, nh, h = BATCH, 12, 768
+    qkv32, bias, _ = attention_inputs(s, CAPTION_TOKENS)
+    g = torch.randn(b, s, h, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    copies = [(qkv32.bfloat16(), g.bfloat16()) for _ in range(4)]
+    qkv_bytes, g_bytes = qkv32.numel() * 2, g.numel() * 2
+    k1 = dict(ms=time_ms(lambda x, _: attention_forward(
+        x, bias, nh, dropout_rate=RATE, seed=7), copies),
+        **bound(qkv_bytes + bias.numel() * 4 + b * s * h * 2,
+                4 * b * nh * s * s * 64, torch.bfloat16))
+    k2 = dict(ms=time_ms(lambda x, y: attention_backward(
+        x, bias, y, nh, dropout_rate=RATE, seed=7), copies),
+        **bound(2 * qkv_bytes + bias.numel() * 4 + g_bytes,
+                10 * b * nh * s * s * 64, torch.bfloat16))
+    for name, r in (("K1", k1), ("K2", k2)):
+        log(f"{name} bf16 rate {RATE} at qkv ({b}, {s}, {3 * h}): kernel "
+            f"{r['ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']})")
+    return dict(k1=k1, k2=k2)
+
+
+def phase_uint8_training(float_step_s: float) -> dict:
+    """The uint8 training main path: fs_tpu_tuned + DATA.DEVICE_CACHE, a
+    COCO-sized corpus on the card, 10 steps of 128 through the loop with
+    the cache as the batch iterator, one eval sweep of one cache batch."""
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.device_cache import DeviceDataCache
+    from clip_lite_torch.engine import (
+        create_train_state, make_eval_step, make_train_step, metrics_to_floats)
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+    from clip_lite_torch.ops.image_ops import AugDraws
+    from clip_lite_torch.ops.layers import StepRNG
+    from clip_lite_torch.ops.normalize import normalize_u8
+    from clip_lite_torch.train import train_loop
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = Config(str(TUNED), ["DATA.DEVICE_CACHE", True])
+    if not (cfg.PARALLEL.ZERO1 and cfg.DATA.DEVICE_CACHE):
+        raise AssertionError("fs_tpu_tuned.yaml no longer sets PARALLEL.ZERO1")
+    t0 = time.perf_counter()
+    corpus = synthetic_corpus(cfg, np.random.default_rng(4))
+    cache = DeviceDataCache(corpus, BATCH, cache_size=cfg.DATA.CACHE_IMAGE_SIZE,
+                            crop_size=cfg.DATA.IMAGE_CROP_SIZE,
+                            seq_buckets=cfg.DATA.SEQ_BUCKETS,
+                            seed=cfg.RANDOM_SEED, device="cuda")
+    del corpus
+    torch.cuda.synchronize()
+    log(f"device cache: {N_CORPUS} tiles of {CACHE_SIZE} px, "
+        f"{cache.memory_bytes()} bytes ({cache.memory_bytes() / 1e9} GB), "
+        f"built in {time.perf_counter() - t0} s")
+    state = create_train_state(cfg, device="cuda")
+    n_layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+    stats_before = {n: b.clone() for n, b in state.model.named_buffers()}
+    train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
+    crop, seq = cfg.DATA.IMAGE_CROP_SIZE, 20
+    steps, evals, first_batch, seen = [], [], {}, {}
+
+    def grab(module, args):
+        if "image" not in seen:
+            seen["image"] = args[0].detach().clone()
+
+    def checked_step(st, batch):
+        if (batch["image"].dtype != torch.uint8
+                or tuple(batch["image"].shape) != (BATCH, crop, crop, 3)
+                or tuple(batch["input_ids"].shape) != (BATCH, seq)):
+            raise AssertionError(
+                f"cache batch: image {batch['image'].dtype} "
+                f"{tuple(batch['image'].shape)}, ids "
+                f"{tuple(batch['input_ids'].shape)}")
+        first_batch.setdefault("image", batch["image"])
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st, metrics = train_step(st, batch)
+        enqueued = time.perf_counter() - start  # the host's share
+        values = metrics_to_floats(metrics)  # this step's one sync
+        steps.append(dict(seconds=time.perf_counter() - start,
+                          enqueue_seconds=enqueued, **values))
+        if not (math.isfinite(values["total_loss"])
+                and math.isfinite(values["grad_norm"])):
+            raise AssertionError(f"step {st.step}: {values}")
+        return st, metrics
+
+    def recorded_eval(st, batch, index=0):
+        comps = eval_step(st, batch, index)
+        evals.append(metrics_to_floats(comps))
+        return comps
+
+    val_batches = [cache.batch_at(10 ** 6)]
+    hook = state.model.image_encoder.register_forward_pre_hook(grab)
+    cache.set_start(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    normalize_u8.launches = 0
+    fused_short_attention.launches = 0
+    attention_backward.launches = 0
+    t0 = time.perf_counter()
+    state = train_loop(state, checked_step, iter(cache), TRAIN_STEPS,
+                       log_every=TRAIN_STEPS, eval_step=recorded_eval,
+                       val_batches=val_batches, val_every=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"normalize": normalize_u8.launches,
+                "attention_fwd": fused_short_attention.launches,
+                "attention_bwd": attention_backward.launches}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    hook.remove()
+    for i, rec in enumerate(steps):
+        log(f"uint8 step {i + 1}: {json.dumps(rec)}")
+    log(f"uint8 eval sweep: {json.dumps(evals)}")
+    log(f"uint8 training path: {TRAIN_STEPS} steps + eval in {wall} s; "
+        f"launches {launches}")
+    expected = {"normalize": TRAIN_STEPS + len(val_batches),
+                "attention_fwd": n_layers * (TRAIN_STEPS + len(val_batches)),
+                "attention_bwd": n_layers * TRAIN_STEPS}
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    if state.step != TRAIN_STEPS or len(evals) != 1 or not all(
+            math.isfinite(v) for v in evals[0].values()):
+        raise AssertionError(f"step {state.step}, evals {evals}")
+    unmoved = [n for n, b in state.model.named_buffers()
+               if torch.equal(b, stats_before[n])]
+    if unmoved:
+        raise AssertionError(f"BatchNorm statistics that did not move: {unmoved}")
+    # Step 1's images as the model received them, against a normalize-only
+    # pass of the same batch: they differ exactly where step 1's draws
+    # flipped or jittered.
+    plain = normalize_u8(first_batch["image"])
+    differ = (seen["image"] != plain).flatten(1).any(1)
+    draws = AugDraws.sample(StepRNG(cfg.RANDOM_SEED, 0, "cuda"), BATCH)
+    acted = draws.flip | draws.apply
+    log(f"step 1: {int(differ.sum())} of {BATCH} images changed by flip or "
+        f"jitter ({int(draws.flip.sum())} flips, {int(draws.apply.sum())} "
+        "jittered)")
+    if not torch.equal(differ, acted) or not 0 < int(differ.sum()) < BATCH:
+        raise AssertionError("the augmentation did not act as its draws say")
+    times = [rec["seconds"] for rec in steps[2:]]
+    median = statistics.median(times)
+    enqueue = statistics.median(rec["enqueue_seconds"] for rec in steps[2:])
+    log(f"uint8 training throughput at batch {BATCH}: median step {median} s "
+        f"over steps 3-{TRAIN_STEPS} ({times}), {BATCH / median} pairs/s, "
+        f"median host enqueue {enqueue} s "
+        f"(float32 path, phase 6: {float_step_s} s, {BATCH / float_step_s} "
+        f"pairs/s); peak memory {peak_mb} MiB with the cache's "
+        f"{cache.memory_bytes() / 2 ** 20} MiB")
+    del state, cache, val_batches, seen, first_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=median, pairs_per_s=BATCH / median,
+                peak_mib=peak_mb, attention_s20=attention_times_at(seq))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -613,8 +902,14 @@ def main() -> int:
     attn = phase_attention_training()
     training = phase_training()
     phase_training_parity()
+    norm = phase_normalize()
+    uint8 = phase_uint8_training(training["step_s"])
     k1_launches = {"inference": inference["attention_fwd"],
-                   "training": training["launches"]["attention_fwd"]}
+                   "training": training["launches"]["attention_fwd"],
+                   "uint8_training": uint8["launches"]["attention_fwd"]}
+    k2_launches = {"training": training["launches"]["attention_bwd"],
+                   "uint8_training": uint8["launches"]["attention_bwd"]}
+    s20 = uint8["attention_s20"]
     kernels = [
         dict(name="attention_fwd (K1)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_fwd.cu",
@@ -622,13 +917,25 @@ def main() -> int:
              launches=sum(k1_launches.values()), launches_by_path=k1_launches,
              **attn[("bfloat16", RATE)]["k1"],
              dropout_rate=RATE,
-             ms_no_dropout=attn[("bfloat16", 0.0)]["k1"]["ms"]),
+             ms_no_dropout=attn[("bfloat16", 0.0)]["k1"]["ms"],
+             ms_s20=s20["k1"]["ms"], bound_ms_s20=s20["k1"]["bound_ms"]),
         dict(name="attention_bwd (K2)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_bwd.cu",
              replaces="clip_lite_tpu/ops/attention.py:122",
-             launches=training["launches"]["attention_bwd"],
-             launches_by_path={"training": training["launches"]["attention_bwd"]},
-             **attn[("bfloat16", RATE)]["k2"], dropout_rate=RATE),
+             launches=sum(k2_launches.values()), launches_by_path=k2_launches,
+             **attn[("bfloat16", RATE)]["k2"], dropout_rate=RATE,
+             ms_s20=s20["k2"]["ms"], bound_ms_s20=s20["k2"]["bound_ms"]),
+        # The main keys are the training path's variant (float32 in, after
+        # the jitter; 10 of the 11 launches); the eval sweep's is uint8 in.
+        dict(name="normalize_u8 (K3)", route="cuda",
+             source="clip_lite_torch/ops/csrc/normalize.cu",
+             replaces="clip_lite_tpu/ops/pallas_kernels.py:30",
+             launches=uint8["launches"]["normalize"],
+             launches_by_path={"uint8_training": uint8["launches"]["normalize"]},
+             **norm["float32->float32"],
+             variants={k: v for k, v in norm.items()
+                       if k != "device_preprocess_ms"},
+             device_preprocess_ms=norm["device_preprocess_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,168 @@
+"""Device-resident dataset cache for one card, the counterpart of the JAX
+package's ``data/device_cache.py``.
+
+The decoded corpus (square uint8 tiles, per-item caption token stacks)
+lives in device memory, and each training batch is assembled there: the
+sampler draws B items with replacement, one caption of each and a random
+crop offset, and one indexed gather cuts the (B, crop, crop, 3) uint8
+crops out of the tiles.  The train step then finishes augmentation on
+the card (``engine._maybe_device_preprocess``).  Batches are a pure
+function of (seed, step), so a resume at step K replays the stream.
+
+Differences from the JAX cache, by design:
+  * it takes the corpus already decoded (what the JAX ``_load_host``
+    returns); reading CLRec, decoding JPEGs and the host decode cache
+    come with the loaders (ROADMAP Queue 1, item 4);
+  * the draws come from a torch generator on the device, so batches are
+    not the JAX cache's for the same seed;
+  * one card, one rank: the seed-keyed corpus permutation that makes the
+    JAX cache's device shards exchangeable changes nothing on one device
+    (sampling is uniform over the corpus either way) and is left out, so
+    the tiles are used in the caller's order with no second copy; so
+    there is no ``placement`` (sharded and replicated are the same on one
+    card); more than one rank raises (item 5), as does ``ssl_aug``
+    (item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, NamedTuple, Sequence, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from clip_lite_torch.eval_utils import resolve_device
+
+
+class DecodedCorpus(NamedTuple):
+    """What the JAX ``DeviceDataCache._load_host`` returns: ``images``
+    (N, cache, cache, 3) uint8 (numpy, or a tensor, which may already lie
+    on the device), per-item unpadded ``ids`` and ``mask`` stacks
+    (n_caps_i, L) int, ``n_caps`` (N,) and ``image_ids`` (N,)."""
+
+    images: Union[np.ndarray, torch.Tensor]
+    ids: Sequence[np.ndarray]
+    mask: Sequence[np.ndarray]
+    n_caps: np.ndarray
+    image_ids: np.ndarray
+
+
+def _static_seq_len(max_len: int, seq_buckets, fallback: int) -> int:
+    """Smallest configured bucket holding the corpus max caption length."""
+    if not seq_buckets:
+        return fallback
+    for b in sorted(seq_buckets):
+        if max_len <= b:
+            return int(b)
+    return fallback
+
+
+class DeviceDataCache:
+    """The corpus on one card and a sampler of batches over it.
+
+    ``corpus`` is a :class:`DecodedCorpus` (or the 5-tuple of the JAX
+    ``_load_host``).  Captions are padded to the corpus-wide caption count
+    and trimmed to the smallest of ``seq_buckets`` that holds the longest
+    caption (one shape for the whole run).
+    """
+
+    def __init__(self, corpus: Sequence, batch_size: int,
+                 cache_size: int = 256, crop_size: int = 224,
+                 seq_buckets=None, seed: int = 0, ssl_aug: bool = False,
+                 device="cuda"):
+        images, ids_list, mask_list, n_caps, image_ids = corpus
+        if cache_size < crop_size:
+            raise ValueError(
+                f"cache_size {cache_size} < crop_size {crop_size}")
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise NotImplementedError("a corpus placed across ranks lands with "
+                                      "multi-GPU training (ROADMAP Queue 1, "
+                                      "item 5)")
+        if ssl_aug:
+            raise NotImplementedError("the visual SSL view (ssl_aug) lands with "
+                                      "the SSL terms (ROADMAP Queue 1, item 7)")
+        n = len(ids_list)
+        if tuple(images.shape) != (n, cache_size, cache_size, 3) \
+                or images.dtype not in (np.uint8, torch.uint8):
+            raise ValueError(f"images must be ({n}, {cache_size}, {cache_size},"
+                             f" 3) uint8, got {tuple(images.shape)} "
+                             f"{images.dtype}")
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+        self.crop_size = crop_size
+        self.cache_size = cache_size
+        self.seed = seed
+
+        max_len = max(int(mm.sum(axis=-1).max()) for mm in mask_list)
+        c_max = max(ii.shape[0] for ii in ids_list)
+        s_tok = ids_list[0].shape[1]
+        seq = min(_static_seq_len(max_len, seq_buckets, s_tok), s_tok)
+        ids = np.zeros((n, c_max, seq), np.int32)
+        mask = np.zeros((n, c_max, seq), np.int32)
+        for i, (ii, mm) in enumerate(zip(ids_list, mask_list)):
+            # Caption-axis padding stays zero; the sampler never reads it.
+            ids[i, :ii.shape[0]] = ii[:, :seq]
+            mask[i, :mm.shape[0]] = mm[:, :seq]
+
+        def put(a):
+            return torch.as_tensor(a).to(self.device)
+
+        self._images = put(images)
+        self._ids = put(ids)
+        self._mask = put(mask)
+        self._n_caps = put(np.asarray(n_caps, np.int32))
+        self._image_ids = put(np.asarray(image_ids, np.int64))
+        self._n = n
+        self._window = torch.arange(crop_size, device=self.device)
+        self._step = 0
+
+    def _generator(self, step: int) -> torch.Generator:
+        word = np.random.SeedSequence((self.seed ^ 0x5EED, step)).generate_state(
+            1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(word) >> 1)
+
+    def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
+        """Batch for iteration ``step``, a pure function of (seed, step):
+        ``image`` (B, crop, crop, 3) uint8, ``input_ids`` and
+        ``attention_mask`` (B, S) int32, ``image_id`` (B,) int64."""
+        g = self._generator(step)
+        b, dev = self.batch_size, self.device
+        idx = torch.randint(0, self._n, (b,), generator=g, device=dev)
+        # A caption below each row's own count: floor(U * n_caps), which
+        # torch.randint (one bound for all rows) cannot draw.
+        n_caps = self._n_caps[idx]
+        u = torch.rand((b,), generator=g, device=dev)
+        cap = torch.minimum((u * n_caps).long(), n_caps.long() - 1)
+        off = torch.randint(0, self.cache_size - self.crop_size + 1, (b, 2),
+                            generator=g, device=dev)
+        rows = off[:, 0, None] + self._window  # (B, crop)
+        cols = off[:, 1, None] + self._window
+        image = self._images[idx[:, None, None], rows[:, :, None],
+                             cols[:, None, :]]  # one gather, (B, crop, crop, 3)
+        return {"image": image, "input_ids": self._ids[idx, cap],
+                "attention_mask": self._mask[idx, cap],
+                "image_id": self._image_ids[idx]}
+
+    def set_start(self, step: int) -> None:
+        """Resume point: iteration the next ``__iter__`` batch is for."""
+        self._step = int(step)
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        while True:
+            batch = self.batch_at(self._step)
+            self._step += 1
+            yield batch
+
+    def memory_bytes(self) -> int:
+        """Device bytes of the padded corpus (the JAX cache's formula)."""
+        return (self._images.numel() + 4 * self._ids.numel() * 2
+                + 4 * self._n_caps.numel())
+
+    def memory_bytes_per_device(self) -> int:
+        """One card holds it all."""
+        return self.memory_bytes()
+
+
+__all__ = ["DecodedCorpus", "DeviceDataCache", "_static_seq_len"]

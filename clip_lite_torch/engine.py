@@ -11,12 +11,19 @@ the JAX package (``engine.py:16-18`` there) there is no GradScaler, since
 bf16 has fp32's exponent range.
 
 The step's random draws (dropout masks, the attention kernels' Philox
-seeds, prior noise) are a function of (``RANDOM_SEED``, step) alone
-(:class:`~clip_lite_torch.ops.layers.StepRNG`).
+seeds, prior noise, augmentation) are a function of (``RANDOM_SEED``,
+step) alone (:class:`~clip_lite_torch.ops.layers.StepRNG`).
+
+A batch whose ``image`` is uint8 (the device-resident cache's, or a
+uint8 host pipeline's) gets its augmentation on the device inside the
+step, as the JAX package's ``_maybe_device_preprocess`` gives it: flip,
+colour jitter and the normalize (K3) in training, the normalize alone in
+eval.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -28,10 +35,12 @@ from clip_lite_torch.config import Config
 from clip_lite_torch.eval_utils import resolve_device
 from clip_lite_torch.factories import OptimizerFactory, PretrainingModelFactory
 from clip_lite_torch.models.model import VLInfoModel
+from clip_lite_torch.ops.image_ops import AugDraws, device_preprocess
 from clip_lite_torch.ops.layers import StepRNG, init_weights
 from clip_lite_torch.optim.fused import FusedOptimizer
 
 Batch = Dict[str, object]
+logger = logging.getLogger("clip_lite_torch")
 
 
 @dataclass
@@ -55,13 +64,15 @@ def _check_supported(config: Config) -> None:
             "PARALLEL.STEPS_PER_CALL > 1 folds steps into one XLA program; "
             "the port runs one step per call (ROADMAP Queue 3, deliberate "
             "differences)")
-    if config.PARALLEL.ZERO1:
-        raise NotImplementedError("PARALLEL.ZERO1 lands with multi-GPU "
-                                  "training (ROADMAP Queue 1, item 5)")
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
-        raise NotImplementedError("training across ranks lands with "
-                                  "multi-GPU training (ROADMAP Queue 1, item 5)")
+        raise NotImplementedError("training across ranks (and PARALLEL.ZERO1 "
+                                  "there) lands with multi-GPU training "
+                                  "(ROADMAP Queue 1, item 5)")
+    if config.PARALLEL.ZERO1:
+        # As the JAX package does on a one-device mesh (train.py:164-167).
+        logger.warning("PARALLEL.ZERO1 on one rank shards nothing; using the "
+                       "replicated update instead")
 
 
 def create_train_state(config: Config, device="cuda",
@@ -85,29 +96,58 @@ def create_train_state(config: Config, device="cuda",
 
 
 def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Tensors already on ``device`` pass as they are."""
     return {k: torch.as_tensor(v).to(device, non_blocking=True)
             for k, v in batch.items()}
 
 
-def make_train_step(config: Config) -> Callable:
-    """``train_step(state, batch, prior_noise=None) -> (state, metrics)``.
+def _maybe_device_preprocess(batch: Dict[str, torch.Tensor], rng: StepRNG,
+                             train: bool,
+                             aug_draws: Optional[AugDraws] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """A uint8 ``image`` gets flip, colour jitter and the normalize in
+    training (its draws from ``aug_draws`` or else from ``rng``), the
+    normalize alone in eval (``engine.py:69-81`` of the JAX package).
+    Keyed on the dtype; float32 images pass as they are.  ``neg_image``
+    and ``aug_image`` are refused by the model (ROADMAP Queue 1, item 7).
+    """
+    image = batch.get("image")
+    if image is None or image.dtype != torch.uint8:
+        return batch
+    draws = None
+    if train:
+        draws = aug_draws if aug_draws is not None else AugDraws.sample(
+            rng, image.shape[0])
+    out = dict(batch)
+    out["image"] = device_preprocess(image, draws, flip=train,
+                                     color_jitter=train)
+    return out
 
-    ``batch`` holds ``image`` (B, H, W, 3) float32 and ``input_ids``,
+
+def make_train_step(config: Config) -> Callable:
+    """``train_step(state, batch, prior_noise=None, aug_draws=None) ->
+    (state, metrics)``.
+
+    ``batch`` holds ``image`` (B, H, W, 3), float32 and normalized or
+    uint8 (augmented and normalized in the step), and ``input_ids``,
     ``attention_mask`` (B, L), as numpy arrays or tensors; ``prior_noise``
-    optionally replaces the prior terms' draws.  The metrics are 0-d
-    device tensors (reading one waits for the step).  After the step the
-    parameters' ``.grad`` hold its gradients, unclipped."""
+    optionally replaces the prior terms' draws and ``aug_draws`` a uint8
+    batch's augmentation draws.  The metrics are 0-d device tensors
+    (reading one waits for the step).  After the step the parameters'
+    ``.grad`` hold its gradients, unclipped."""
     _check_supported(config)
     seed = config.RANDOM_SEED
 
     def train_step(state: TrainState, batch: Batch,
-                   prior_noise: Optional[Dict[str, torch.Tensor]] = None):
+                   prior_noise: Optional[Dict[str, torch.Tensor]] = None,
+                   aug_draws: Optional[AugDraws] = None):
         model = state.model
         model.train()
         model.zero_grad(set_to_none=True)
         rng = StepRNG(seed, state.step, state.device)
-        out = model(_to_device(batch, state.device), rng=rng,
-                    prior_noise=prior_noise)
+        batch = _maybe_device_preprocess(_to_device(batch, state.device), rng,
+                                         train=True, aug_draws=aug_draws)
+        out = model(batch, rng=rng, prior_noise=prior_noise)
         out["loss"].backward()
         grad_norm = state.optimizer.step()
         state.step += 1
@@ -131,8 +171,9 @@ def make_eval_step(config: Config) -> Callable:
         model = state.model
         model.eval()
         rng = StepRNG(seed, state.step, state.device, stream=1 + index)
-        out = model(_to_device(batch, state.device), rng=rng,
-                    prior_noise=prior_noise)
+        batch = _maybe_device_preprocess(_to_device(batch, state.device), rng,
+                                         train=False)
+        out = model(batch, rng=rng, prior_noise=prior_noise)
         return out["loss_components"]
 
     return eval_step

@@ -54,17 +54,29 @@ class StepRNG:
 
     Dropout masks and prior noise come from a generator on the step's
     device; the attention kernels' Philox seeds come from a CPU generator,
-    so drawing one never waits on the device.  ``stream`` tells apart the
-    draws of steps that share a step count (the batches of a val sweep).
+    so drawing one never waits on the device; the augmentation draws come
+    from a device generator of their own, so a uint8 batch leaves the
+    other draws as they are.  ``stream`` tells apart the draws of steps
+    that share a step count (the batches of a val sweep).
     """
 
     def __init__(self, seed: int, step: int, device, stream: int = 0):
+        # The first words of a SeedSequence's state do not depend on how
+        # many are asked for.
         words = np.random.SeedSequence((seed, step, stream)).generate_state(
-            2, np.uint64)
+            3, np.uint64)
         self.device = torch.device(device)
         self.device_gen = torch.Generator(device=self.device).manual_seed(
             int(words[0]) >> 1)
         self.cpu_gen = torch.Generator().manual_seed(int(words[1]) >> 1)
+        self.augment_gen = torch.Generator(device=self.device).manual_seed(
+            int(words[2]) >> 1)
+
+    def augment_uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        """U[0, 1) float32 of ``shape`` on the step's device, from the
+        augmentation generator."""
+        return torch.rand(tuple(shape), generator=self.augment_gen,
+                          device=self.device)
 
     def kernel_seed(self) -> int:
         """A fresh 62-bit seed for an attention kernel's Philox draw."""

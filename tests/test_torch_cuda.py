@@ -1,5 +1,7 @@
 """K1 and K2, the CUDA attention kernels, against their plain versions on
 the card: forward and backward, with dropout off and on (Philox masks).
+K3, the normalize kernel, against its plain version bit for bit; the
+on-device preprocessing and the device-resident cache on the card.
 
 These tests need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  The
 file imports no JAX, so it also runs where JAX is absent:
@@ -7,9 +9,11 @@ file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from clip_lite_torch.data.device_cache import DecodedCorpus, DeviceDataCache
 from clip_lite_torch.models.bert import BertModel
 from clip_lite_torch.ops.attention import (
     MASK_VALUE,
@@ -21,7 +25,9 @@ from clip_lite_torch.ops.attention import (
     fused_short_attention,
     philox_keep_mask,
 )
-from clip_lite_torch.ops.layers import init_weights
+from clip_lite_torch.ops.image_ops import AugDraws, device_preprocess
+from clip_lite_torch.ops.layers import StepRNG, init_weights
+from clip_lite_torch.ops.normalize import normalize_reference, normalize_u8
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +190,98 @@ def test_bert_training_step_fused_matches_plain_on_card(device):
     for name in ga:
         torch.testing.assert_close(ga[name], gb[name], rtol=1e-4, atol=1e-4,
                                    msg=name)
+
+
+K3_SHAPES = [(2, 7, 8, 3), (3, 5, 5, 3), (1, 224, 224, 3), (4, 1, 1, 3)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["to-fp32", "to-bf16"])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32],
+                         ids=["u8", "fp32"])
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_k3_matches_reference_bit_for_bit(device, in_dtype, out_dtype, shape):
+    """Ragged sizes (not a multiple of four pixels) take the scalar tail;
+    a batch that starts one image into a larger tensor may be misaligned
+    for the vector loads and takes the scalar loop."""
+    g = torch.Generator(device=device).manual_seed(0)
+    big = (shape[0] + 1,) + shape[1:]
+    if in_dtype == torch.uint8:
+        full = torch.randint(0, 256, big, dtype=torch.uint8, device=device,
+                             generator=g)
+    else:
+        full = torch.rand(big, device=device, generator=g) * 255.0
+    for x in (full[:-1], full[1:]):
+        before = normalize_u8.launches
+        out = normalize_u8(x, out_dtype)
+        torch.cuda.synchronize()
+        assert normalize_u8.launches == before + 1
+        ref = normalize_reference(x, out_dtype)
+        assert out.dtype == out_dtype and out.shape == x.shape
+        assert out.is_contiguous()
+        assert torch.equal(out, ref)
+
+
+def test_k3_output_is_channels_last_for_the_stem(device):
+    x = torch.randint(0, 256, (2, 16, 16, 3), dtype=torch.uint8, device=device)
+    assert normalize_u8(x).permute(0, 3, 1, 2).is_contiguous(
+        memory_format=torch.channels_last)
+
+
+def test_k3_rejects_what_it_does_not_take(device):
+    x = torch.randint(0, 256, (2, 4, 4, 3), dtype=torch.uint8, device=device)
+    before = normalize_u8.launches
+    with pytest.raises(ValueError):
+        normalize_u8(torch.zeros(2, 4, 4, 4, dtype=torch.uint8, device=device))
+    with pytest.raises(TypeError):
+        normalize_u8(x.half())
+    with pytest.raises(TypeError):
+        normalize_u8(x, torch.float16)
+    with pytest.raises(ValueError):
+        normalize_u8(x[:, ::2])  # not contiguous
+    with pytest.raises(ValueError):
+        normalize_u8(x[:0])  # empty
+    assert normalize_u8.launches == before
+
+
+def test_device_preprocess_launches_k3_once(device):
+    x = torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8, device=device)
+    draws = AugDraws.sample(StepRNG(0, 0, device), 8)
+    for jitter in (False, True):
+        before = normalize_u8.launches
+        out = device_preprocess(x, draws, flip=True, color_jitter=jitter)
+        torch.cuda.synchronize()
+        assert normalize_u8.launches == before + 1
+        assert out.dtype == torch.float32 and out.shape == x.shape
+        cpu_draws = AugDraws(*(getattr(draws, f).cpu() for f in (
+            "flip", "apply", "brightness", "contrast", "saturation", "hue")))
+        cpu = device_preprocess(x.cpu(), cpu_draws, flip=True,
+                                color_jitter=jitter)
+        torch.testing.assert_close(out.cpu(), cpu, rtol=0, atol=1e-4)
+
+
+def test_device_cache_batches_are_a_function_of_seed_and_step(device):
+    rng = np.random.default_rng(0)
+    n, cache, crop = 40, 48, 32
+    tiles = torch.randint(0, 256, (n, cache, cache, 3), dtype=torch.uint8,
+                          device=device)
+    lengths = rng.integers(2, 9, (n, 3))
+    mask = (np.arange(10) < lengths[..., None]).astype(np.int32)
+    ids = rng.integers(1, 100, (n, 3, 10)).astype(np.int32) * mask
+    corpus = DecodedCorpus(tiles, list(ids), list(mask),
+                           np.full(n, 3, np.int32), np.arange(n))
+    dc = DeviceDataCache(corpus, batch_size=16, cache_size=cache,
+                         crop_size=crop, seq_buckets=[12, 20], seed=1,
+                         device=device)
+    a, b, c = dc.batch_at(5), dc.batch_at(5), dc.batch_at(6)
+    assert a["image"].device.type == "cuda" and a["image"].dtype == torch.uint8
+    assert a["image"].shape == (16, crop, crop, 3)
+    assert a["input_ids"].shape == (16, 10)  # bucket 12, cut to the 10 tokens
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["image"], c["image"])
+    # Each crop is a window of its tile.
+    for j in range(16):
+        tile = tiles[a["image_id"][j]]
+        assert any(torch.equal(a["image"][j], tile[y:y + crop, x:x + crop])
+                   for y in range(cache - crop + 1)
+                   for x in range(cache - crop + 1))

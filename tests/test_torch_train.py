@@ -13,7 +13,14 @@ through the autograd Function (K1/K2's CPU twins) and the plain version.
 
 Bar: loss components and ``grad_norm`` rtol 1e-4 at every step; every
 parameter, BatchNorm statistic and Lookahead slow weight after the last
-step 1e-4 (fp32, AMP off)."""
+step 1e-4 (fp32, AMP off).
+
+The uint8 case: three steps and the eval step on uint8 batches, which
+both engines augment and normalize on the device
+(``_maybe_device_preprocess``).  JAX's augmentation draws are reproduced
+from ``fold_in(key, step)`` -> ``split(..., 3)`` -> the split of
+``engine.py:77`` and passed to the port as ``aug_draws``; metrics at
+rtol 1e-4 at every step."""
 
 import json
 import logging
@@ -46,6 +53,7 @@ from clip_lite_torch.engine import (
 from clip_lite_torch.train import crossed_interval, train_loop
 from clip_lite_torch.utils.loggers import MetricsWriter
 from clip_lite_torch.utils.timers import Timer, device_mem_usage_mb
+from test_torch_image_ops import jax_aug_draws
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")
@@ -76,6 +84,7 @@ TRAIN = ["AMP", False, "MODEL.VISUAL.NETWORK_NAME", "resnet18",
          # stays inside the 1e-4 bar.
          "OPTIM.CNN_LR", 0.002]
 B, L, CROP, STEPS = 8, 8, 32, 6
+U8_STEPS = 3
 IMG_DIM = 8 * 8  # ResNet-18's 8 x width channels at width 8
 COMPONENTS = ("total_loss", "cross_modal_loss", "visual_loss", "textual_loss")
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -98,6 +107,20 @@ def _batch(rng, b=B, crop=CROP):
                                ).astype(np.int32)}
 
 
+def _batch_u8(rng, b=B, crop=CROP):
+    batch = _batch(rng, b, crop)
+    batch["image"] = rng.randint(0, 256, (b, crop, crop, 3)).astype(np.uint8)
+    return batch
+
+
+def jax_step_aug_draws(key, step: int, b: int):
+    """The augmentation draws of JAX's train step ``step`` (0-based) for
+    the ``image`` of a uint8 batch of ``b``."""
+    _, _, aug_rng = jax.random.split(jax.random.fold_in(key, step), 3)
+    _, sub = jax.random.split(aug_rng)
+    return jax_aug_draws(sub, b)
+
+
 def _inject_uniform(mp, noise):
     by_shape = {v.shape: v for v in noise.values()}
     real = jax.random.uniform
@@ -110,19 +133,23 @@ def _inject_uniform(mp, noise):
     mp.setattr(jax.random, "uniform", uniform)
 
 
-def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM):
-    """The JAX run of ``STEPS`` steps on ``b`` seeded pairs of ``crop`` px:
-    initial variables, per-step metrics, first-step grads, final state and
-    the eval step's components."""
+def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM, uint8=False):
+    """The JAX run of ``STEPS`` steps on ``b`` seeded pairs of ``crop`` px
+    (``U8_STEPS`` on uint8 pixels when ``uint8``): initial variables,
+    per-step metrics, first-step grads (float batches only), final state,
+    the eval step's components and the augmentation draws (uint8 only)."""
     rng = np.random.RandomState(0)
-    batches = [_batch(rng, b, crop) for _ in range(STEPS)]
-    val_batch = _batch(rng, b, crop)
+    make, steps = (_batch_u8, U8_STEPS) if uint8 else (_batch, STEPS)
+    batches = [make(rng, b, crop) for _ in range(steps)]
+    val_batch = make(rng, b, crop)
     jcfg = JConfig(FLAGSHIP, train)
     model = JModelFactory.from_config(jcfg)
     tx = JOptimizerFactory.from_config(jcfg)
+    sample = jax.tree.map(lambda a: a[:1], batches[0])
+    sample["image"] = sample["image"].astype(np.float32)
     # Jitted: flax's eager init compiles op by op, three times as slow.
     state = jax.jit(lambda b: jengine.create_train_state(model, tx, b, seed=0))(
-        jax.tree.map(lambda a: a[:1], batches[0]))
+        sample)
     noise = {"image": rng.uniform(size=(b, img_dim)).astype(np.float32),
              "text": rng.uniform(size=(b, 128)).astype(np.float32)}
     variables = jax.tree.map(np.asarray, {"params": state.params,
@@ -138,8 +165,8 @@ def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM):
                 rngs={"prior": key, "dropout": key})
             return out["loss"]
 
-        grads = jax.tree.map(np.asarray,
-                             jax.jit(jax.grad(loss_fn))(state.params))
+        grads = None if uint8 else jax.tree.map(
+            np.asarray, jax.jit(jax.grad(loss_fn))(state.params))
         step = jax.jit(jengine.make_train_step(model, tx))
         metrics = []
         for batch in batches:
@@ -150,9 +177,11 @@ def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM):
     final = jax.tree.map(np.asarray, {"params": state.params,
                                       "batch_stats": state.batch_stats})
     slow = jax.tree.map(np.asarray, state.opt_state.slow_params)
+    draws = [jax_step_aug_draws(key, i, b) for i in range(steps)] \
+        if uint8 else None
     return dict(batches=batches, val_batch=val_batch, noise=noise,
                 variables=variables, grads=grads, metrics=metrics,
-                evals=evals, final=final, slow=slow)
+                evals=evals, final=final, slow=slow, draws=draws)
 
 
 @pytest.fixture(scope="module")
@@ -161,16 +190,17 @@ def reference():
 
 
 def run_port(reference, train=TRAIN, fused="true"):
-    """The port's run from the JAX run's initial variables, batches and
-    noise, with FUSED_ATTENTION ``fused``."""
+    """The port's run from the JAX run's initial variables, batches, noise
+    and augmentation draws (if any), with FUSED_ATTENTION ``fused``."""
     cfg = Config(FLAGSHIP, train + ["MODEL.TEXTUAL.FUSED_ATTENTION", fused])
     state = create_train_state(cfg, device="cpu", state_dict=bridge.from_jax_variables(
         reference["variables"], cfg))
     noise = {k: torch.from_numpy(v) for k, v in reference["noise"].items()}
     step = make_train_step(cfg)
+    draws = reference.get("draws") or [None] * len(reference["batches"])
     metrics, first_grads = [], None
-    for batch in reference["batches"]:
-        state, m = step(state, batch, prior_noise=noise)
+    for batch, aug in zip(reference["batches"], draws):
+        state, m = step(state, batch, prior_noise=noise, aug_draws=aug)
         metrics.append(metrics_to_floats(m))
         if first_grads is None:
             first_grads = {n: p.grad.clone()
@@ -229,6 +259,43 @@ def test_eval_step_matches_jax(reference, port_run):
         np.testing.assert_allclose(port_run["evals"][name],
                                    reference["evals"][name], rtol=1e-4,
                                    atol=1e-6, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def reference_u8():
+    return jax_run(uint8=True)
+
+
+def test_uint8_steps_match_jax(reference_u8):
+    """Flip, colour jitter and normalize on the device, given JAX's draws:
+    every step's metrics, and the eval step (normalize only), match."""
+    port = run_port(reference_u8)
+    assert port["state"].step == U8_STEPS
+    flips = [int(d.flip.sum()) for d in reference_u8["draws"]]
+    applies = [int(d.apply.sum()) for d in reference_u8["draws"]]
+    assert 0 < sum(flips) < U8_STEPS * B and 0 < sum(applies) < U8_STEPS * B
+    for i, (got, want) in enumerate(zip(port["metrics"],
+                                        reference_u8["metrics"])):
+        for name in COMPONENTS + ("grad_norm",):
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                       atol=1e-6, err_msg=f"step {i + 1} {name}")
+    for name in COMPONENTS:
+        np.testing.assert_allclose(port["evals"][name],
+                                   reference_u8["evals"][name], rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_uint8_steps_use_their_draws(reference_u8):
+    """Without JAX's draws the port draws its own from the StepRNG, and the
+    first step's loss moves away from JAX's."""
+    cfg = Config(FLAGSHIP, TRAIN + ["MODEL.TEXTUAL.FUSED_ATTENTION", "true"])
+    state = create_train_state(cfg, device="cpu", state_dict=bridge.from_jax_variables(
+        reference_u8["variables"], cfg))
+    noise = {k: torch.from_numpy(v) for k, v in reference_u8["noise"].items()}
+    _, m = make_train_step(cfg)(state, reference_u8["batches"][0],
+                                prior_noise=noise)
+    assert metrics_to_floats(m)["total_loss"] != pytest.approx(
+        reference_u8["metrics"][0]["total_loss"], rel=1e-4)
 
 
 def test_jax_paths_and_decay_sets_agree(reference, port_run):
@@ -315,10 +382,18 @@ def test_metrics_writer_matches_jax(tmp_path):
         (tmp_path / "theirs" / "metrics.jsonl").read_text()
 
 
-def test_unported_options_raise(reference):
-    for override in (["PARALLEL.STEPS_PER_CALL", 2], ["PARALLEL.ZERO1", True]):
-        with pytest.raises(NotImplementedError):
-            make_train_step(Config(FLAGSHIP, TRAIN + override))
+def test_unported_options_raise(reference, caplog):
+    with pytest.raises(NotImplementedError):
+        make_train_step(Config(FLAGSHIP, TRAIN + ["PARALLEL.STEPS_PER_CALL", 2]))
+    # PARALLEL.ZERO1 on one rank: the replicated update and a warning, as
+    # the JAX package does on a one-device mesh.
+    tuned = Config(os.path.join(ROOT, "configs", "fs_tpu_tuned.yaml"), TRAIN)
+    assert tuned.PARALLEL.ZERO1
+    with caplog.at_level(logging.WARNING, logger="clip_lite_torch"):
+        tuned_state = create_train_state(tuned, device="cpu")
+        make_train_step(tuned)
+    assert tuned_state.step == 0
+    assert any("ZERO1" in r.message for r in caplog.records)
     cfg = Config(FLAGSHIP, TRAIN)
     state = create_train_state(cfg, device="cpu", state_dict=bridge.from_jax_variables(
         reference["variables"], cfg))
