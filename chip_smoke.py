@@ -49,14 +49,27 @@ caught:
    bf16; and with the image tower kept in fp32, the bf16 step through
    K1/K2 lies no further from the fp32 step than the plain bf16 step
    does, within a factor.
-8. K3 (the ImageNet normalize) against its plain PyTorch version at the
+8. MPNet's text tower (the flagship with MODEL.TEXTUAL.NETWORK_NAME
+   microsoft/mpnet-base), which runs K1 and K2 under a full
+   (B, NH, S, S) bias: first K1 and K2 with that bias (a relative bias
+   table plus padding, as MPNet builds it) against their plain versions
+   at (128, 30, 2304), fp32 and bf16, dropout 0 and 0.1, K2's dbias in
+   fp32 included, with times, bounds and the library call's
+   (``scaled_dot_product_attention`` with a float mask); then phase 4's
+   inference (K1 launched 12 x 2 times), phase 6's training (K1 12 x 11,
+   K2 12 x 10; the relative bias table unchanged by step 1, its gradient
+   finite and non-zero at every step, the table moved by step 10) and
+   phase 7's parity (fp32, bf16, and bf16 with the image tower in fp32),
+   the relative bias table's gradient held with the QKV gradients.
+   Counts set to 0 just before each path and read just after.
+9. K3 (the ImageNet normalize) against its plain PyTorch version at the
    flagship image batch (128, 224, 224, 3), uint8 and float32 in, fp32
    and bf16 out, bit for bit; its output's NCHW view is channels_last;
    the kernel's, the plain version's and the library call's
    (``torch.addcmul``, uint8 or float32 in) times and the bound; then
    ``device_preprocess`` whole (flip + normalize, and with colour jitter)
    in ms per batch.
-9. The uint8 training path: configs/fs_tpu_tuned.yaml with DATA.DEVICE_CACHE
+10. The uint8 training path: configs/fs_tpu_tuned.yaml with DATA.DEVICE_CACHE
    (PARALLEL.ZERO1 falls back to the replicated update on one card), a
    DeviceDataCache over a synthetic decoded corpus the size of COCO
    train2017 (118,287 tiles of 256 px, 23.26 GB of uint8 filled on the
@@ -70,7 +83,7 @@ caught:
    jittered; K3 launched 10 + 1 times, K1 12 x 11, K2 12 x 10; BatchNorm
    statistics moved.  Then the median step over steps 3-10, pairs/s, peak
    memory, the cache's bytes, and K1/K2 times at qkv (128, 20, 2304).
-10. One JSON line listing every ported kernel; then the device line last.
+11. One JSON line listing every ported kernel; then the device line last.
 """
 
 import gc
@@ -124,6 +137,9 @@ BF16_FLOOR_FACTOR = 1.5
 KEEP_RATE_TOL = 0.002
 L2_SPILL_BYTES = 120e6  # timed inputs together: over twice the 50 MB L2
 N_ITEMS, BATCH = 256, 128
+# The flagship with MPNet-base as its text tower (768 wide, 12 layers of 12
+# heads; MODEL.TEXTUAL.NUM_HIDDEN_LAYERS stays the flagship's 12).
+MPNET = ["MODEL.TEXTUAL.NETWORK_NAME", "microsoft/mpnet-base"]
 TRAIN_STEPS, PARITY_BATCH, RATE = 10, 32, 0.1
 IMAGE_SHAPE = (BATCH, 224, 224, 3)
 # COCO train2017's image count, at the configs' CACHE_IMAGE_SIZE of 256.
@@ -155,11 +171,12 @@ def time_ms(fn, args_list, iters=40, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def l2_spilling_copies(x: torch.Tensor) -> list:
-    """Enough copies of ``x`` (at least 2) that together they exceed the
-    50 MB L2 more than twice over, as one-tuples for :func:`time_ms`."""
-    return [(x.clone(),) for _ in range(max(2, math.ceil(L2_SPILL_BYTES
-                                                         / x.nbytes)))]
+def l2_spilling_copies(*xs: torch.Tensor) -> list:
+    """Enough copies of the tensors ``xs`` (at least 2) that together they
+    exceed the 50 MB L2 more than twice over, as tuples for
+    :func:`time_ms`."""
+    n = max(2, math.ceil(L2_SPILL_BYTES / sum(x.nbytes for x in xs)))
+    return [tuple(x.clone() for x in xs) for _ in range(n)]
 
 
 def phase_environment() -> None:
@@ -235,7 +252,7 @@ def phase_attention() -> None:
         err = (out.float() - ref.float()).abs().max().item()
         lib_err = (lib.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
-        copies = [(qkv.clone(),) for _ in range(4)]
+        copies = l2_spilling_copies(qkv)
         ms = time_ms(lambda x: fused_short_attention(x, bias, nh), copies)
         plain_ms = time_ms(lambda x: attention_reference(x, bias, nh), copies)
         library_ms = time_ms(library, copies)
@@ -269,18 +286,28 @@ def check_embeddings(name: str, emb: np.ndarray) -> None:
         raise AssertionError(f"{name}: norms off 1 by {norm_err}")
 
 
-def phase_main_path() -> dict:
+def text_tower(cfg, model) -> str:
+    return (f"{cfg.MODEL.TEXTUAL.NETWORK_NAME}-"
+            f"{cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS}/"
+            f"{model.text_encoder.transformer.hidden_size}")
+
+
+def phase_main_path(overrides=(), name: str = "main path") -> dict:
+    """Inference through EncoderBundle: the flagship, or the flagship with
+    ``overrides`` (MPNet's text tower)."""
     from clip_lite_torch.config import Config
     from clip_lite_torch.data.tokenizers import HashingTokenizer
     from clip_lite_torch.eval_utils import EncoderBundle
     from clip_lite_torch.ops.attention import fused_short_attention
     from clip_lite_torch.retrieval import score_retrieval
 
-    cfg = Config(str(FLAGSHIP))
+    overrides = list(overrides)
+    cfg = Config(str(FLAGSHIP), overrides)
     bundle = EncoderBundle(cfg, batch_size=BATCH, device="cuda")
     n_layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
-    log(f"model: {cfg.MODEL.VISUAL.NETWORK_NAME} + BERT-{n_layers}/"
-        f"{cfg.MODEL.TEXTUAL.HIDDEN_SIZE}, AMP {cfg.AMP} {cfg.DTYPE}, "
+    log(f"{name}: {cfg.MODEL.VISUAL.NETWORK_NAME} + "
+        f"{text_tower(cfg, bundle.model)}, AMP "
+        f"{cfg.AMP} {cfg.DTYPE}, "
         f"{sum(p.numel() for p in bundle.model.parameters())} parameters")
     rng = np.random.default_rng(0)
     images = rng.standard_normal((N_ITEMS, 224, 224, 3), dtype=np.float32)
@@ -300,7 +327,7 @@ def phase_main_path() -> dict:
                                                 txt2img, img2txt)
     wall = time.perf_counter() - t0
     launches = {"attention_fwd": fused_short_attention.launches}
-    log(f"main path: score_retrieval of {N_ITEMS} images + {N_ITEMS} captions "
+    log(f"{name}: score_retrieval of {N_ITEMS} images + {N_ITEMS} captions "
         f"in {wall} s; launches {launches}; recalls "
         f"{json.dumps({k: float(v) for k, v in recalls.items()})}")
     check_embeddings("image embeddings", img_emb)
@@ -315,20 +342,20 @@ def phase_main_path() -> dict:
     # The text path once more through the plain attention on the card, with
     # the same weights: bf16 as on the main path, then both in fp32.
     state = bundle.model.state_dict()
-    plain = EncoderBundle(Config(str(FLAGSHIP), ["MODEL.TEXTUAL.FUSED_ATTENTION",
-                                                 "false"]),
-                          state_dict=state, device="cuda")
+    plain = EncoderBundle(Config(str(FLAGSHIP), overrides + [
+        "MODEL.TEXTUAL.FUSED_ATTENTION", "false"]), state_dict=state,
+        device="cuda")
     agree = {"bfloat16": text_agreement(txt_emb, plain.encode_texts(texts, tok))}
     del plain
-    fp32 = [EncoderBundle(Config(str(FLAGSHIP), ["AMP", False,
-                                                 "MODEL.TEXTUAL.FUSED_ATTENTION",
-                                                 flag]),
-                          state_dict=state, device="cuda").encode_texts(texts, tok)
-            for flag in ("true", "false")]
+    fp32 = [EncoderBundle(Config(str(FLAGSHIP), overrides + [
+        "AMP", False, "MODEL.TEXTUAL.FUSED_ATTENTION", flag]),
+        state_dict=state, device="cuda").encode_texts(texts, tok)
+        for flag in ("true", "false")]
     agree["float32"] = text_agreement(*fp32)
     for dt, got in agree.items():
         tol = TEXT_TOL[dt]
-        log(f"text embeddings, K1 vs plain attention, {dt}: {got} (tol {tol})")
+        log(f"{name}: text embeddings, K1 vs plain attention, {dt}: {got} "
+            f"(tol {tol})")
         if got["max_abs"] > tol["max_abs"] or got["min_cos"] < tol["min_cos"]:
             raise AssertionError(f"{dt} text embeddings disagree: {got}")
 
@@ -340,23 +367,30 @@ def phase_main_path() -> dict:
         t0 = time.perf_counter()
         bundle.encode_texts(texts, tok)
         txt_s.append(N_ITEMS / (time.perf_counter() - t0))
-    log(f"throughput at batch {BATCH} (numpy in, numpy out): images/s "
+    log(f"{name} throughput at batch {BATCH} (numpy in, numpy out): images/s "
         f"{img_s} (median {statistics.median(img_s)}), captions/s {txt_s} "
         f"(median {statistics.median(txt_s)})")
-    return launches
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches, captions_per_s=statistics.median(txt_s))
 
 
-def phase_attention_training() -> dict:
+def phase_attention_training(full_bias: bool = False) -> dict:
     """K1 with dropout and K2 at the flagship text batch, fp32 and bf16,
     rate 0 and RATE, each against its plain version given the Philox
-    mask that the kernels' own entry point writes."""
+    mask that the kernels' own entry point writes.  With ``full_bias``,
+    under MPNet's (B, NH, S, S) bias, K2's fp32 dbias included, and the
+    library call's backward takes the float mask's gradient too."""
     from clip_lite_torch.ops.attention import (
         attention_backward, attention_backward_reference, attention_forward,
         attention_reference, dropout_keep_mask)
 
     b, s, nh, hd = BATCH, 30, 12, 64
     h = nh * hd
-    qkv32, bias, valid = attention_inputs()
+    qkv32, key_bias, valid = attention_inputs()
+    bias = mpnet_bias(key_bias) if full_bias else key_bias
+    variant = "full bias " if full_bias else ""
     g32 = torch.randn(b, s, h, device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(1))
     seed = 2024
@@ -370,10 +404,11 @@ def phase_attention_training() -> dict:
         f"same mask {same}; next seed another mask {other}")
     if abs(frac - (1.0 - RATE)) > KEEP_RATE_TOL or not same or not other:
         raise AssertionError("the dropout mask fails its checks")
-    mask4 = valid[:, None, None, :]
 
-    def views(qkv):
-        return qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    def library_fwd(x, _, m):
+        q, k, v = x.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                              dropout_p=rate)
 
     result = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -384,55 +419,94 @@ def phase_attention_training() -> dict:
             km = keep if rate else None
             out = attention_forward(qkv, bias, nh, dropout_rate=rate, seed=seed)
             ref = attention_reference(qkv, bias, nh, rate, km)
-            dqkv = attention_backward(qkv, bias, g, nh, dropout_rate=rate,
-                                      seed=seed)
-            dref = attention_backward_reference(qkv, bias, g, nh, rate, km)
+            dqkv, dbias = attention_backward(qkv, bias, g, nh, dropout_rate=rate,
+                                             seed=seed)
+            dref, dbias_ref = attention_backward_reference(qkv, bias, g, nh,
+                                                           rate, km)
             torch.cuda.synchronize()
             errs = [(a.float() - r.float()).abs().max().item()
                     for a, r in ((out, ref), (dqkv, dref))]
             torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
             torch.testing.assert_close(dqkv.float(), dref.float(),
                                        **TOLS[dtype])
-            copies = [(qkv.clone(), g.clone()) for _ in range(4)]
-
-            def library_fwd(x, _):
-                q, k, v = views(x)
-                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
-                                                      dropout_p=rate)
-
+            if full_bias:
+                # dbias is fp32 on both sides, whatever the compute type.
+                if dbias.dtype != torch.float32 or dbias.shape != bias.shape:
+                    raise AssertionError(f"dbias {dbias.dtype} "
+                                         f"{tuple(dbias.shape)}")
+                errs.append((dbias - dbias_ref).abs().max().item())
+                torch.testing.assert_close(dbias, dbias_ref,
+                                           **TOLS[torch.float32])
+            elif dbias is not None or dbias_ref is not None:
+                raise AssertionError("a key bias got a gradient")
+            copies = l2_spilling_copies(qkv, g, bias)
+            # The library call's mask: the bool of real keys, or the full
+            # bias in the compute type, requiring its gradient in the graphs.
+            lib_inputs = [(x, y, m.to(dtype, copy=True) if full_bias
+                           else valid[:, None, None, :]) for x, y, m in copies]
             graphs = []
-            for x, y in copies:
-                leaf = x.detach().requires_grad_()
-                lib_out = library_fwd(leaf, None)
-                graphs.append((lib_out, leaf, y.view(b, s, nh, hd).transpose(1, 2)))
+            for x, y, m in lib_inputs:
+                x = x.detach().requires_grad_()
+                m = m.detach().requires_grad_(full_bias)
+                graphs.append((library_fwd(x, None, m), x,
+                               y.view(b, s, nh, hd).transpose(1, 2), m))
+            wrt = (lambda x, m: (x, m)) if full_bias else (lambda x, m: x)
+            o, x, y, m = graphs[0]
+            mask_grad = not full_bias or torch.autograd.grad(
+                o, wrt(x, m), y, retain_graph=True,
+                allow_unused=True)[1] is not None
             k1 = dict(
                 max_abs_err=errs[0],
-                ms=time_ms(lambda x, _: attention_forward(
-                    x, bias, nh, dropout_rate=rate, seed=seed), copies),
-                plain_ms=time_ms(lambda x, _: attention_reference(
-                    x, bias, nh, rate, km), copies),
-                library_ms=time_ms(library_fwd, copies),
+                ms=time_ms(lambda x, _, m: attention_forward(
+                    x, m, nh, dropout_rate=rate, seed=seed), copies),
+                plain_ms=time_ms(lambda x, _, m: attention_reference(
+                    x, m, nh, rate, km), copies),
+                library_ms=time_ms(library_fwd, lib_inputs),
+                # qkv and the bias read once, the context written once.
                 **bound(qkv.numel() * item + bias.numel() * 4 + b * s * h * item,
                         4 * b * nh * s * s * hd, dtype))
             k2 = dict(
                 max_abs_err=errs[1],
-                ms=time_ms(lambda x, y: attention_backward(
-                    x, bias, y, nh, dropout_rate=rate, seed=seed), copies),
-                plain_ms=time_ms(lambda x, y: attention_backward_reference(
-                    x, bias, y, nh, rate, km), copies),
-                library_ms=time_ms(lambda o, x, y: torch.autograd.grad(
-                    o, x, y, retain_graph=True), graphs),
-                # qkv, bias and g read once, dqkv written once; five products.
-                **bound(2 * qkv.numel() * item + bias.numel() * 4
+                ms=time_ms(lambda x, y, m: attention_backward(
+                    x, m, y, nh, dropout_rate=rate, seed=seed), copies),
+                plain_ms=time_ms(lambda x, y, m: attention_backward_reference(
+                    x, m, y, nh, rate, km), copies),
+                library_ms=(time_ms(lambda o, x, y, m: torch.autograd.grad(
+                    o, wrt(x, m), y, retain_graph=True), graphs)
+                    if mask_grad else None),
+                # qkv, bias and g read once, dqkv (and dbias) written once;
+                # five products.
+                **bound(2 * qkv.numel() * item
+                        + (2 if full_bias else 1) * bias.numel() * 4
                         + g.numel() * item, 10 * b * nh * s * s * hd, dtype))
-            del graphs, copies
+            if full_bias:
+                k2["dbias_max_abs_err"] = errs[2]
+            del copies, lib_inputs, graphs, o, x, y, m
             result[(name, rate)] = dict(k1=k1, k2=k2)
             for kname, r in (("K1", k1), ("K2", k2)):
-                log(f"{kname} {name} rate {rate}: max|kernel-plain| "
-                    f"{r['max_abs_err']} (tol {TOLS[dtype]}); kernel {r['ms']} "
-                    f"ms, plain {r['plain_ms']} ms, library {r['library_ms']} "
-                    f"ms, bound {r['bound_ms']} ms ({r['bound_by']})")
+                log(f"{kname} {variant}{name} rate {rate}: max|kernel-plain| "
+                    f"{r['max_abs_err']} (tol {TOLS[dtype]}), dbias "
+                    f"{r.get('dbias_max_abs_err', '-')}; kernel {r['ms']} ms, "
+                    f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
+                    f"bound {r['bound_ms']} ms ({r['bound_by']})")
+            if not mask_grad:
+                log("scaled_dot_product_attention gave the float mask no "
+                    "gradient: no library time for K2")
     return result
+
+
+def mpnet_bias(key_bias: torch.Tensor) -> torch.Tensor:
+    """A full (B, 12, S, S) bias built as MPNet builds it: a seeded
+    relative bias table (32 buckets x 12 heads) gathered over the
+    (query, key) buckets, plus the padding of ``key_bias`` (B, S)."""
+    from clip_lite_torch.models.mpnet import relative_bucket_grid
+
+    s = key_bias.shape[1]
+    table = torch.randn(32, 12, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6))
+    rel = table[relative_bucket_grid(s, 32, torch.device("cuda"))]
+    # Contiguous before the add, which takes its inputs' layout.
+    return rel.permute(2, 0, 1).contiguous()[None] + key_bias[:, None, None, :]
 
 
 def training_batch(rng: np.random.Generator, tok, n: int, crop: int) -> dict:
@@ -447,9 +521,10 @@ def lr_group(name: str) -> str:
             "text_encoder" if "text_encoder" in name else "rest")
 
 
-def phase_training() -> dict:
-    """The training main path: flagship, 10 steps of 128 pairs through the
-    engine and the loop, then one eval sweep of one batch."""
+def phase_training(overrides=(), name: str = "training") -> dict:
+    """The training main path: flagship (or the flagship with
+    ``overrides``), 10 steps of 128 pairs through the engine and the loop,
+    then one eval sweep of one batch."""
     from clip_lite_torch.config import Config
     from clip_lite_torch.data.tokenizers import HashingTokenizer
     from clip_lite_torch.engine import (
@@ -458,12 +533,13 @@ def phase_training() -> dict:
         attention_backward, fused_short_attention)
     from clip_lite_torch.train import train_loop
 
-    cfg = Config(str(FLAGSHIP))
+    cfg = Config(str(FLAGSHIP), list(overrides))
     t0 = time.perf_counter()
     state = create_train_state(cfg, device="cuda")
     n_layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
-    log(f"training: {cfg.MODEL.VISUAL.NETWORK_NAME} + BERT-{n_layers}/"
-        f"{cfg.MODEL.TEXTUAL.HIDDEN_SIZE}, dropout {cfg.MODEL.TEXTUAL.DROPOUT}, "
+    log(f"{name}: {cfg.MODEL.VISUAL.NETWORK_NAME} + "
+        f"{text_tower(cfg, state.model)}, "
+        f"dropout {cfg.MODEL.TEXTUAL.DROPOUT}, "
         f"AMP {cfg.AMP} {cfg.DTYPE}, {cfg.OPTIM.OPTIMIZER_NAME} + Lookahead "
         f"k={cfg.OPTIM.LOOKAHEAD.STEPS}, warmup {cfg.OPTIM.WARMUP_STEPS}; "
         f"state built in {time.perf_counter() - t0} s")
@@ -475,6 +551,12 @@ def phase_training() -> dict:
     val_batches = [training_batch(rng, tok, BATCH, crop)]
     params = dict(state.model.named_parameters())
     before = {n: p.detach().clone() for n, p in params.items()}
+    # MPNet's relative bias table: its gradient is the sum of every
+    # layer's dbias from K2, checked finite and non-zero at every step,
+    # and the table moved by the last step.  Not by step 2: the text LR
+    # there is 1e-3 x 1e-4 (warmup), and an update of 1e-7 x the clipped
+    # gradient lies below fp32's spacing of its N(0, 0.02) values.
+    tables = [n for n in params if n.endswith("relative_attention_bias.weight")]
     stats_before = {n: b.clone() for n, b in state.model.named_buffers()}
     train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
     steps, evals = [], []
@@ -490,6 +572,13 @@ def phase_training() -> dict:
         if not (math.isfinite(values["total_loss"])
                 and math.isfinite(values["grad_norm"])):
             raise AssertionError(f"step {st.step}: {values}")
+        for n in tables:
+            gmax = float(params[n].grad.abs().max())
+            steps[-1].update(table_grad_max=gmax, table_moved=not torch.equal(
+                params[n], before[n]))
+            if not 0.0 < gmax < math.inf:
+                raise AssertionError(f"step {st.step}: the relative bias "
+                                     f"table's gradient has max {gmax}")
         if st.step == 1 and not all(torch.equal(p, before[n])
                                     for n, p in params.items()):
             raise AssertionError("step 1 (LR multiplier 0) moved parameters")
@@ -528,14 +617,18 @@ def phase_training() -> dict:
                 "attention_bwd": attention_backward.launches}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for i, rec in enumerate(steps):
-        log(f"step {i + 1}: {json.dumps(rec)}")
-    log(f"eval sweep: {json.dumps(evals)}")
-    log(f"training main path: {TRAIN_STEPS} steps + eval in {wall} s; "
-        f"launches {launches}")
+        log(f"{name} step {i + 1}: {json.dumps(rec)}")
+    log(f"{name} eval sweep: {json.dumps(evals)}")
+    log(f"{name}: {TRAIN_STEPS} steps + eval in {wall} s; launches {launches}; "
+        f"relative bias tables {tables}: unchanged by step 1, a finite "
+        f"non-zero gradient at every step, moved by step {TRAIN_STEPS}")
     expected = {"attention_fwd": n_layers * (TRAIN_STEPS + len(val_batches)),
                 "attention_bwd": n_layers * TRAIN_STEPS}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
+    if tables and not steps[-1]["table_moved"]:
+        raise AssertionError(f"step {TRAIN_STEPS} left the relative bias "
+                             "table where it started")
     if state.step != TRAIN_STEPS or len(evals) != 1 or not all(
             math.isfinite(v) for v in evals[0].values()):
         raise AssertionError(f"step {state.step}, evals {evals}")
@@ -546,9 +639,12 @@ def phase_training() -> dict:
     times = [rec["seconds"] for rec in steps[2:]]
     median = statistics.median(times)
     enqueue = statistics.median(rec["enqueue_seconds"] for rec in steps[2:])
-    log(f"training throughput at batch {BATCH}: median step {median} s over "
+    log(f"{name} throughput at batch {BATCH}: median step {median} s over "
         f"steps 3-{TRAIN_STEPS} ({times}), {BATCH / median} pairs/s; median "
         f"host enqueue {enqueue} s; peak memory {peak_mb} MiB")
+    del state, params, before
+    gc.collect()
+    torch.cuda.empty_cache()
     return dict(launches=launches, step_s=median, pairs_per_s=BATCH / median,
                 peak_mib=peak_mb)
 
@@ -556,7 +652,8 @@ def phase_training() -> dict:
 def parity(a, b) -> dict:
     """How far run ``a`` lies from run ``b``: the larger relative difference
     of total_loss and grad_norm, and over the layers' QKV weight gradients
-    the largest max|a - b| / max|b| and the smallest cosine."""
+    (and MPNet's relative bias table's) the largest max|a - b| / max|b|
+    and the smallest cosine."""
     (ma, ga), (mb, gb) = a, b
     return dict(
         loss_rel=max(abs(ma[k] - mb[k]) / abs(mb[k])
@@ -573,22 +670,24 @@ def within(got: dict, tol: dict) -> bool:
             and got["qkv_grad_cos_min"] >= tol["cos"])
 
 
-def phase_training_parity() -> dict:
+def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
     """One step through K1/K2 against one through the plain attention, same
-    state and batch, dropout 0, at batch PARITY_BATCH: in fp32, in bf16
-    (AMP), and in bf16 with the image tower in fp32 ("text_bf16"); and each
-    bf16 step against the plain fp32 step, the bf16 noise floor."""
+    state and batch, dropout 0, at batch PARITY_BATCH: in fp32 and in bf16
+    (AMP), held at PARITY_TOL; and each bf16 step, the bf16 one with the
+    image tower in fp32 ("text_bf16") too, against the plain fp32 step,
+    the bf16 noise floor.  The flagship, or the flagship with
+    ``overrides``."""
     from clip_lite_torch.config import Config
     from clip_lite_torch.data.tokenizers import HashingTokenizer
     from clip_lite_torch.engine import (
         create_train_state, make_train_step, metrics_to_floats)
 
     runs, state_dict, batch = {}, None, None
-    for name in ("float32", "bfloat16", "text_bf16"):
+    for kind in ("float32", "bfloat16", "text_bf16"):
         for flag in ("true", "false"):
-            cfg = Config(str(FLAGSHIP), ["MODEL.TEXTUAL.DROPOUT", 0.0,
-                                         "AMP", name != "float32",
-                                         "MODEL.TEXTUAL.FUSED_ATTENTION", flag])
+            cfg = Config(str(FLAGSHIP), list(overrides) + [
+                "MODEL.TEXTUAL.DROPOUT", 0.0, "AMP", kind != "float32",
+                "MODEL.TEXTUAL.FUSED_ATTENTION", flag])
             if batch is None:
                 tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE,
                                        cfg.DATA.MAX_CAPTION_LENGTH)
@@ -598,33 +697,35 @@ def phase_training_parity() -> dict:
             if state_dict is None:
                 state_dict = {k: v.detach().cpu()
                               for k, v in state.model.state_dict().items()}
-            if name == "text_bf16":  # all but the text tower in fp32
+            if kind == "text_bf16":  # all but the text tower in fp32
                 text = set(state.model.text_encoder.modules())
                 for module in state.model.modules():
                     if module not in text and hasattr(module, "compute_dtype"):
                         module.compute_dtype = torch.float32
             state, metrics = make_train_step(cfg)(state, batch)
             layers = state.model.text_encoder.transformer
-            runs[name, flag] = (metrics_to_floats(metrics),
-                                [getattr(layers, n).qkv.weight.grad.float().clone()
-                                 for n in layers.layer_names])
-            log(f"training parity {name}, FUSED_ATTENTION {flag}, batch "
-                f"{PARITY_BATCH}: {runs[name, flag][0]}")
-            del state, layers
+            grads = [getattr(layers, n).qkv.weight.grad.float().clone()
+                     for n in layers.layer_names]
+            if hasattr(layers, "relative_attention_bias"):
+                grads.append(layers.relative_attention_bias.weight.grad.clone())
+            runs[kind, flag] = (metrics_to_floats(metrics), grads)
+            log(f"{name} {kind}, FUSED_ATTENTION {flag}, batch "
+                f"{PARITY_BATCH}: {runs[kind, flag][0]}")
+            del state, layers, grads
             torch.cuda.empty_cache()
-    out = {name: parity(runs[name, "true"], runs[name, "false"])
-           for name in ("float32", "bfloat16")}
-    for name, got in out.items():
-        log(f"training parity {name}, K1/K2 vs plain attention: {got} "
-            f"(tol {PARITY_TOL[name]})")
-    floor = {(name, flag): parity(runs[name, flag], runs["float32", "false"])
-             for name in ("bfloat16", "text_bf16") for flag in ("true", "false")}
-    for (name, flag), got in floor.items():
-        log(f"{name} step, FUSED_ATTENTION {flag}, against the plain fp32 "
-            f"step: {got}")
-    for name, got in out.items():
-        if not within(got, PARITY_TOL[name]):
-            raise AssertionError(f"{name} training step parity fails: {got}")
+    out = {kind: parity(runs[kind, "true"], runs[kind, "false"])
+           for kind in ("float32", "bfloat16")}
+    for kind, got in out.items():
+        log(f"{name} {kind}, K1/K2 vs plain attention: {got} "
+            f"(tol {PARITY_TOL[kind]})")
+    floor = {(kind, flag): parity(runs[kind, flag], runs["float32", "false"])
+             for kind in ("bfloat16", "text_bf16") for flag in ("true", "false")}
+    for (kind, flag), got in floor.items():
+        log(f"{name}: {kind} step, FUSED_ATTENTION {flag}, against the plain "
+            f"fp32 step: {got}")
+    for kind, got in out.items():
+        if not within(got, PARITY_TOL[kind]):
+            raise AssertionError(f"{name} {kind}: step parity fails: {got}")
     fused, plain = floor["text_bf16", "true"], floor["text_bf16", "false"]
     if (fused["qkv_grad_rel_max"] > BF16_FLOOR_FACTOR * plain["qkv_grad_rel_max"]
             or 1 - fused["qkv_grad_cos_min"]
@@ -632,8 +733,8 @@ def phase_training_parity() -> dict:
         raise AssertionError(
             f"the bf16 step through K1/K2 lies more than {BF16_FLOOR_FACTOR}x "
             "as far from fp32 as the plain attention's")
-    out["bf16_vs_float32"] = {f"{name} {flag}": got
-                              for (name, flag), got in floor.items()}
+    out["bf16_vs_float32"] = {f"{kind} {flag}": got
+                              for (kind, flag), got in floor.items()}
     return out
 
 
@@ -736,7 +837,7 @@ def attention_times_at(s: int) -> dict:
     qkv32, bias, _ = attention_inputs(s, CAPTION_TOKENS)
     g = torch.randn(b, s, h, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(1))
-    copies = [(qkv32.bfloat16(), g.bfloat16()) for _ in range(4)]
+    copies = l2_spilling_copies(qkv32.bfloat16(), g.bfloat16())
     qkv_bytes, g_bytes = qkv32.numel() * 2, g.numel() * 2
     k1 = dict(ms=time_ms(lambda x, _: attention_forward(
         x, bias, nh, dropout_rate=RATE, seed=7), copies),
@@ -902,14 +1003,31 @@ def main() -> int:
     attn = phase_attention_training()
     training = phase_training()
     phase_training_parity()
+    full = phase_attention_training(full_bias=True)
+    mpnet_inference = phase_main_path(MPNET, "MPNet inference")
+    mpnet_training = phase_training(MPNET, "MPNet training")
+    log(f"MPNet against BERT, same run, batch {BATCH}: training step "
+        f"{mpnet_training['step_s']} s against {training['step_s']} s, "
+        f"captions/s {mpnet_inference['captions_per_s']} against "
+        f"{inference['captions_per_s']}, peak {mpnet_training['peak_mib']} MiB "
+        f"against {training['peak_mib']} MiB")
+    phase_training_parity(MPNET, name="MPNet training parity")
     norm = phase_normalize()
     uint8 = phase_uint8_training(training["step_s"])
     k1_launches = {"inference": inference["attention_fwd"],
                    "training": training["launches"]["attention_fwd"],
+                   "mpnet_inference": mpnet_inference["attention_fwd"],
+                   "mpnet_training": mpnet_training["launches"]["attention_fwd"],
                    "uint8_training": uint8["launches"]["attention_fwd"]}
     k2_launches = {"training": training["launches"]["attention_bwd"],
+                   "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"]}
     s20 = uint8["attention_s20"]
+    # The full (B, NH, S, S) bias variant, MPNet's: bf16 at qkv
+    # (128, 30, 2304), dropout RATE (and without, for K1).
+    full_k1 = dict(full[("bfloat16", RATE)]["k1"], dropout_rate=RATE,
+                   ms_no_dropout=full[("bfloat16", 0.0)]["k1"]["ms"])
+    full_k2 = dict(full[("bfloat16", RATE)]["k2"], dropout_rate=RATE)
     kernels = [
         dict(name="attention_fwd (K1)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_fwd.cu",
@@ -918,13 +1036,15 @@ def main() -> int:
              **attn[("bfloat16", RATE)]["k1"],
              dropout_rate=RATE,
              ms_no_dropout=attn[("bfloat16", 0.0)]["k1"]["ms"],
-             ms_s20=s20["k1"]["ms"], bound_ms_s20=s20["k1"]["bound_ms"]),
+             ms_s20=s20["k1"]["ms"], bound_ms_s20=s20["k1"]["bound_ms"],
+             full_bias=full_k1),
         dict(name="attention_bwd (K2)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_bwd.cu",
              replaces="clip_lite_tpu/ops/attention.py:122",
              launches=sum(k2_launches.values()), launches_by_path=k2_launches,
              **attn[("bfloat16", RATE)]["k2"], dropout_rate=RATE,
-             ms_s20=s20["k2"]["ms"], bound_ms_s20=s20["k2"]["bound_ms"]),
+             ms_s20=s20["k2"]["ms"], bound_ms_s20=s20["k2"]["bound_ms"],
+             full_bias=full_k2),
         # The main keys are the training path's variant (float32 in, after
         # the jitter; 10 of the 11 launches); the eval sweep's is uint8 in.
         dict(name="normalize_u8 (K3)", route="cuda",

@@ -32,6 +32,7 @@ from torch import nn
 
 from clip_lite_torch.config import Config
 from clip_lite_torch.models.bert import BertEmbeddings, BertLayer
+from clip_lite_torch.models.mpnet import MPNetModel
 from clip_lite_torch.models.resnet import ConvBN
 from clip_lite_torch.ops.layers import BatchNorm, LayerNorm
 
@@ -42,8 +43,8 @@ _WRAPPER_LEVELS = {"BatchNorm_0", "LayerNorm_0"}
 # The port's norm layers held by these modules are flax's own in the JAX
 # package, with no wrapper level in their path; all others are the
 # package's wrappers around flax's, one ``BatchNorm_0``/``LayerNorm_0``
-# level deeper.
-_FLAX_NORM_OWNERS = (ConvBN, BertEmbeddings, BertLayer)
+# level deeper.  MPNet's layers are BertLayers.
+_FLAX_NORM_OWNERS = (ConvBN, BertEmbeddings, BertLayer, MPNetModel)
 _COLLECTIONS = ("params", "batch_stats")
 
 

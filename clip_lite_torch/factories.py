@@ -38,6 +38,7 @@ class TextualHeadFactory:
         return TextEncoder(
             mode=_C.MODEL.TEXTUAL.NAME,
             transform_embedding=_C.MODEL.TEXTUAL.TRANSFORM,
+            txt_enc_dim=_C.MODEL.TEXTUAL.FEATURE_SIZE,
             model_name=_C.MODEL.TEXTUAL.NETWORK_NAME,
             num_hidden_layers=_C.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS,
             vocab_size=_C.MODEL.TEXTUAL.VOCAB_SIZE,

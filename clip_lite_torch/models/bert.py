@@ -6,6 +6,8 @@ LayerNorm eps 1e-12), a fused (H, 3H) QKV projection, the token-flattened
 pooler over the first token.  Padding enters as the additive key bias
 ``(1 - mask) * MASK_VALUE``.  Dense layers and embeddings are initialised
 N(0, 0.02) with zero biases.  Module names follow the JAX parameter tree.
+:func:`masked_mean_pooling` is the SBERT sentence embedding that the MPNet
+tower takes instead of the pooler.
 
 Dropout (embeddings, attention probabilities, both residual branches, all
 at ``dropout_rate`` as the JAX tower sets them) is active in training mode
@@ -96,8 +98,9 @@ class BertLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
                 rng: Optional[StepRNG] = None) -> torch.Tensor:
-        """x: (B*S, H); mask_bias: (B, S) fp32."""
-        b, s = mask_bias.shape
+        """x: (B*S, H); mask_bias: (B, S) fp32 key bias, or MPNet's full
+        (B, NH, S, S) bias."""
+        b, s = mask_bias.shape[0], mask_bias.shape[-1]
         h = x.shape[-1]
         rate = self.dropout_rate if self.training else 0.0
         if rate > 0.0 and rng is None:
@@ -161,3 +164,12 @@ class BertModel(nn.Module):
         if self.pooler is not None:
             pooled = torch.tanh(self.pooler(sequence_output[:, 0]))
         return sequence_output, pooled
+
+
+def masked_mean_pooling(token_embeddings: torch.Tensor,
+                        attention_mask: torch.Tensor) -> torch.Tensor:
+    """SBERT mean over the non-padding tokens, fp32 (``models/bert.py:206-213``
+    of the JAX package); the token count is clipped at 1e-9."""
+    mask = attention_mask[..., None].float()
+    summed = (token_embeddings.float() * mask).sum(1)
+    return summed / mask.sum(1).clamp(min=1e-9)

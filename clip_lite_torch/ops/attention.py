@@ -3,11 +3,11 @@
 Two hand-written CUDA kernels, the port of the JAX package's Pallas pair
 (``clip_lite_tpu/ops/attention.py``):
 
-- K1, ``csrc/attention_fwd.cu``: scores, key bias, softmax, dropout and
+- K1, ``csrc/attention_fwd.cu``: scores, bias, softmax, dropout and
   context in one launch; wrapper :func:`attention_forward`.
 - K2, ``csrc/attention_bwd.cu``: the recompute backward (probabilities and
-  dropout mask regenerated, nothing saved but the inputs); wrapper
-  :func:`attention_backward`.
+  dropout mask regenerated, nothing saved but the inputs), and for a full
+  bias its gradient; wrapper :func:`attention_backward`.
 
 :func:`fused_short_attention` ties them together as a
 ``torch.autograd.Function``, in the role of the JAX package's
@@ -20,9 +20,14 @@ the dropout mask): the wrappers take the twins for CPU tensors, and
 Layout contract, as in the JAX package: q/k/v arrive packed as the fused
 projection's output (B, S, 3*NH*HD), head h of q/k/v in lanes
 [h*HD, (h+1)*HD) of each third; the context leaves as (B, S, NH*HD).
-Semantics: additive fp32 score bias (``MASK_VALUE`` on padded keys), fp32
-softmax, dropout (keep / (1 - rate)), probabilities cast to the compute
-type before the context product, fp32 accumulation.
+Semantics: additive fp32 score bias, fp32 softmax, dropout (keep /
+(1 - rate)), probabilities cast to the compute type before the context
+product, fp32 accumulation.  The bias is either a (B, S) key bias (0 on
+real tokens, ``MASK_VALUE`` on padding; BERT), which gets no gradient, or
+a full (B, NH, S, S) per-head bias (MPNet's relative position bias plus
+padding), whose gradient ``dbias`` is the fp32 score gradient ``ds``
+before the ``1 / sqrt(HD)`` of the q.k product (``attention.py:167-173``
+of the JAX package).
 
 Dropout draws: the keep decision for element (b, h, i, j) is Philox's
 function of (seed, b, h, i, j) (``csrc/attention_common.cuh``), the same
@@ -34,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,8 +99,8 @@ def _heads(qkv: torch.Tensor, num_heads: int):
 
 def _probs(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    return torch.softmax(scores / math.sqrt(q.shape[-1])
-                         + bias[:, None, None, :], dim=-1)
+    add = bias if bias.ndim == 4 else bias[:, None, None, :]
+    return torch.softmax(scores / math.sqrt(q.shape[-1]) + add, dim=-1)
 
 
 def _drop(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor]):
@@ -110,8 +115,9 @@ def attention_reference(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
                         dropout_rate: float = 0.0,
                         keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch attention on the packed layout, K1's twin; ``bias`` is
-    the (B, S) fp32 key bias, ``keep_mask`` the (B, NH, S, S) keep mask
-    that dropout at ``dropout_rate`` > 0 needs."""
+    the (B, S) fp32 key bias or the full (B, NH, S, S) fp32 bias,
+    ``keep_mask`` the (B, NH, S, S) keep mask that dropout at
+    ``dropout_rate`` > 0 needs."""
     b, s, three_h = qkv.shape
     q, k, v = _heads(qkv, num_heads)
     probs = _drop(_probs(q, k, bias), dropout_rate, keep_mask)
@@ -123,12 +129,14 @@ def attention_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
                                  g: torch.Tensor, num_heads: int,
                                  dropout_rate: float = 0.0,
                                  keep_mask: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
-    """K2's twin, step by step: d(qkv) of :func:`attention_reference` for
-    the output gradient ``g`` (B, S, H), in the compute type of ``qkv``.
-    Probabilities and ``ds`` in fp32; ``p_d`` and ``ds / sqrt(HD)``
-    rounded to the compute type before their products; fp32 accumulation
-    and one rounding at the output."""
+                                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K2's twin, step by step: ``(dqkv, dbias)`` of
+    :func:`attention_reference` for the output gradient ``g`` (B, S, H).
+    ``dqkv`` in the compute type of ``qkv``: probabilities and ``ds`` in
+    fp32; ``p_d`` and ``ds / sqrt(HD)`` rounded to the compute type before
+    their products; fp32 accumulation and one rounding at the output.
+    ``dbias`` is ``ds`` itself, fp32 (B, NH, S, S), for a full bias, and
+    None for a key bias."""
     cdt = qkv.dtype
     b, s, three_h = qkv.shape
     q, k, v = _heads(qkv, num_heads)
@@ -139,11 +147,12 @@ def attention_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
     dp = _drop(torch.matmul(gh, v.float().transpose(-1, -2)), dropout_rate,
                keep_mask)
     ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+    dbias = ds if bias.ndim == 4 else None
     ds = (ds * (1.0 / math.sqrt(q.shape[-1]))).to(cdt).float()
     dq = torch.matmul(ds, k.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     dqkv = torch.stack([dq, dk, dv])  # (3, B, NH, S, HD)
-    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, three_h).to(cdt)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, three_h).to(cdt), dbias
 
 
 @functools.cache
@@ -154,7 +163,7 @@ def _library(name: str) -> ctypes.CDLL:
     dropout_args = [ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
                     ctypes.c_uint64, ctypes.c_void_p]
     if name == "attention_fwd":
-        lib.attention_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        lib.attention_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                                       + dropout_args)
         lib.attention_fwd.restype = ctypes.c_int
         lib.attention_dropout_mask.argtypes = (
@@ -162,7 +171,7 @@ def _library(name: str) -> ctypes.CDLL:
             + [ctypes.c_uint32, ctypes.c_uint64, ctypes.c_void_p])
         lib.attention_dropout_mask.restype = ctypes.c_int
     else:
-        lib.attention_bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        lib.attention_bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                                       + dropout_args)
         lib.attention_bwd.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
@@ -171,7 +180,7 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def _check_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
-                keep_mask: Optional[torch.Tensor], *others: torch.Tensor):
+                keep_mask: Optional[torch.Tensor]):
     """Raise on what the kernels do not take; return the keep mask as a
     contiguous int8 tensor (or None)."""
     b, s, three_h = qkv.shape
@@ -183,11 +192,8 @@ def _check_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
     if three_h % 3 or three_h // 3 != num_heads * HEAD_DIM:
         raise ValueError(f"the attention kernels need head_dim {HEAD_DIM}: got "
                          f"width {three_h} for {num_heads} heads")
-    if bias.shape != (b, s) or b == 0 or s == 0:
-        raise ValueError(f"bad shapes qkv {tuple(qkv.shape)}, "
-                         f"mask_bias {tuple(bias.shape)}")
-    if not all(t.is_contiguous() for t in (qkv, bias, *others)):
-        raise ValueError("the attention kernels take contiguous tensors")
+    if b == 0 or s == 0:
+        raise ValueError(f"empty qkv {tuple(qkv.shape)}")
     if keep_mask is None:
         return None
     if keep_mask.shape != (b, num_heads, s, s) or keep_mask.device != qkv.device:
@@ -208,15 +214,18 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
                            + lib.kernel_error_string(err).decode())
 
 
-def _check_seq(qkv: torch.Tensor, bias: torch.Tensor) -> None:
-    if bias.ndim != 2:
-        raise NotImplementedError(
-            "the attention kernels take a (B, S) key bias; the full "
-            "(B, NH, S, S) bias and its dbias are queued for MPNet (ROADMAP "
-            "Queue 2)")
-    if qkv.shape[1] > MAX_SEQ:
+def _check_seq(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int) -> None:
+    """The contract of both devices, so that the CPU tests hold callers to
+    what the kernels take."""
+    b, s, _ = qkv.shape
+    if tuple(bias.shape) not in ((b, s), (b, num_heads, s, s)):
+        raise ValueError(f"mask_bias must be (B, S) = {(b, s)} or (B, NH, S, S) "
+                         f"= {(b, num_heads, s, s)}, got {tuple(bias.shape)}")
+    if not (qkv.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("the attention kernels take contiguous tensors")
+    if s > MAX_SEQ:
         raise ValueError(f"the attention kernels cover sequences up to "
-                         f"{MAX_SEQ}, got {qkv.shape[1]}")
+                         f"{MAX_SEQ}, got {s}")
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {qkv.device}")
 
@@ -233,13 +242,14 @@ def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
                       seed: int = 0,
                       keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1's wrapper (no autograd): the context of ``qkv`` (B, S, 3H) under
-    the (B, S) fp32 key bias, with attention dropout at ``dropout_rate``
-    drawn from Philox(``seed``) or taken from ``keep_mask``.
+    the fp32 bias ``mask_bias``, (B, S) or (B, NH, S, S), with attention
+    dropout at ``dropout_rate`` drawn from Philox(``seed``) or taken from
+    ``keep_mask``.
 
     CPU tensors take :func:`attention_reference`.  CUDA tensors launch K1
     or raise; every launch adds one to ``fused_short_attention.launches``.
     """
-    _check_seq(qkv, mask_bias)
+    _check_seq(qkv, mask_bias, num_heads)
     rate = float(dropout_rate)
     if qkv.device.type == "cpu":
         keep = _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask)
@@ -253,7 +263,7 @@ def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
             qkv.data_ptr(), mask_bias.data_ptr(),
             None if keep is None else keep.data_ptr(), out.data_ptr(), b, s,
             num_heads, HEAD_DIM, _DTYPE_CODES[qkv.dtype],
-            *_dropout_args(rate, seed),
+            int(mask_bias.ndim == 4), *_dropout_args(rate, seed),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "K1")
     fused_short_attention.launches += 1
@@ -263,39 +273,45 @@ def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
 def attention_backward(qkv: torch.Tensor, mask_bias: torch.Tensor,
                        g: torch.Tensor, num_heads: int, *,
                        dropout_rate: float = 0.0, seed: int = 0,
-                       keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2's wrapper: d(qkv) (B, S, 3H) in the type of ``qkv`` for the
-    output gradient ``g`` of :func:`attention_forward` with the same
-    arguments (``g`` is cast to the compute type first).
+                       keep_mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K2's wrapper: ``(dqkv, dbias)`` for the output gradient ``g`` of
+    :func:`attention_forward` with the same arguments (``g`` is cast to
+    the compute type first).  ``dqkv`` (B, S, 3H) in the type of ``qkv``;
+    ``dbias`` the fp32 (B, NH, S, S) gradient of a full bias, None for a
+    key bias.
 
     CPU tensors take :func:`attention_backward_reference`.  CUDA tensors
     launch K2 or raise; every launch adds one to
     ``attention_backward.launches``.
     """
-    _check_seq(qkv, mask_bias)
+    _check_seq(qkv, mask_bias, num_heads)
     rate = float(dropout_rate)
     g = g.to(qkv.dtype).contiguous()
     if qkv.device.type == "cpu":
         keep = _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask)
         return attention_backward_reference(qkv, mask_bias, g, num_heads,
                                             rate, keep)
-    keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask, g)
+    keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask)
     b, s, three_h = qkv.shape
     if g.shape != (b, s, three_h // 3) or g.device != qkv.device:
         raise ValueError(f"g must be (B, S, H) = {(b, s, three_h // 3)} on the "
                          "device of qkv")
+    full = mask_bias.ndim == 4
     dqkv = torch.empty_like(qkv)
+    dbias = torch.empty_like(mask_bias) if full else None
     lib = _library("attention_bwd")
     with torch.cuda.device(qkv.device):
         err = lib.attention_bwd(
             qkv.data_ptr(), mask_bias.data_ptr(), g.data_ptr(),
-            None if keep is None else keep.data_ptr(), dqkv.data_ptr(), b, s,
-            num_heads, HEAD_DIM, _DTYPE_CODES[qkv.dtype],
+            None if keep is None else keep.data_ptr(), dqkv.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), b, s, num_heads,
+            HEAD_DIM, _DTYPE_CODES[qkv.dtype], int(full),
             *_dropout_args(rate, seed),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "K2")
     attention_backward.launches += 1
-    return dqkv
+    return dqkv, dbias
 
 
 def dropout_keep_mask(seed: int, batch: int, num_heads: int, seq: int,
@@ -320,7 +336,8 @@ def dropout_keep_mask(seed: int, batch: int, num_heads: int, seq: int,
 
 class _FusedAttention(torch.autograd.Function):
     """K1 forward, K2 backward; saves ``qkv``, ``bias`` and the dropout
-    seed (and the keep mask only when the caller gave one)."""
+    seed (and the keep mask only when the caller gave one).  A full bias
+    gets K2's ``dbias`` as its gradient."""
 
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, rate, seed, keep_mask):
@@ -333,9 +350,10 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, g):
         qkv, bias, keep_mask = ctx.saved_tensors
         num_heads, rate, seed = ctx.args
-        dqkv = attention_backward(qkv, bias, g, num_heads, dropout_rate=rate,
-                                  seed=seed, keep_mask=keep_mask)
-        return dqkv, None, None, None, None, None
+        dqkv, dbias = attention_backward(qkv, bias, g, num_heads,
+                                         dropout_rate=rate, seed=seed,
+                                         keep_mask=keep_mask)
+        return dqkv, dbias, None, None, None, None
 
 
 def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
@@ -348,8 +366,10 @@ def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
 
     Args:
       qkv: (B, S, 3*H) fused projection output, float32 or bfloat16.
-      mask_bias: (B, S) float32 additive key bias (0 on real tokens,
-        ``MASK_VALUE`` on padding); it gets no gradient.
+      mask_bias: float32 additive score bias: (B, S) on keys (0 on real
+        tokens, ``MASK_VALUE`` on padding), which gets no gradient, or a
+        full (B, NH, S, S) per-head bias (MPNet's relative position bias
+        plus padding), which gets ``dbias`` from K2.
       num_heads: number of heads; H / num_heads must be 64 on CUDA.
       dropout_rate, deterministic: attention-probability dropout, off when
         ``deterministic``.
@@ -362,7 +382,7 @@ def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
     the kernels or raise.
     """
     rate = 0.0 if deterministic else float(dropout_rate)
-    _check_seq(qkv, mask_bias)
+    _check_seq(qkv, mask_bias, num_heads)
     if rate > 0.0 and seed is None and keep_mask is None:
         raise ValueError("attention dropout needs a seed or a keep mask")
     if rate <= 0.0:

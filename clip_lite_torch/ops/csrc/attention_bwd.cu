@@ -1,10 +1,11 @@
 // Fused multi-head self-attention backward for short sequences (K2), Hopper.
 //
 // Replaces clip_lite_tpu/ops/attention.py::_attention_bwd_kernel (the
-// recompute backward behind _fused_bwd), key-bias variant.  Nothing of the
-// forward is saved but its inputs: per (batch item b, head h) the kernel
-// recomputes the probabilities and the dropout mask (the same Philox bits
-// K1 drew, attention_common.cuh), then
+// recompute backward behind _fused_bwd), for a (B, S) key bias and for a
+// full (B, NH, S, S) per-head bias.  Nothing of the forward is saved but
+// its inputs: per (batch item b, head h) the kernel recomputes the
+// probabilities and the dropout mask (the same Philox bits K1 drew,
+// attention_common.cuh), then
 //
 //     p_d  = keep ? p / (1 - rate) : 0,  rounded to the compute type
 //     dv   = p_d^T g                        (fp32 accumulation)
@@ -15,14 +16,20 @@
 //
 // each rounded once to the compute type and written into its third of the
 // packed (B, S, 3H) dqkv.  g arrives in the compute type, as the JAX
-// kernel casts it.  The (B, NH, S, S) full bias and its dbias are not
-// ported (MPNet, ROADMAP Queue 2).
+// kernel casts it.  With a full bias (template flag kFull; MPNet's
+// relative position bias + padding) the kernel also writes
+//
+//     dbias[b, h, i, j] = ds_ij                 (fp32, before 1/sqrt(HD))
+//
+// as the JAX kernel does (attention.py:167-173): the bias is added to the
+// scaled scores, so its gradient is ds unscaled and unrounded.
 //
 // What bounds it on an H100: bytes.  At the flagship shape (B=128, S=30,
 // NH=12, HD=64, bf16) one launch must read 17.7 MB of qkv and 5.9 MB of
 // g and write 17.7 MB of dqkv: about 41.3 MB, 12.3 us at 3.35 TB/s,
 // against five products of about 0.9 GFLOP (under a microsecond on the
-// tensor cores).
+// tensor cores).  A full bias adds 5.5 MB of reads and 5.5 MB of dbias
+// writes (52.4 MB, 15.6 us).
 //
 // Design: one block per (b, h), as K1, in two passes, so that no
 // accumulator is shared between warps and nothing needs atomics.
@@ -42,6 +49,15 @@
 // tensor-core version with one read is later work.  A key column j >= S
 // never enters the softmax: rows and columns run to S exactly.
 //
+// The full bias is read from device memory where it is needed, not staged
+// (the (S, S) tile would take 256 KB at S = 256): in pass 1 lane j of the
+// warp on row i reads bias[b, h, i, j] (coalesced), and the same warp
+// writes dbias[b, h, i, j] once, so no element is written twice and
+// nothing needs atomics; in pass 2 lane i of the warp on column j reads
+// bias[b, h, i, j] (a strided read, mostly from L2 after pass 1).  Both
+// passes compute the score with the same fp32 expression
+// (acc * scale + bias), so p is the same in both and dk, dv agree with dq.
+//
 // C interface (loaded with ctypes): attention_bwd(...) returns the
 // cudaError_t of the launch; 0 is success.
 
@@ -60,11 +76,12 @@ __host__ __device__ inline size_t smem_bytes(int S, int HD) {
                           (size_t)kWarps * (2 * HD + 2 * S));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kFull>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                     const T* __restrict__ g, T* __restrict__ dqkv, int S,
-                     int NH, float scale, Dropout drop) {
+                     const T* __restrict__ g, T* __restrict__ dqkv,
+                     float* __restrict__ dbias, int S, int NH, float scale,
+                     Dropout drop) {
   static_assert(HD % 32 == 0, "head_dim must be a multiple of the warp size");
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / 32;
@@ -84,6 +101,8 @@ attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   const T* src = qkv + (size_t)b * S * row3 + (size_t)h * HD;  // q_h of row 0
   const T* g_src = g + (size_t)b * S * H + (size_t)h * HD;
   T* dst = dqkv + (size_t)b * S * row3 + (size_t)h * HD;
+  // The full bias and its gradient of this (b, h): (S, S), row-major.
+  const size_t bh = ((size_t)b * NH + h) * S * S;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   float* x_row = warp_all + warp * (2 * HD + 2 * S);  // (HD)
@@ -98,7 +117,9 @@ attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
     a_s[s * kStride + d] = to_float(row[H]);
     b_s[s * kStride + d] = to_float(row[2 * H]);
   }
-  for (int s = threadIdx.x; s < S; s += kThreads) bias_s[s] = bias[(size_t)b * S + s];
+  if (!kFull) {
+    for (int s = threadIdx.x; s < S; s += kThreads) bias_s[s] = bias[(size_t)b * S + s];
+  }
   __syncthreads();
 
   // ---- pass 1: query rows -> dq, and the row statistics ----------------
@@ -108,13 +129,14 @@ attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
       y_row[d] = to_float(g_src[(size_t)i * H + d]);         // g_i
     }
     __syncwarp();
+    const float* bias_row = kFull ? bias + bh + (size_t)i * S : bias_s;
     float m = -INFINITY;
     for (int j = lane; j < S; j += 32) {
       const float* k = a_s + j * kStride;
       float acc = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) acc = fmaf(x_row[d], k[d], acc);
-      const float sc = acc * scale + bias_s[j];
+      const float sc = acc * scale + bias_row[j];
       p_row[j] = sc;
       m = fmaxf(m, sc);
     }
@@ -141,7 +163,9 @@ attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
     }
     dot = warp_sum(dot);
     for (int j = lane; j < S; j += 32) {
-      t_row[j] = round_to<T>(p_row[j] * (t_row[j] - dot) * scale);
+      const float ds = p_row[j] * (t_row[j] - dot);
+      if (kFull) dbias[bh + (size_t)i * S + j] = ds;
+      t_row[j] = round_to<T>(ds * scale);
     }
     __syncwarp();
     float acc[kCols];
@@ -180,14 +204,15 @@ attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
       y_row[d] = to_float(src[(size_t)j * row3 + 2 * H + d]);  // v_j
     }
     __syncwarp();
-    const float bj = bias_s[j];
     for (int i = lane; i < S; i += 32) {
       const float* q = a_s + i * kStride;
       const float* gi = b_s + i * kStride;
       float acc = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) acc = fmaf(q[d], x_row[d], acc);
-      const float p = expf(acc * scale + bj - row_max[i]) / row_sum[i];
+      const float bij = kFull ? bias[bh + (size_t)i * S + j] : bias_s[j];
+      const float sc = acc * scale + bij;  // pass 1's expression
+      const float p = expf(sc - row_max[i]) / row_sum[i];
       float acc2 = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) acc2 = fmaf(gi[d], y_row[d], acc2);
@@ -225,10 +250,11 @@ attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kFull>
 int launch(const void* qkv, const void* bias, const void* g, void* dqkv,
-           int B, int S, int NH, const Dropout& drop, cudaStream_t stream) {
-  auto kernel = attention_bwd_kernel<T, HD>;
+           void* dbias, int B, int S, int NH, const Dropout& drop,
+           cudaStream_t stream) {
+  auto kernel = attention_bwd_kernel<T, HD, kFull>;
   const size_t smem = smem_bytes(S, HD);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -238,7 +264,8 @@ int launch(const void* qkv, const void* bias, const void* g, void* dqkv,
   const float scale = 1.0f / sqrtf((float)HD);
   kernel<<<dim3(NH, B), kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(bias),
-      static_cast<const T*>(g), static_cast<T*>(dqkv), S, NH, scale, drop);
+      static_cast<const T*>(g), static_cast<T*>(dqkv),
+      static_cast<float*>(dbias), S, NH, scale, drop);
   return (int)cudaGetLastError();
 }
 
@@ -247,21 +274,33 @@ int launch(const void* qkv, const void* bias, const void* g, void* dqkv,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (qkv, g and dqkv); bias is float32.
-// qkv (B, S, 3*NH*HD), bias (B, S), g (B, S, NH*HD) and dqkv
-// (B, S, 3*NH*HD) are contiguous.  The dropout arguments are K1's.
+// qkv (B, S, 3*NH*HD), bias, g (B, S, NH*HD) and dqkv (B, S, 3*NH*HD) are
+// contiguous.  full_bias 0: bias is the (B, S) key bias and dbias is
+// ignored (null).  full_bias != 0: bias is (B, NH, S, S) and dbias, the
+// same shape in float32, receives its gradient; a null dbias is an error.
+// The dropout arguments are K1's.
 int attention_bwd(const void* qkv, const void* bias, const void* g,
-                  const void* keep, void* dqkv, int B, int S, int NH, int HD,
-                  int dtype, int dropout, unsigned int threshold,
-                  float inv_keep, unsigned long long seed, void* stream) {
-  if (HD != 64 || B < 1 || B > 65535 || S < 1 || NH < 1) {
+                  const void* keep, void* dqkv, void* dbias, int B, int S,
+                  int NH, int HD, int dtype, int full_bias, int dropout,
+                  unsigned int threshold, float inv_keep,
+                  unsigned long long seed, void* stream) {
+  if (HD != 64 || B < 1 || B > 65535 || S < 1 || NH < 1 ||
+      (full_bias && dbias == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const Dropout drop{static_cast<const int8_t*>(keep), seed, threshold,
                      inv_keep, dropout != 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, 64>(qkv, bias, g, dqkv, B, S, NH, drop, st);
+  if (dtype == 0) {
+    return full_bias
+               ? launch<float, 64, true>(qkv, bias, g, dqkv, dbias, B, S, NH, drop, st)
+               : launch<float, 64, false>(qkv, bias, g, dqkv, dbias, B, S, NH, drop, st);
+  }
   if (dtype == 1) {
-    return launch<__nv_bfloat16, 64>(qkv, bias, g, dqkv, B, S, NH, drop, st);
+    return full_bias ? launch<__nv_bfloat16, 64, true>(qkv, bias, g, dqkv, dbias, B,
+                                                       S, NH, drop, st)
+                     : launch<__nv_bfloat16, 64, false>(qkv, bias, g, dqkv, dbias, B,
+                                                        S, NH, drop, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
 // Fused multi-head self-attention forward for short sequences (K1), Hopper.
 //
 // Replaces clip_lite_tpu/ops/attention.py::_attention_fwd_kernel, the
-// Pallas kernel that BERT runs in every layer.  It computes the same
-// function, not the same blocks:
+// Pallas kernel that BERT and MPNet run in every layer.  It computes the
+// same function, not the same blocks:
 //
 //   per (batch item b, head h):
-//     s    = q_h k_h^T / sqrt(HD) + bias[b, :]    (fp32, key bias)
+//     s    = q_h k_h^T / sqrt(HD) + bias          (fp32)
+//            bias = bias[b, :] (key bias, BERT) or bias[b, h, :, :] (full
+//            per-head bias, MPNet's relative position bias + padding)
 //     p    = softmax(s) in fp32
 //     p    = keep ? p / (1 - rate) : 0            (dropout, training only)
 //     p    = p rounded to the compute type
@@ -20,7 +22,8 @@
 // NH=12, HD=64, bf16) one launch must read 17.7 MB of qkv and write
 // 5.9 MB of context, about 7 us at 3.35 TB/s, against 0.35 GFLOP of
 // products (well under a microsecond on the tensor cores); dropout adds
-// 1.4 M Philox draws of arithmetic and no bytes.  So the design reads
+// 1.4 M Philox draws of arithmetic and no bytes.  A full bias adds 5.5 MB
+// of fp32 reads (8.7 us in all).  So the design reads
 // every input byte once and writes every output byte once: one thread
 // block per (b, h) stages its q, k and v rows (S x HD each) in shared
 // memory, and nothing but the context leaves the block.  The products run
@@ -34,6 +37,12 @@
 // softmax max and sum are warp shuffles, and for the context each lane
 // owns HD / 32 output columns.  Padded key columns (j >= S) never enter
 // the softmax and no padded query row is written.
+//
+// The full bias (template flag kFull) is read straight from device memory
+// by the warp that owns row i: lane j reads bias[b, h, i, j], so a warp's
+// read is coalesced.  Staging the (S, S) tile would cost 256 KB of shared
+// memory at S = 256, more than a block may have; every element is read
+// once anyway.
 //
 // C interface (loaded with ctypes): attention_fwd(...) and
 // attention_dropout_mask(...) return the cudaError_t of the launch; 0 is
@@ -54,7 +63,7 @@ __host__ __device__ inline size_t smem_bytes(int S, int HD) {
          ((size_t)S * HD * 2 + (size_t)S * (HD + 1) + S + (size_t)kWarps * S);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kFull>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                      T* __restrict__ out, int S, int NH, float scale,
@@ -81,7 +90,9 @@ attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
     k_s[s * kStride + d] = to_float(row[H]);
     v_s[idx] = to_float(row[2 * H]);
   }
-  for (int s = threadIdx.x; s < S; s += kThreads) bias_s[s] = bias[(size_t)b * S + s];
+  if (!kFull) {
+    for (int s = threadIdx.x; s < S; s += kThreads) bias_s[s] = bias[(size_t)b * S + s];
+  }
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
@@ -93,6 +104,9 @@ attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
     float q[HD];
 #pragma unroll
     for (int d = 0; d < HD; ++d) q[d] = q_s[i * HD + d];
+    // This row's bias: the full bias's row i of head h, or the key bias.
+    const float* bias_row =
+        kFull ? bias + (((size_t)b * NH + h) * S + i) * S : bias_s;
 
     float m = -INFINITY;
     for (int j = lane; j < S; j += 32) {
@@ -100,7 +114,7 @@ attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
       float acc = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) acc = fmaf(q[d], k[d], acc);
-      const float sc = acc * scale + bias_s[j];
+      const float sc = acc * scale + bias_row[j];
       p[j] = sc;
       m = fmaxf(m, sc);
     }
@@ -149,10 +163,10 @@ __global__ void dropout_mask_kernel(int8_t* __restrict__ keep, int B, int NH,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kFull>
 int launch(const void* qkv, const void* bias, void* out, int B, int S, int NH,
            const Dropout& drop, cudaStream_t stream) {
-  auto kernel = attention_fwd_kernel<T, HD>;
+  auto kernel = attention_fwd_kernel<T, HD, kFull>;
   const size_t smem = smem_bytes(S, HD);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -171,21 +185,29 @@ int launch(const void* qkv, const void* bias, void* out, int B, int S, int NH,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (qkv and out); bias is always float32.
-// qkv (B, S, 3*NH*HD), bias (B, S) and out (B, S, NH*HD) are contiguous.
+// qkv (B, S, 3*NH*HD), bias and out (B, S, NH*HD) are contiguous; bias is
+// (B, S) when full_bias is 0, (B, NH, S, S) when it is not.
 // dropout != 0 applies attention dropout: keep (B, NH, S, S) int8 when not
 // null, else Philox(seed) against threshold; kept values scale by inv_keep.
 int attention_fwd(const void* qkv, const void* bias, const void* keep,
                   void* out, int B, int S, int NH, int HD, int dtype,
-                  int dropout, unsigned int threshold, float inv_keep,
-                  unsigned long long seed, void* stream) {
+                  int full_bias, int dropout, unsigned int threshold,
+                  float inv_keep, unsigned long long seed, void* stream) {
   if (HD != 64 || B < 1 || B > 65535 || S < 1 || NH < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const Dropout drop{static_cast<const int8_t*>(keep), seed, threshold,
                      inv_keep, dropout != 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, 64>(qkv, bias, out, B, S, NH, drop, st);
-  if (dtype == 1) return launch<__nv_bfloat16, 64>(qkv, bias, out, B, S, NH, drop, st);
+  if (dtype == 0) {
+    return full_bias ? launch<float, 64, true>(qkv, bias, out, B, S, NH, drop, st)
+                     : launch<float, 64, false>(qkv, bias, out, B, S, NH, drop, st);
+  }
+  if (dtype == 1) {
+    return full_bias
+               ? launch<__nv_bfloat16, 64, true>(qkv, bias, out, B, S, NH, drop, st)
+               : launch<__nv_bfloat16, 64, false>(qkv, bias, out, B, S, NH, drop, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

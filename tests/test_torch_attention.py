@@ -66,6 +66,35 @@ def test_forward_matches_jax(inputs, port_fn, jax_fn):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def full_bias_inputs(inputs):
+    """MPNet's kind of bias: a per-head (NH, S, S) table plus padding."""
+    qkv, key_bias = inputs
+    rel = np.random.RandomState(2).randn(1, NH, S, S).astype(np.float32) * 0.5
+    return qkv, (rel + key_bias[:, None, None, :]).astype(np.float32)
+
+
+@pytest.mark.parametrize("port_fn", [_port_wrapper, _port_reference],
+                         ids=["wrapper", "reference"])
+@pytest.mark.parametrize("jax_fn", [_jax_kernel, _jax_xla],
+                         ids=["pallas_interpret", "xla"])
+def test_full_bias_forward_matches_jax(full_bias_inputs, port_fn, jax_fn):
+    qkv, bias = full_bias_inputs
+    assert bias.shape == (B, NH, S, S)
+    np.testing.assert_allclose(port_fn(qkv, bias).numpy(),
+                               np.asarray(jax_fn(qkv, bias)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_full_bias_padding_keys_ignored(full_bias_inputs):
+    qkv, bias = full_bias_inputs
+    poked = qkv.copy()
+    poked[:, 25:, H:] += 7.0  # keys and values of padded positions
+    np.testing.assert_allclose(_port_wrapper(qkv, bias).numpy(),
+                               _port_wrapper(poked, bias).numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
 def test_mask_value_matches_jax():
     assert MASK_VALUE == jax_attention.MASK_VALUE
 
@@ -110,8 +139,11 @@ def test_rate_above_zero_raises(inputs):
 
 def test_unsupported_shapes_raise(inputs):
     qkv, bias = (torch.from_numpy(a) for a in inputs)
-    with pytest.raises(NotImplementedError):
-        fused_short_attention(qkv, torch.zeros(B, NH, S, S), NH)
+    with pytest.raises(ValueError):  # a malformed full bias
+        fused_short_attention(qkv, torch.zeros(B, NH, S, S + 1), NH)
+    with pytest.raises(ValueError):  # a broadcast view, as on the card
+        fused_short_attention(qkv, torch.zeros(1, NH, S, S).expand(B, -1, -1, -1),
+                              NH)
     with pytest.raises(ValueError):
         fused_short_attention(torch.zeros(1, 257, 3 * H), torch.zeros(1, 257), NH)
 

@@ -100,10 +100,90 @@ def test_backward_twin_matches_autograd_of_forward_twin():
     x = torch.from_numpy(qkv).requires_grad_()
     attention_reference(x, torch.from_numpy(bias), 2, 0.1, keep).backward(
         torch.from_numpy(w))
-    twin = attention_backward_reference(
+    twin, dbias = attention_backward_reference(
         torch.from_numpy(qkv), torch.from_numpy(bias), torch.from_numpy(w), 2,
         0.1, keep)
     np.testing.assert_allclose(twin.numpy(), x.grad.numpy(), **TOL)
+    assert dbias is None  # a key bias gets no gradient
+
+
+# The full (B, NH, S, S) bias (MPNet): dqkv and dbias against jax.grad
+# with respect to both.  Bar 1e-4, the JAX package's own between its two
+# paths (tests/test_attention.py::test_full_bias_grads_match_xla).
+FULL_TOL = dict(rtol=1e-4, atol=1e-4)
+FULL_SHAPES = [(4, 30, 2), (2, 17, 3)]
+
+
+def _full_case(b, s, nh, seed=0):
+    qkv, key_bias, w = _case(b, s, nh, seed)
+    rel = np.random.RandomState(seed + 100).randn(1, nh, s, s) * 0.5
+    return qkv, (rel + key_bias[:, None, None, :]).astype(np.float32), w
+
+
+def _jax_full_grads(fn, qkv, bias, w):
+    grads = jax.grad(lambda x, y: jnp.sum(fn(x, y) * w), argnums=(0, 1))(
+        jnp.asarray(qkv), jnp.asarray(bias))
+    return [np.asarray(g) for g in grads]
+
+
+def _port_full_grads(qkv, bias, w, nh, rate, keep):
+    x = torch.from_numpy(qkv).requires_grad_()
+    y = torch.from_numpy(bias).requires_grad_()
+    fused_short_attention(x, y, nh, dropout_rate=rate, deterministic=rate == 0.0,
+                          keep_mask=keep).backward(torch.from_numpy(w))
+    assert y.grad.dtype == torch.float32 and y.grad.shape == y.shape
+    return [x.grad.numpy(), y.grad.numpy()]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3], ids=["rate0", "rate0.3"])
+@pytest.mark.parametrize("b,s,nh", FULL_SHAPES,
+                         ids=[f"{b}x{s}x{nh}" for b, s, nh in FULL_SHAPES])
+def test_full_bias_grads_match_jax_pallas_interpret(b, s, nh, rate):
+    qkv, bias, w = _full_case(b, s, nh)
+    key = jax.random.PRNGKey(5)
+    keep = None
+    if rate:
+        seed = jax.random.randint(key, (1,), -2 ** 31, 2 ** 31 - 1,
+                                  dtype=jnp.int32)
+        keep = torch.from_numpy(np.asarray(
+            jax_attention._external_keep_mask(seed, b, nh, s, rate)))
+    ref = _jax_full_grads(lambda x, y: jax_attention.fused_short_attention(
+        x, y, nh, dropout_rate=rate, dropout_rng=key if rate else None,
+        deterministic=rate == 0.0, interpret=True), qkv, bias, w)
+    for got, want in zip(_port_full_grads(qkv, bias, w, nh, rate, keep), ref):
+        np.testing.assert_allclose(got, want, **FULL_TOL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3], ids=["rate0", "rate0.3"])
+@pytest.mark.parametrize("b,s,nh", FULL_SHAPES,
+                         ids=[f"{b}x{s}x{nh}" for b, s, nh in FULL_SHAPES])
+def test_full_bias_grads_match_jax_xla(b, s, nh, rate):
+    qkv, bias, w = _full_case(b, s, nh, seed=1)
+    key = jax.random.PRNGKey(7)
+    keep = None
+    if rate:
+        keep = torch.from_numpy(np.asarray(
+            jax.random.bernoulli(key, 1.0 - rate, (b, nh, s, s))))
+    ref = _jax_full_grads(lambda x, y: jax_attention._xla_attention(
+        x, y, nh, rate, key if rate else None), qkv, bias, w)
+    for got, want in zip(_port_full_grads(qkv, bias, w, nh, rate, keep), ref):
+        np.testing.assert_allclose(got, want, **FULL_TOL)
+
+
+def test_full_bias_backward_twin_matches_autograd_of_forward_twin():
+    """K2's twin returns dbias = ds in fp32, unscaled: torch autograd of
+    K1's twin with respect to the bias."""
+    qkv, bias, w = _full_case(4, 30, 2, seed=2)
+    keep = philox_keep_mask(11, 4, 2, 30, 0.1)
+    x = torch.from_numpy(qkv).requires_grad_()
+    y = torch.from_numpy(bias).requires_grad_()
+    attention_reference(x, y, 2, 0.1, keep).backward(torch.from_numpy(w))
+    dqkv, dbias = attention_backward_reference(
+        torch.from_numpy(qkv), torch.from_numpy(bias), torch.from_numpy(w), 2,
+        0.1, keep)
+    assert dbias.dtype == torch.float32
+    np.testing.assert_allclose(dqkv.numpy(), x.grad.numpy(), **TOL)
+    np.testing.assert_allclose(dbias.numpy(), y.grad.numpy(), **TOL)
 
 
 def test_cuda_less_tensor_gets_grad_fn_and_counts_no_launch():
@@ -133,7 +213,7 @@ def test_seeded_dropout_same_mask_both_directions():
         x.grad.numpy(),
         attention_backward(torch.from_numpy(qkv), torch.from_numpy(bias),
                            torch.from_numpy(w), 2, dropout_rate=0.2,
-                           keep_mask=keep).numpy(), **TOL)
+                           keep_mask=keep)[0].numpy(), **TOL)
 
 
 def test_philox_mask_keep_rate_and_seeds():

@@ -1,5 +1,7 @@
 """K1 and K2, the CUDA attention kernels, against their plain versions on
-the card: forward and backward, with dropout off and on (Philox masks).
+the card: forward and backward, with dropout off and on (Philox masks),
+under a (B, S) key bias and under MPNet's full (B, NH, S, S) bias, whose
+gradient dbias K2 returns.
 K3, the normalize kernel, against its plain version bit for bit; the
 on-device preprocessing and the device-resident cache on the card.
 
@@ -15,6 +17,7 @@ import torch
 
 from clip_lite_torch.data.device_cache import DecodedCorpus, DeviceDataCache
 from clip_lite_torch.models.bert import BertModel
+from clip_lite_torch.models.mpnet import MPNetModel
 from clip_lite_torch.ops.attention import (
     MASK_VALUE,
     attention_backward,
@@ -124,10 +127,11 @@ def test_backward_kernel_matches_reference(device, dtype, rate, b, s, nh):
     seed = 12345
     keep = dropout_keep_mask(seed, b, nh, s, rate, device) if rate else None
     before = attention_backward.launches
-    dqkv = attention_backward(qkv, bias, g, nh, dropout_rate=rate, seed=seed)
+    dqkv, dbias = attention_backward(qkv, bias, g, nh, dropout_rate=rate,
+                                     seed=seed)
     torch.cuda.synchronize()
-    assert attention_backward.launches == before + 1
-    ref = attention_backward_reference(qkv, bias, g, nh, rate, keep)
+    assert attention_backward.launches == before + 1 and dbias is None
+    ref, _ = attention_backward_reference(qkv, bias, g, nh, rate, keep)
     assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
     torch.testing.assert_close(dqkv.float(), ref.float(), **TOLS[dtype])
     if rate:
@@ -135,6 +139,109 @@ def test_backward_kernel_matches_reference(device, dtype, rate, b, s, nh):
         torch.testing.assert_close(
             out.float(), attention_reference(qkv, bias, nh, rate, keep).float(),
             **TOLS[dtype])
+
+
+def _full_bias(device, key_bias, nh, seed=3):
+    """MPNet's kind of bias: a (1, NH, S, S) table plus the key bias,
+    added into one contiguous (B, NH, S, S) tensor."""
+    s = key_bias.shape[1]
+    rel = torch.randn(1, nh, s, s, device=device,
+                      generator=torch.Generator(device=device).manual_seed(seed))
+    return rel * 0.5 + key_bias[:, None, None, :]
+
+
+# dbias is fp32 in both (ds before the 1/sqrt(HD) and the cast), from
+# products of the same values summed in another order: fp32's bar whatever
+# the compute type.
+@DTYPES
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("b,s,nh", SHAPES)
+def test_full_bias_kernels_match_reference(device, dtype, rate, b, s, nh):
+    """K1 and K2 with the full bias against their twins, given the Philox
+    mask that the kernels' own entry point writes; dbias included."""
+    qkv, key_bias = _inputs(device, b, s, nh)
+    bias = _full_bias(device, key_bias, nh)
+    qkv = qkv.to(dtype)
+    g = torch.randn(b, s, nh * 64, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    seed = 4321
+    keep = dropout_keep_mask(seed, b, nh, s, rate, device) if rate else None
+    k1, k2 = fused_short_attention.launches, attention_backward.launches
+    out = attention_forward(qkv, bias, nh, dropout_rate=rate, seed=seed)
+    dqkv, dbias = attention_backward(qkv, bias, g, nh, dropout_rate=rate,
+                                     seed=seed)
+    torch.cuda.synchronize()
+    assert (fused_short_attention.launches, attention_backward.launches) == \
+        (k1 + 1, k2 + 1)
+    ref = attention_reference(qkv, bias, nh, rate, keep)
+    dref, dbias_ref = attention_backward_reference(qkv, bias, g, nh, rate, keep)
+    assert out.dtype == dqkv.dtype == dtype
+    assert dbias.dtype == torch.float32 and dbias.shape == bias.shape
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+    torch.testing.assert_close(dqkv.float(), dref.float(), **TOLS[dtype])
+    torch.testing.assert_close(dbias, dbias_ref, **TOLS[torch.float32])
+
+
+def test_full_bias_autograd_function_launches_k2_with_dbias(device):
+    """A full bias that requires grad gets K2's dbias through the autograd
+    Function, equal to autograd through the plain version."""
+    qkv, key_bias = _inputs(device, 16, 30, 12)
+    bias = _full_bias(device, key_bias, 12)
+    x, y = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    k1, k2 = fused_short_attention.launches, attention_backward.launches
+    out = fused_short_attention(x, y, 12, dropout_rate=0.1, deterministic=False,
+                                seed=9)
+    w = torch.randn_like(out)
+    (out * w).sum().backward()
+    assert (fused_short_attention.launches, attention_backward.launches) == \
+        (k1 + 1, k2 + 1)
+    x2, y2 = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    keep = dropout_keep_mask(9, 16, 12, 30, 0.1, device)
+    (attention_reference(x2, y2, 12, 0.1, keep) * w).sum().backward()
+    torch.testing.assert_close(x.grad, x2.grad, **TOLS[torch.float32])
+    torch.testing.assert_close(y.grad, y2.grad, **TOLS[torch.float32])
+
+
+def test_full_bias_wrapper_rejects_what_the_kernels_do_not_take(device):
+    qkv, key_bias = _inputs(device, 4, 30, 12)
+    bias = _full_bias(device, key_bias, 12)
+    before = fused_short_attention.launches, attention_backward.launches
+    with pytest.raises(ValueError):  # a broadcast view, not contiguous
+        fused_short_attention(qkv, bias[:1].expand(4, -1, -1, -1), 12)
+    with pytest.raises(ValueError):
+        fused_short_attention(qkv, bias[:, :, :, :29], 12)
+    with pytest.raises(TypeError):
+        fused_short_attention(qkv, bias.double(), 12)
+    assert (fused_short_attention.launches, attention_backward.launches) == before
+
+
+def test_mpnet_training_fused_matches_plain_on_card(device):
+    """A 2-layer MPNetModel in training mode (dropout 0, fp32): outputs and
+    every parameter's gradient, the relative bias table's included,
+    through K1/K2 with the full bias and through the plain attention."""
+    ids = torch.randint(2, 500, (8, 30), device=device)
+    mask = (torch.arange(30, device=device)[None, :]
+            < torch.randint(2, 31, (8, 1), device=device)).long()
+    runs = []
+    for flag in ("true", "false"):
+        model = MPNetModel(vocab_size=500, hidden_size=128, num_hidden_layers=2,
+                           num_heads=2, intermediate_size=512, dropout_rate=0.0,
+                           fused_attention=flag)
+        init_weights(model, torch.Generator().manual_seed(0))
+        model = model.train().to(device)
+        k1, k2 = fused_short_attention.launches, attention_backward.launches
+        seq, pooled = model(ids * mask + (1 - mask), mask)
+        (seq.square().sum() + pooled.sum()).backward()
+        launched = (fused_short_attention.launches - k1,
+                    attention_backward.launches - k2)
+        assert launched == ((2, 2) if flag == "true" else (0, 0))
+        runs.append((seq, {n: p.grad for n, p in model.named_parameters()}))
+    (a, ga), (b, gb) = runs
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert ga["relative_attention_bias.weight"].abs().max() > 0
+    for name in ga:
+        torch.testing.assert_close(ga[name], gb[name], rtol=1e-4, atol=1e-4,
+                                   msg=name)
 
 
 def test_dropout_mask_matches_cpu_twin_and_rate(device):

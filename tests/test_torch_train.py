@@ -133,13 +133,17 @@ def _inject_uniform(mp, noise):
     mp.setattr(jax.random, "uniform", uniform)
 
 
-def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM, uint8=False):
-    """The JAX run of ``STEPS`` steps on ``b`` seeded pairs of ``crop`` px
-    (``U8_STEPS`` on uint8 pixels when ``uint8``): initial variables,
-    per-step metrics, first-step grads (float batches only), final state,
-    the eval step's components and the augmentation draws (uint8 only)."""
+def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM, uint8=False,
+            steps=None, txt_dim=128, first_grads=True):
+    """The JAX run of ``steps`` steps (default ``STEPS``, ``U8_STEPS`` on
+    uint8 pixels when ``uint8``) on ``b`` seeded pairs of ``crop`` px, with
+    ``img_dim``/``txt_dim`` wide prior noise for the towers' features:
+    initial variables, per-step metrics, first-step grads (float batches
+    only, unless ``first_grads`` is false), final state, the eval step's
+    components and the augmentation draws (uint8 only)."""
     rng = np.random.RandomState(0)
-    make, steps = (_batch_u8, U8_STEPS) if uint8 else (_batch, STEPS)
+    make = _batch_u8 if uint8 else _batch
+    steps = steps or (U8_STEPS if uint8 else STEPS)
     batches = [make(rng, b, crop) for _ in range(steps)]
     val_batch = make(rng, b, crop)
     jcfg = JConfig(FLAGSHIP, train)
@@ -151,7 +155,7 @@ def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM, uint8=False):
     state = jax.jit(lambda b: jengine.create_train_state(model, tx, b, seed=0))(
         sample)
     noise = {"image": rng.uniform(size=(b, img_dim)).astype(np.float32),
-             "text": rng.uniform(size=(b, 128)).astype(np.float32)}
+             "text": rng.uniform(size=(b, txt_dim)).astype(np.float32)}
     variables = jax.tree.map(np.asarray, {"params": state.params,
                                           "batch_stats": state.batch_stats})
     key = jax.random.PRNGKey(0)
@@ -165,7 +169,7 @@ def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM, uint8=False):
                 rngs={"prior": key, "dropout": key})
             return out["loss"]
 
-        grads = None if uint8 else jax.tree.map(
+        grads = None if uint8 or not first_grads else jax.tree.map(
             np.asarray, jax.jit(jax.grad(loss_fn))(state.params))
         step = jax.jit(jengine.make_train_step(model, tx))
         metrics = []
@@ -202,8 +206,9 @@ def run_port(reference, train=TRAIN, fused="true"):
     for batch, aug in zip(reference["batches"], draws):
         state, m = step(state, batch, prior_noise=noise, aug_draws=aug)
         metrics.append(metrics_to_floats(m))
-        if first_grads is None:
-            first_grads = {n: p.grad.clone()
+        if first_grads is None:  # an unused parameter (MPNet's pooler) has none
+            first_grads = {n: torch.zeros_like(p) if p.grad is None
+                           else p.grad.clone()
                            for n, p in state.model.named_parameters()}
     evals = metrics_to_floats(make_eval_step(cfg)(
         state, reference["val_batch"], prior_noise=noise))
