@@ -12,7 +12,8 @@ caught:
    TF32 and reduced-precision bf16 reductions off, so fp32 references are
    fp32.
 2. Build: every kernel of the port from clip_lite_torch/ops/csrc, one
-   nvcc per source, all started together.
+   nvcc per source, all started together; each kernel's registers from
+   ptxas, and no variant may spill.
 3. K1 (attention forward) against its plain PyTorch version at the
    flagship text batch, in fp32 and bf16; the kernel's, the plain
    version's and the library call's times; the least time the card could
@@ -23,13 +24,20 @@ caught:
    card, scores retrieval on 256 seeded images and captions at batch 128.
    Launch counts are set to 0 just before and read just after.  Checks:
    finite unit-norm (256, 2048) embeddings, K1 launched 12 layers x 2
-   text batches, and the text embeddings against the same model with
+   text batches, every launch on the tensor-core route (bf16 at S = 30;
+   the same holds for every bf16 main path below), and the text embeddings against the same model with
    FUSED_ATTENTION false (the plain attention) in bf16 and in fp32.
    Then images/s and captions/s through the bundle.
 5. K1 with dropout and K2 (attention backward) at the same shape, fp32
    and bf16, dropout rate 0 and 0.1, each against its plain version given
-   the Philox keep mask that the kernels' own entry point writes; the
-   mask's keep fraction and its dependence on the seed; times and bounds.
+   the Philox keep mask that the kernels' own entry point writes; in bf16
+   also against the float64 evaluation of the same function, where each
+   kernel's max error may be at most twice its plain version's (a bar
+   that does not depend on the order of sums); the mask's keep fraction
+   and its dependence on the seed; times and bounds, and in bf16 the
+   tensor-core route timed in turns with the CUDA-core route on the same
+   inputs, each as a caller pays it and on the device alone (the card
+   held busy while the host enqueues).
 6. Training main path: the flagship at full width (dropout 0.1, SGD +
    Lookahead, warmup-cosine) with seeded weights, 10 steps of 128 seeded
    pairs through the engine and the train loop, then one eval sweep.
@@ -65,8 +73,9 @@ caught:
 9. K3 (the ImageNet normalize) against its plain PyTorch version at the
    flagship image batch (128, 224, 224, 3), uint8 and float32 in, fp32
    and bf16 out, bit for bit; its output's NCHW view is channels_last;
-   the kernel's, the plain version's and the library call's
-   (``torch.addcmul``, uint8 or float32 in) times and the bound; then
+   the kernel's (as a caller pays it and on the device alone), the plain
+   version's and the library call's (``torch.addcmul``, uint8 or float32
+   in) times and the bound; then
    ``device_preprocess`` whole (flip + normalize, and with colour jitter)
    in ms per batch.
 10. The uint8 training path: configs/fs_tpu_tuned.yaml with DATA.DEVICE_CACHE
@@ -82,14 +91,17 @@ caught:
    from a normalize-only pass exactly where that step's draws flipped or
    jittered; K3 launched 10 + 1 times, K1 12 x 11, K2 12 x 10; BatchNorm
    statistics moved.  Then the median step over steps 3-10, pairs/s, peak
-   memory, the cache's bytes, and K1/K2 times at qkv (128, 20, 2304).
+   memory, the cache's bytes, and K1/K2 times at qkv (128, 20, 2304),
+   key and full bias, both routes and the library call.
 11. One JSON line listing every ported kernel; then the device line last.
 """
 
+import functools
 import gc
 import json
 import logging
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -154,21 +166,64 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, args_list, iters=40, warmup=5) -> float:
-    """Mean ms per call over ``iters`` calls, cycling through
-    ``args_list`` (copies from :func:`l2_spilling_copies`, so every call
-    reads its inputs from device memory)."""
-    for i in range(warmup):
-        fn(*args_list[i % len(args_list)])
-    torch.cuda.synchronize()
+@functools.cache
+def sleep_cycles_per_ms() -> float:
+    """The card's clock as ``torch.cuda._sleep`` counts it, in cycles per ms."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
+
+
+def enqueue_ms(fn, args_list, iters=40) -> float:
+    """Mean host ms per call until it is enqueued (the card idle first)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host
+
+
+def _events_ms(fn, args_list, iters: int, busy_ms: float) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if busy_ms:
+        torch.cuda._sleep(int(sleep_cycles_per_ms() * busy_ms))
     start.record()
     for i in range(iters):
         fn(*args_list[i % len(args_list)])
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, args_list, iters=40, warmup=5) -> float:
+    """Mean ms per call over ``iters`` calls back to back, cycling through
+    ``args_list`` (copies from :func:`l2_spilling_copies`, so every call
+    reads its inputs from device memory), timed by events from an idle
+    card: what a caller pays per call, the larger of the host's time to
+    enqueue it and the card's time to run it."""
+    for i in range(warmup):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    return _events_ms(fn, args_list, iters, 0.0)
+
+
+def device_ms(fn, args_list, iters=40, warmup=5) -> float:
+    """As :func:`time_ms`, but the card's time alone: it is held busy
+    (``torch.cuda._sleep``) for twice the host's time to enqueue the
+    calls, so that the events time them back to back on the device even
+    where the host is slower than the kernels."""
+    for i in range(warmup):
+        fn(*args_list[i % len(args_list)])
+    host = enqueue_ms(fn, args_list, iters) * iters
+    return _events_ms(fn, args_list, iters, 2.0 * host + 1.0)
 
 
 def l2_spilling_copies(*xs: torch.Tensor) -> list:
@@ -198,10 +253,17 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all(["attention_fwd", "attention_bwd", "normalize"])
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'none (cached)'}")
+    spills = []
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers", "spill",
+                                       "error")):
                 log(f"  {name}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and (int(m[1]) or int(m[2])):
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
 
 
 def attention_inputs(s: int = 30, lengths=(1, 25)):
@@ -292,6 +354,22 @@ def text_tower(cfg, model) -> str:
             f"{model.text_encoder.transformer.hidden_size}")
 
 
+def check_routes(cfg, seq: int, launches: dict) -> None:
+    """Every K1 and K2 launch of a main path took the route that
+    attention_route picks for its compute type and caption length (the
+    tensor cores for bf16 at S <= 64)."""
+    from clip_lite_torch.factories import compute_dtype
+    from clip_lite_torch.ops.attention import attention_route
+
+    on_tc = attention_route(compute_dtype(cfg), seq) == "tensor_core"
+    for kernel in ("attention_fwd", "attention_bwd"):
+        if kernel in launches and launches[f"{kernel}_tc"] != (
+                launches[kernel] if on_tc else 0):
+            raise AssertionError(f"{kernel}: {launches[f'{kernel}_tc']} of "
+                                 f"{launches[kernel]} launches on the tensor-core "
+                                 f"route, expected {'all' if on_tc else 'none'}")
+
+
 def phase_main_path(overrides=(), name: str = "main path") -> dict:
     """Inference through EncoderBundle: the flagship, or the flagship with
     ``overrides`` (MPNet's text tower)."""
@@ -322,11 +400,13 @@ def phase_main_path(overrides=(), name: str = "main path") -> dict:
     torch.cuda.synchronize()
 
     fused_short_attention.launches = 0
+    fused_short_attention.tc_launches = 0
     t0 = time.perf_counter()
     recalls, img_emb, txt_emb = score_retrieval(bundle, images, texts, tok,
                                                 txt2img, img2txt)
     wall = time.perf_counter() - t0
-    launches = {"attention_fwd": fused_short_attention.launches}
+    launches = {"attention_fwd": fused_short_attention.launches,
+                "attention_fwd_tc": fused_short_attention.tc_launches}
     log(f"{name}: score_retrieval of {N_ITEMS} images + {N_ITEMS} captions "
         f"in {wall} s; launches {launches}; recalls "
         f"{json.dumps({k: float(v) for k, v in recalls.items()})}")
@@ -336,6 +416,7 @@ def phase_main_path(overrides=(), name: str = "main path") -> dict:
     if launches["attention_fwd"] != expected:
         raise AssertionError(f"K1 launched {launches['attention_fwd']} times, "
                              f"expected {expected}")
+    check_routes(cfg, cfg.DATA.MAX_CAPTION_LENGTH, launches)
     if not all(0.0 <= float(v) <= 100.0 for v in recalls.values()):
         raise AssertionError(f"recalls out of range: {recalls}")
 
@@ -376,6 +457,121 @@ def phase_main_path(overrides=(), name: str = "main path") -> dict:
     return dict(launches, captions_per_s=statistics.median(txt_s))
 
 
+def float64_bar(name: str, pairs, exact) -> dict:
+    """Each (kernel, plain) output against the float64 evaluation of the
+    same function from the same inputs and keep mask: the kernel's max
+    error may be at most twice the plain version's."""
+    out = {what: dict(kernel=(got.double() - want).abs().max().item(),
+                      plain=(twin.double() - want).abs().max().item())
+           for what, (got, twin), want in zip(("out", "dqkv", "dbias"), pairs,
+                                              exact) if want is not None}
+    log(f"{name}: max error from float64, kernel vs plain (bar 2x): {out}")
+    over = {k: v for k, v in out.items() if v["kernel"] > 2.0 * v["plain"]}
+    if over:
+        raise AssertionError(f"{name}: kernel over twice the plain version's "
+                             f"error from float64: {over}")
+    return out
+
+
+def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
+    """K1 and K2 on ``qkv`` (128, S, 2304), output gradient ``g``, bias
+    (B, S) or (B, NH, S, S), dropout ``rate`` from Philox(``seed``)
+    (``keep``, its mask, for the plain versions): ms of the kernels on
+    their route, and in bf16 of the CUDA-core route on the same inputs in
+    turns (A B B A), each as a caller pays it (``ms``, :func:`time_ms`)
+    and on the device alone (``ms_device``, :func:`device_ms`); the
+    host's ms to enqueue one call of the wrapper; the plain versions; the
+    library call (``scaled_dot_product_attention`` with the bool of real
+    keys, or the full bias as a float mask whose gradient the backward
+    takes), both ways; bounds.  Every call reads its inputs from device
+    memory (``l2_spilling_copies``)."""
+    from clip_lite_torch.ops.attention import (
+        _launch_bwd, _launch_fwd, attention_backward,
+        attention_backward_reference, attention_forward, attention_reference)
+
+    b, s, three_h = qkv.shape
+    nh, hd = 12, 64
+    h = nh * hd
+    dtype, item = qkv.dtype, qkv.element_size()
+    full_bias = bias.ndim == 4
+    copies = l2_spilling_copies(qkv, g, bias)
+
+    def library_fwd(x, _, m):
+        q, k, v = x.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                              dropout_p=rate)
+
+    # The library call's mask: the bool of real keys, or the full bias in
+    # the compute type, requiring its gradient in the graphs.
+    lib_inputs = [(x, y, m.to(dtype, copy=True) if full_bias
+                   else valid[:, None, None, :]) for x, y, m in copies]
+    graphs = []
+    for x, y, m in lib_inputs:
+        x = x.detach().requires_grad_()
+        m = m.detach().requires_grad_(full_bias)
+        graphs.append((library_fwd(x, None, m), x,
+                       y.view(b, s, nh, hd).transpose(1, 2), m))
+    wrt = (lambda x, m: (x, m)) if full_bias else (lambda x, m: x)
+    o, x, y, m = graphs[0]
+    mask_grad = not full_bias or torch.autograd.grad(
+        o, wrt(x, m), y, retain_graph=True, allow_unused=True)[1] is not None
+    if not mask_grad:
+        log("scaled_dot_product_attention gave the float mask no gradient: "
+            "no library time for K2")
+
+    # The wrappers (the route attention_route picks), or the CUDA-core
+    # kernels launched directly.
+    def fwd(cuda_core: bool):
+        if cuda_core:
+            return lambda x, _, m: _launch_fwd(x, m, nh, rate, seed, None, False)
+        return lambda x, _, m: attention_forward(x, m, nh, dropout_rate=rate,
+                                                 seed=seed)
+
+    def bwd(cuda_core: bool):
+        if cuda_core:
+            return lambda x, y, m: _launch_bwd(x, m, y, nh, rate, seed, None,
+                                               False)
+        return lambda x, y, m: attention_backward(x, m, y, nh, dropout_rate=rate,
+                                                  seed=seed)
+
+    def turns(make) -> dict:
+        times = dict(host_ms=enqueue_ms(make(False), copies))
+        for key, timer in (("ms", time_ms), ("ms_device", device_ms)):
+            if dtype != torch.bfloat16:  # one route: the CUDA cores
+                times[key] = timer(make(False), copies)
+                continue
+            t = [timer(make(c), copies) for c in (False, True, True, False)]
+            times[key] = (t[0] + t[3]) / 2
+            times[key.replace("ms", "ms_cuda_core", 1)] = (t[1] + t[2]) / 2
+        return times
+
+    def library(fn, inputs) -> dict:
+        return dict(library_ms=time_ms(fn, inputs),
+                    library_ms_device=device_ms(fn, inputs))
+
+    k1 = dict(
+        **turns(fwd),
+        plain_ms=time_ms(lambda x, _, m: attention_reference(x, m, nh, rate, keep),
+                         copies),
+        **library(library_fwd, lib_inputs),
+        # qkv and the bias read once, the context written once.
+        **bound(qkv.numel() * item + bias.numel() * 4 + b * s * h * item,
+                4 * b * nh * s * s * hd, dtype))
+    k2 = dict(
+        **turns(bwd),
+        plain_ms=time_ms(lambda x, y, m: attention_backward_reference(
+            x, m, y, nh, rate, keep), copies),
+        **(library(lambda o, x, y, m: torch.autograd.grad(
+            o, wrt(x, m), y, retain_graph=True), graphs) if mask_grad
+           else dict(library_ms=None, library_ms_device=None)),
+        # qkv, bias and g read once, dqkv (and dbias) written once; five
+        # products.
+        **bound(2 * qkv.numel() * item + (2 if full_bias else 1) * bias.numel() * 4
+                + g.numel() * item, 10 * b * nh * s * s * hd, dtype))
+    del copies, lib_inputs, graphs, o, x, y, m
+    return k1, k2
+
+
 def phase_attention_training(full_bias: bool = False) -> dict:
     """K1 with dropout and K2 at the flagship text batch, fp32 and bf16,
     rate 0 and RATE, each against its plain version given the Philox
@@ -383,11 +579,10 @@ def phase_attention_training(full_bias: bool = False) -> dict:
     under MPNet's (B, NH, S, S) bias, K2's fp32 dbias included, and the
     library call's backward takes the float mask's gradient too."""
     from clip_lite_torch.ops.attention import (
-        attention_backward, attention_backward_reference, attention_forward,
-        attention_reference, dropout_keep_mask)
+        attention_backward, attention_backward_reference, attention_float64,
+        attention_forward, attention_reference, dropout_keep_mask)
 
-    b, s, nh, hd = BATCH, 30, 12, 64
-    h = nh * hd
+    b, s, nh, h = BATCH, 30, 12, 768
     qkv32, key_bias, valid = attention_inputs()
     bias = mpnet_bias(key_bias) if full_bias else key_bias
     variant = "full bias " if full_bias else ""
@@ -405,15 +600,9 @@ def phase_attention_training(full_bias: bool = False) -> dict:
     if abs(frac - (1.0 - RATE)) > KEEP_RATE_TOL or not same or not other:
         raise AssertionError("the dropout mask fails its checks")
 
-    def library_fwd(x, _, m):
-        q, k, v = x.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
-                                              dropout_p=rate)
-
     result = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        item = torch.empty((), dtype=dtype).element_size()
         for rate in (0.0, RATE):
             qkv, g = qkv32.to(dtype), g32.to(dtype)
             km = keep if rate else None
@@ -426,6 +615,14 @@ def phase_attention_training(full_bias: bool = False) -> dict:
             torch.cuda.synchronize()
             errs = [(a.float() - r.float()).abs().max().item()
                     for a, r in ((out, ref), (dqkv, dref))]
+            # The float64 reading first, so that a failing bar below comes
+            # with it.
+            exact = None
+            if dtype == torch.bfloat16:
+                exact = float64_bar(
+                    f"K1/K2 {variant}{name} rate {rate}",
+                    [(out, ref), (dqkv, dref), (dbias, dbias_ref)],
+                    attention_float64(qkv, bias, g, nh, rate, km))
             torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
             torch.testing.assert_close(dqkv.float(), dref.float(),
                                        **TOLS[dtype])
@@ -439,59 +636,25 @@ def phase_attention_training(full_bias: bool = False) -> dict:
                                            **TOLS[torch.float32])
             elif dbias is not None or dbias_ref is not None:
                 raise AssertionError("a key bias got a gradient")
-            copies = l2_spilling_copies(qkv, g, bias)
-            # The library call's mask: the bool of real keys, or the full
-            # bias in the compute type, requiring its gradient in the graphs.
-            lib_inputs = [(x, y, m.to(dtype, copy=True) if full_bias
-                           else valid[:, None, None, :]) for x, y, m in copies]
-            graphs = []
-            for x, y, m in lib_inputs:
-                x = x.detach().requires_grad_()
-                m = m.detach().requires_grad_(full_bias)
-                graphs.append((library_fwd(x, None, m), x,
-                               y.view(b, s, nh, hd).transpose(1, 2), m))
-            wrt = (lambda x, m: (x, m)) if full_bias else (lambda x, m: x)
-            o, x, y, m = graphs[0]
-            mask_grad = not full_bias or torch.autograd.grad(
-                o, wrt(x, m), y, retain_graph=True,
-                allow_unused=True)[1] is not None
-            k1 = dict(
-                max_abs_err=errs[0],
-                ms=time_ms(lambda x, _, m: attention_forward(
-                    x, m, nh, dropout_rate=rate, seed=seed), copies),
-                plain_ms=time_ms(lambda x, _, m: attention_reference(
-                    x, m, nh, rate, km), copies),
-                library_ms=time_ms(library_fwd, lib_inputs),
-                # qkv and the bias read once, the context written once.
-                **bound(qkv.numel() * item + bias.numel() * 4 + b * s * h * item,
-                        4 * b * nh * s * s * hd, dtype))
-            k2 = dict(
-                max_abs_err=errs[1],
-                ms=time_ms(lambda x, y, m: attention_backward(
-                    x, m, y, nh, dropout_rate=rate, seed=seed), copies),
-                plain_ms=time_ms(lambda x, y, m: attention_backward_reference(
-                    x, m, y, nh, rate, km), copies),
-                library_ms=(time_ms(lambda o, x, y, m: torch.autograd.grad(
-                    o, wrt(x, m), y, retain_graph=True), graphs)
-                    if mask_grad else None),
-                # qkv, bias and g read once, dqkv (and dbias) written once;
-                # five products.
-                **bound(2 * qkv.numel() * item
-                        + (2 if full_bias else 1) * bias.numel() * 4
-                        + g.numel() * item, 10 * b * nh * s * s * hd, dtype))
+            del out, ref, dqkv, dref, dbias, dbias_ref
+            k1, k2 = time_attention(qkv, g, bias, valid, rate, seed, km)
+            k1["max_abs_err"], k2["max_abs_err"] = errs[:2]
             if full_bias:
                 k2["dbias_max_abs_err"] = errs[2]
-            del copies, lib_inputs, graphs, o, x, y, m
+            if exact is not None:
+                k1["float64_err"] = exact["out"]
+                k2["float64_err"] = {k: v for k, v in exact.items() if k != "out"}
             result[(name, rate)] = dict(k1=k1, k2=k2)
             for kname, r in (("K1", k1), ("K2", k2)):
                 log(f"{kname} {variant}{name} rate {rate}: max|kernel-plain| "
                     f"{r['max_abs_err']} (tol {TOLS[dtype]}), dbias "
-                    f"{r.get('dbias_max_abs_err', '-')}; kernel {r['ms']} ms, "
-                    f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
+                    f"{r.get('dbias_max_abs_err', '-')}; kernel {r['ms']} ms "
+                    f"({r['ms_device']} on the device; CUDA-core route "
+                    f"{r.get('ms_cuda_core', '-')}, "
+                    f"{r.get('ms_cuda_core_device', '-')}; host "
+                    f"{r['host_ms']} ms a call), plain {r['plain_ms']} ms, "
+                    f"library {r['library_ms']} ({r['library_ms_device']}) ms, "
                     f"bound {r['bound_ms']} ms ({r['bound_by']})")
-            if not mask_grad:
-                log("scaled_dot_product_attention gave the float mask no "
-                    "gradient: no library time for K2")
     return result
 
 
@@ -605,8 +768,8 @@ def phase_training(overrides=(), name: str = "training") -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_short_attention.launches = 0
-    attention_backward.launches = 0
+    fused_short_attention.launches = fused_short_attention.tc_launches = 0
+    attention_backward.launches = attention_backward.tc_launches = 0
     t0 = time.perf_counter()
     state = train_loop(state, checked_step, iter(batches), TRAIN_STEPS,
                        log_every=TRAIN_STEPS, eval_step=recorded_eval,
@@ -615,17 +778,21 @@ def phase_training(overrides=(), name: str = "training") -> dict:
     wall = time.perf_counter() - t0
     launches = {"attention_fwd": fused_short_attention.launches,
                 "attention_bwd": attention_backward.launches}
+    routes = {"attention_fwd_tc": fused_short_attention.tc_launches,
+              "attention_bwd_tc": attention_backward.tc_launches}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for i, rec in enumerate(steps):
         log(f"{name} step {i + 1}: {json.dumps(rec)}")
     log(f"{name} eval sweep: {json.dumps(evals)}")
-    log(f"{name}: {TRAIN_STEPS} steps + eval in {wall} s; launches {launches}; "
+    log(f"{name}: {TRAIN_STEPS} steps + eval in {wall} s; launches {launches}, "
+        f"on the tensor-core route {routes}; "
         f"relative bias tables {tables}: unchanged by step 1, a finite "
         f"non-zero gradient at every step, moved by step {TRAIN_STEPS}")
     expected = {"attention_fwd": n_layers * (TRAIN_STEPS + len(val_batches)),
                 "attention_bwd": n_layers * TRAIN_STEPS}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
+    check_routes(cfg, cfg.DATA.MAX_CAPTION_LENGTH, dict(launches, **routes))
     if tables and not steps[-1]["table_moved"]:
         raise AssertionError(f"step {TRAIN_STEPS} left the relative bias "
                              "table where it started")
@@ -784,12 +951,13 @@ def phase_normalize() -> dict:
             result[name] = dict(
                 max_abs_err=err,
                 ms=time_ms(lambda y: normalize_u8(y, dtype), copies),
+                ms_device=device_ms(lambda y: normalize_u8(y, dtype), copies),
                 plain_ms=time_ms(lambda y: normalize_reference(y, dtype), copies),
                 library_ms=library_ms,
                 **bound(n_bytes, 2 * x.numel(), torch.float32))
             r = result[name]
             log(f"K3 {name}: max|kernel-plain| {err} (bit for bit); kernel "
-                f"{r['ms']} ms, plain {r['plain_ms']} ms, library "
+                f"{r['ms']} ms ({r['ms_device']} on the device), plain {r['plain_ms']} ms, library "
                 f"(torch.addcmul on {x.dtype} input, max|lib-plain| "
                 f"{lib_err}) {library_ms} ms, bound {r['bound_ms']} ms "
                 f"({r['bound_by']}: {n_bytes} bytes); {len(copies)} input "
@@ -829,28 +997,30 @@ def synthetic_corpus(cfg, rng: np.random.Generator):
 
 
 def attention_times_at(s: int) -> dict:
-    """K1 (dropout RATE) and K2 in bf16 at qkv (128, s, 2304), with the
-    uint8 path's 8-20 real tokens: times and bounds."""
-    from clip_lite_torch.ops.attention import attention_backward, attention_forward
+    """K1 and K2 in bf16, dropout RATE, at qkv (128, s, 2304) with the
+    uint8 path's 8-20 real tokens, under the key bias and under an MPNet
+    full bias: :func:`time_attention`'s times and bounds."""
+    from clip_lite_torch.ops.attention import dropout_keep_mask
 
-    b, nh, h = BATCH, 12, 768
-    qkv32, bias, _ = attention_inputs(s, CAPTION_TOKENS)
-    g = torch.randn(b, s, h, device="cuda",
+    qkv32, key_bias, valid = attention_inputs(s, CAPTION_TOKENS)
+    g = torch.randn(BATCH, s, 768, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(1))
-    copies = l2_spilling_copies(qkv32.bfloat16(), g.bfloat16())
-    qkv_bytes, g_bytes = qkv32.numel() * 2, g.numel() * 2
-    k1 = dict(ms=time_ms(lambda x, _: attention_forward(
-        x, bias, nh, dropout_rate=RATE, seed=7), copies),
-        **bound(qkv_bytes + bias.numel() * 4 + b * s * h * 2,
-                4 * b * nh * s * s * 64, torch.bfloat16))
-    k2 = dict(ms=time_ms(lambda x, y: attention_backward(
-        x, bias, y, nh, dropout_rate=RATE, seed=7), copies),
-        **bound(2 * qkv_bytes + bias.numel() * 4 + g_bytes,
-                10 * b * nh * s * s * 64, torch.bfloat16))
-    for name, r in (("K1", k1), ("K2", k2)):
-        log(f"{name} bf16 rate {RATE} at qkv ({b}, {s}, {3 * h}): kernel "
-            f"{r['ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']})")
-    return dict(k1=k1, k2=k2)
+    keep = dropout_keep_mask(7, BATCH, 12, s, RATE, "cuda")
+    out = {}
+    for variant, bias in (("key bias", key_bias),
+                          ("full bias", mpnet_bias(key_bias))):
+        k1, k2 = time_attention(qkv32.bfloat16(), g.bfloat16(), bias, valid,
+                                RATE, 7, keep)
+        out[variant] = dict(k1=k1, k2=k2)
+        for name, r in (("K1", k1), ("K2", k2)):
+            log(f"{name} {variant} bf16 rate {RATE} at qkv ({BATCH}, {s}, 2304): "
+                f"kernel {r['ms']} ms ({r['ms_device']} on the device), "
+                f"CUDA-core route {r['ms_cuda_core']} "
+                f"({r['ms_cuda_core_device']}) ms, host {r['host_ms']} ms a "
+                f"call, plain {r['plain_ms']} ms, library {r['library_ms']} "
+                f"({r['library_ms_device']}) ms, bound "
+                f"{r['bound_ms']} ms ({r['bound_by']})")
+    return out
 
 
 def phase_uint8_training(float_step_s: float) -> dict:
@@ -927,8 +1097,8 @@ def phase_uint8_training(float_step_s: float) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     normalize_u8.launches = 0
-    fused_short_attention.launches = 0
-    attention_backward.launches = 0
+    fused_short_attention.launches = fused_short_attention.tc_launches = 0
+    attention_backward.launches = attention_backward.tc_launches = 0
     t0 = time.perf_counter()
     state = train_loop(state, checked_step, iter(cache), TRAIN_STEPS,
                        log_every=TRAIN_STEPS, eval_step=recorded_eval,
@@ -938,18 +1108,21 @@ def phase_uint8_training(float_step_s: float) -> dict:
     launches = {"normalize": normalize_u8.launches,
                 "attention_fwd": fused_short_attention.launches,
                 "attention_bwd": attention_backward.launches}
+    routes = {"attention_fwd_tc": fused_short_attention.tc_launches,
+              "attention_bwd_tc": attention_backward.tc_launches}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     hook.remove()
     for i, rec in enumerate(steps):
         log(f"uint8 step {i + 1}: {json.dumps(rec)}")
     log(f"uint8 eval sweep: {json.dumps(evals)}")
     log(f"uint8 training path: {TRAIN_STEPS} steps + eval in {wall} s; "
-        f"launches {launches}")
+        f"launches {launches}, on the tensor-core route {routes}")
     expected = {"normalize": TRAIN_STEPS + len(val_batches),
                 "attention_fwd": n_layers * (TRAIN_STEPS + len(val_batches)),
                 "attention_bwd": n_layers * TRAIN_STEPS}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
+    check_routes(cfg, seq, dict(launches, **routes))
     if state.step != TRAIN_STEPS or len(evals) != 1 or not all(
             math.isfinite(v) for v in evals[0].values()):
         raise AssertionError(f"step {state.step}, evals {evals}")
@@ -1023,28 +1196,36 @@ def main() -> int:
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"]}
     s20 = uint8["attention_s20"]
-    # The full (B, NH, S, S) bias variant, MPNet's: bf16 at qkv
-    # (128, 30, 2304), dropout RATE (and without, for K1).
-    full_k1 = dict(full[("bfloat16", RATE)]["k1"], dropout_rate=RATE,
-                   ms_no_dropout=full[("bfloat16", 0.0)]["k1"]["ms"])
-    full_k2 = dict(full[("bfloat16", RATE)]["k2"], dropout_rate=RATE)
+    timed = ("ms", "ms_device", "ms_cuda_core", "ms_cuda_core_device",
+             "library_ms", "library_ms_device")
+
+    def at_s20(variant: str, k: str) -> dict:
+        r = s20[variant][k]
+        return {f"{key}_s20": r[key] for key in timed + ("bound_ms",)}
+
+    # Each attention kernel's main keys: bf16 at qkv (128, 30, 2304), dropout
+    # RATE, on the tensor-core route, beside the CUDA-core route's time on
+    # the same inputs, each as a caller pays it (ms) and on the device
+    # alone; the dropout-off times, and the S = 20 times.
+    def attention_row(k: str, result: dict, variant: str) -> dict:
+        off = result[("bfloat16", 0.0)][k]
+        return dict(result[("bfloat16", RATE)][k], dropout_rate=RATE,
+                    **{f"{key}_no_dropout": off[key] for key in timed[:4]},
+                    **at_s20(variant, k))
+
     kernels = [
         dict(name="attention_fwd (K1)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_fwd.cu",
              replaces="clip_lite_tpu/ops/attention.py:95",
              launches=sum(k1_launches.values()), launches_by_path=k1_launches,
-             **attn[("bfloat16", RATE)]["k1"],
-             dropout_rate=RATE,
-             ms_no_dropout=attn[("bfloat16", 0.0)]["k1"]["ms"],
-             ms_s20=s20["k1"]["ms"], bound_ms_s20=s20["k1"]["bound_ms"],
-             full_bias=full_k1),
+             **attention_row("k1", attn, "key bias"),
+             full_bias=attention_row("k1", full, "full bias")),
         dict(name="attention_bwd (K2)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_bwd.cu",
              replaces="clip_lite_tpu/ops/attention.py:122",
              launches=sum(k2_launches.values()), launches_by_path=k2_launches,
-             **attn[("bfloat16", RATE)]["k2"], dropout_rate=RATE,
-             ms_s20=s20["k2"]["ms"], bound_ms_s20=s20["k2"]["bound_ms"],
-             full_bias=full_k2),
+             **attention_row("k2", attn, "key bias"),
+             full_bias=attention_row("k2", full, "full bias")),
         # The main keys are the training path's variant (float32 in, after
         # the jitter; 10 of the 11 launches); the eval sweep's is uint8 in.
         dict(name="normalize_u8 (K3)", route="cuda",

@@ -32,6 +32,15 @@ of the JAX package).
 Dropout draws: the keep decision for element (b, h, i, j) is Philox's
 function of (seed, b, h, i, j) (``csrc/attention_common.cuh``), the same
 in K1, K2 and the CPU twin; tests may pass an explicit keep mask instead.
+
+Two routes on the card, one function: :func:`attention_route` sends
+bfloat16 at S <= ``TC_MAX_SEQ`` (64) to the tensor-core kernels
+(``attention_fwd_tc``/``attention_bwd_tc``: products on ``mma.sync``,
+every qkv and g byte read once), and float32 at any S and bfloat16 above
+64 to the CUDA-core kernels (``attention_fwd``/``attention_bwd``: fp32
+products).  float32 stays off the tensor cores, which would take it as
+TF32 and change the numbers.  The choice is by dtype and shape, never a
+fallback: a refused launch raises.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import torch
 
 MASK_VALUE = float(np.finfo(np.float32).min) * 0.5
 MAX_SEQ = 256
+TC_MAX_SEQ = 64
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -155,6 +165,45 @@ def attention_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
     return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, three_h).to(cdt), dbias
 
 
+def attention_float64(qkv: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+                      num_heads: int, dropout_rate: float = 0.0,
+                      keep_mask: Optional[torch.Tensor] = None):
+    """K1's and K2's function evaluated in float64 from the same inputs and
+    keep mask, with no rounding in between: ``(out, dqkv, dbias)``, dbias
+    None for a key bias; ``dqkv`` and ``dbias`` by autograd through the
+    float64 forward.  A bar that does not depend on the order of sums: the
+    checks hold a kernel's distance from it against its twin's.  For tests
+    and checks; no path of the system calls it."""
+    full = bias.ndim == 4
+    with torch.enable_grad():
+        x = qkv.detach().double().requires_grad_()
+        y = bias.detach().double().requires_grad_(full)
+        b, s, three_h = qkv.shape
+        q, k, v = _heads(x, num_heads)
+        add = y if full else y[:, None, None, :]
+        probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2))
+                              / math.sqrt(q.shape[-1]) + add, dim=-1)
+        if dropout_rate > 0.0:
+            probs = torch.where(keep_mask.bool(), probs / (1.0 - dropout_rate),
+                                0.0)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, three_h // 3)
+        grads = torch.autograd.grad(out, (x, y) if full else (x,),
+                                    g.to(qkv.dtype).double())
+    return out.detach(), grads[0], grads[1] if full else None
+
+
+def attention_route(dtype: torch.dtype, seq: int) -> str:
+    """The kernel a CUDA launch at compute type ``dtype`` and sequence
+    length ``seq`` takes: ``"tensor_core"`` for bfloat16 at
+    ``seq <= TC_MAX_SEQ`` (bf16 products on ``mma.sync``, a block stages
+    its head whole), else ``"cuda_core"`` (fp32 products): float32 at any
+    length, which the tensor cores would read as TF32, and bfloat16 at
+    64 < ``seq`` <= ``MAX_SEQ``."""
+    if dtype == torch.bfloat16 and seq <= TC_MAX_SEQ:
+        return "tensor_core"
+    return "cuda_core"
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     from clip_lite_torch.ops import _build
@@ -163,17 +212,17 @@ def _library(name: str) -> ctypes.CDLL:
     dropout_args = [ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
                     ctypes.c_uint64, ctypes.c_void_p]
     if name == "attention_fwd":
-        lib.attention_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                                      + dropout_args)
-        lib.attention_fwd.restype = ctypes.c_int
+        for fn in (lib.attention_fwd, lib.attention_fwd_tc):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + dropout_args
+            fn.restype = ctypes.c_int
         lib.attention_dropout_mask.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_int] * 3
             + [ctypes.c_uint32, ctypes.c_uint64, ctypes.c_void_p])
         lib.attention_dropout_mask.restype = ctypes.c_int
     else:
-        lib.attention_bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                                      + dropout_args)
-        lib.attention_bwd.restype = ctypes.c_int
+        for fn in (lib.attention_bwd, lib.attention_bwd_tc):
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + dropout_args
+            fn.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -237,6 +286,66 @@ def _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask):
     return philox_keep_mask(seed, b, num_heads, s, rate)
 
 
+def _launch_fwd(qkv: torch.Tensor, mask_bias: torch.Tensor, num_heads: int,
+                rate: float, seed: int, keep_mask: Optional[torch.Tensor],
+                tc: bool) -> torch.Tensor:
+    """Launch K1 on CUDA tensors, the tensor-core kernel if ``tc`` else the
+    CUDA-core one, and count the launch.  :func:`attention_forward` picks
+    ``tc`` by :func:`attention_route`; ``chip_smoke.py`` names the
+    CUDA-core kernel to time it beside the other."""
+    keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask)
+    b, s, three_h = qkv.shape
+    out = torch.empty((b, s, three_h // 3), dtype=qkv.dtype, device=qkv.device)
+    lib = _library("attention_fwd")
+    launch = lib.attention_fwd_tc if tc else lib.attention_fwd
+    with torch.cuda.device(qkv.device):
+        err = launch(
+            qkv.data_ptr(), mask_bias.data_ptr(),
+            None if keep is None else keep.data_ptr(), out.data_ptr(), b, s,
+            num_heads, HEAD_DIM, _DTYPE_CODES[qkv.dtype],
+            int(mask_bias.ndim == 4), *_dropout_args(rate, seed),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "K1 (tensor-core route)" if tc else "K1")
+    fused_short_attention.launches += 1
+    fused_short_attention.tc_launches += tc
+    return out
+
+
+def _launch_bwd(qkv: torch.Tensor, mask_bias: torch.Tensor, g: torch.Tensor,
+                num_heads: int, rate: float, seed: int,
+                keep_mask: Optional[torch.Tensor], tc: bool
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K2 on CUDA tensors (``g`` contiguous, in the type of
+    ``qkv``), the tensor-core kernel if ``tc``, and count the launch: as
+    :func:`_launch_fwd`."""
+    keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask)
+    b, s, three_h = qkv.shape
+    if g.shape != (b, s, three_h // 3) or g.device != qkv.device:
+        raise ValueError(f"g must be (B, S, H) = {(b, s, three_h // 3)} on the "
+                         "device of qkv")
+    full = mask_bias.ndim == 4
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty_like(mask_bias) if full else None
+    lib = _library("attention_bwd")
+    launch = lib.attention_bwd_tc if tc else lib.attention_bwd
+    with torch.cuda.device(qkv.device):
+        err = launch(
+            qkv.data_ptr(), mask_bias.data_ptr(), g.data_ptr(),
+            None if keep is None else keep.data_ptr(), dqkv.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), b, s, num_heads,
+            HEAD_DIM, _DTYPE_CODES[qkv.dtype], int(full),
+            *_dropout_args(rate, seed),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "K2 (tensor-core route)" if tc else "K2")
+    attention_backward.launches += 1
+    attention_backward.tc_launches += tc
+    return dqkv, dbias
+
+
+def _on_tensor_cores(qkv: torch.Tensor) -> bool:
+    return attention_route(qkv.dtype, qkv.shape[1]) == "tensor_core"
+
+
 def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
                       num_heads: int, *, dropout_rate: float = 0.0,
                       seed: int = 0,
@@ -247,27 +356,17 @@ def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
     ``keep_mask``.
 
     CPU tensors take :func:`attention_reference`.  CUDA tensors launch K1
-    or raise; every launch adds one to ``fused_short_attention.launches``.
+    on the route :func:`attention_route` picks, or raise; every launch
+    adds one to ``fused_short_attention.launches``, and one on the
+    tensor-core route to ``fused_short_attention.tc_launches`` too.
     """
     _check_seq(qkv, mask_bias, num_heads)
     rate = float(dropout_rate)
     if qkv.device.type == "cpu":
         keep = _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask)
         return attention_reference(qkv, mask_bias, num_heads, rate, keep)
-    keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask)
-    b, s, three_h = qkv.shape
-    out = torch.empty((b, s, three_h // 3), dtype=qkv.dtype, device=qkv.device)
-    lib = _library("attention_fwd")
-    with torch.cuda.device(qkv.device):
-        err = lib.attention_fwd(
-            qkv.data_ptr(), mask_bias.data_ptr(),
-            None if keep is None else keep.data_ptr(), out.data_ptr(), b, s,
-            num_heads, HEAD_DIM, _DTYPE_CODES[qkv.dtype],
-            int(mask_bias.ndim == 4), *_dropout_args(rate, seed),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "K1")
-    fused_short_attention.launches += 1
-    return out
+    return _launch_fwd(qkv, mask_bias, num_heads, rate, seed, keep_mask,
+                       _on_tensor_cores(qkv))
 
 
 def attention_backward(qkv: torch.Tensor, mask_bias: torch.Tensor,
@@ -282,8 +381,9 @@ def attention_backward(qkv: torch.Tensor, mask_bias: torch.Tensor,
     key bias.
 
     CPU tensors take :func:`attention_backward_reference`.  CUDA tensors
-    launch K2 or raise; every launch adds one to
-    ``attention_backward.launches``.
+    launch K2 on the route :func:`attention_route` picks, or raise; every
+    launch adds one to ``attention_backward.launches``, and one on the
+    tensor-core route to ``attention_backward.tc_launches`` too.
     """
     _check_seq(qkv, mask_bias, num_heads)
     rate = float(dropout_rate)
@@ -292,26 +392,8 @@ def attention_backward(qkv: torch.Tensor, mask_bias: torch.Tensor,
         keep = _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask)
         return attention_backward_reference(qkv, mask_bias, g, num_heads,
                                             rate, keep)
-    keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask)
-    b, s, three_h = qkv.shape
-    if g.shape != (b, s, three_h // 3) or g.device != qkv.device:
-        raise ValueError(f"g must be (B, S, H) = {(b, s, three_h // 3)} on the "
-                         "device of qkv")
-    full = mask_bias.ndim == 4
-    dqkv = torch.empty_like(qkv)
-    dbias = torch.empty_like(mask_bias) if full else None
-    lib = _library("attention_bwd")
-    with torch.cuda.device(qkv.device):
-        err = lib.attention_bwd(
-            qkv.data_ptr(), mask_bias.data_ptr(), g.data_ptr(),
-            None if keep is None else keep.data_ptr(), dqkv.data_ptr(),
-            None if dbias is None else dbias.data_ptr(), b, s, num_heads,
-            HEAD_DIM, _DTYPE_CODES[qkv.dtype], int(full),
-            *_dropout_args(rate, seed),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "K2")
-    attention_backward.launches += 1
-    return dqkv, dbias
+    return _launch_bwd(qkv, mask_bias, g, num_heads, rate, seed, keep_mask,
+                       _on_tensor_cores(qkv))
 
 
 def dropout_keep_mask(seed: int, batch: int, num_heads: int, seq: int,
@@ -379,7 +461,7 @@ def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
         (the parity tests' hook).
 
     CPU tensors run the plain twins in both directions; CUDA tensors launch
-    the kernels or raise.
+    the kernels, on the route :func:`attention_route` picks, or raise.
     """
     rate = 0.0 if deterministic else float(dropout_rate)
     _check_seq(qkv, mask_bias, num_heads)
@@ -392,7 +474,9 @@ def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
 
 
 fused_short_attention.launches = 0
+fused_short_attention.tc_launches = 0
 attention_backward.launches = 0
+attention_backward.tc_launches = 0
 
 
 def resolve_fused_flag(flag, device) -> bool:
@@ -409,5 +493,6 @@ def resolve_fused_flag(flag, device) -> bool:
 
 __all__ = ["fused_short_attention", "attention_forward", "attention_backward",
            "attention_reference", "attention_backward_reference",
-           "dropout_keep_mask", "philox_keep_mask", "resolve_fused_flag",
-           "MASK_VALUE"]
+           "attention_float64", "attention_route", "dropout_keep_mask",
+           "philox_keep_mask", "resolve_fused_flag", "MASK_VALUE",
+           "TC_MAX_SEQ"]

@@ -1,6 +1,7 @@
 // Shared pieces of the attention kernels K1 (attention_fwd.cu) and K2
-// (attention_bwd.cu): type conversions, warp reductions, and the dropout
-// keep decision.
+// (attention_bwd.cu): type conversions, warp reductions, the dropout keep
+// decision, and the softmax of a query tile held as mma accumulators (the
+// tensor-core routes).
 //
 // Dropout: the TPU kernels draw their keep bits from the core's own PRNG,
 // seeded per batch block, so forward and backward must pick the same
@@ -17,7 +18,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace attn {
 
@@ -94,6 +98,66 @@ __device__ __forceinline__ bool keep_at(const Dropout& d, int b, int h, int i,
                                         int j, int NH, int S) {
   if (d.keep) return d.keep[(((size_t)b * NH + h) * S + i) * S + j] != 0;
   return philox_bits(d.seed, b, h, i, j) >= d.threshold;
+}
+
+// The tensor-core routes take bf16 at S <= kTcMaxSeq: a block stages its
+// (b, h) slices whole, S padded to a multiple of 16, one warp per 16 rows.
+constexpr int kTcMaxSeq = 64;
+
+// Scores of a warp's 16-row query tile, rows i0 + g and i0 + g + 8, as kNT
+// mma accumulator tiles of 8 keys (mma.cuh's C layout) -> probabilities in
+// place, fp32: s * scale + bias (the full bias's rows from bias_bh, the
+// (S, S) block of this (b, h); else the key bias from key_bias), keys
+// j >= S out of the softmax, the row max and sum over the four lanes that
+// hold a row.  Padded rows (i >= S) see bias 0 and stay finite.
+template <int kNT, bool kFull>
+__device__ __forceinline__ void tile_softmax(float (&s)[kNT][4], const float* bias_bh,
+                                             const float* key_bias, int i0, int S,
+                                             float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const int i = i0 + g + 8 * r;
+      const int j = n * 8 + 2 * t + (e & 1);
+      float v = -INFINITY;
+      if (j < S) {
+        const float bij =
+            kFull ? (i < S ? bias_bh[(size_t)i * S + j] : 0.f) : key_bias[j];
+        v = s[n][e] * scale + bij;
+      }
+      s[n][e] = v;
+      mx[r] = fmaxf(mx[r], v);
+    }
+  }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = expf(s[n][e] - mx[e >> 1]);  // exp(-inf) = 0
+      s[n][e] = x;
+      l[e >> 1] += x;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] /= l[e >> 1];
+  }
 }
 
 }  // namespace attn

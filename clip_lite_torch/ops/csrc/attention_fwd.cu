@@ -26,11 +26,17 @@
 // of fp32 reads (8.7 us in all).  So the design reads
 // every input byte once and writes every output byte once: one thread
 // block per (b, h) stages its q, k and v rows (S x HD each) in shared
-// memory, and nothing but the context leaves the block.  The products run
-// on the CUDA cores in fp32; at S <= 256 they are small and a tensor-core
-// (wgmma / mma.sync) version is later work.
+// memory, and nothing but the context leaves the block.
 //
-// Layout of the work inside a block: each warp owns query rows
+// Two routes compute that function (attention_route() in
+// clip_lite_torch/ops/attention.py picks one by dtype and S):
+//   - the CUDA-core route, attention_fwd(): fp32 products, float32 at any
+//     S and bf16 at S > 64.  It stays off the tensor cores for float32,
+//     which they would read as TF32.
+//   - the tensor-core route, attention_fwd_tc(): bf16 at S <= 64, the
+//     products on mma.sync (below, after the CUDA-core kernel).
+//
+// CUDA-core route.  Layout of the work inside a block: each warp owns query rows
 // i = warp, warp + kWarps, ...; for its row it keeps q in registers, lane
 // j scores key j (k is stored with a row stride of HD + 1 floats so that
 // the 32 lanes reading one column of k hit 32 different banks), the
@@ -150,6 +156,122 @@ attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
+// ---- tensor-core route: bf16, S <= kTcMaxSeq (64) -----------------------
+//
+// Why: the CUDA-core kernel makes one shared-memory load per fp32 FMA
+// (about 10 M warp-wide loads a launch at the flagship shape, some 45 us
+// of its 62), while every product here is a bf16 x bf16 product summed in
+// fp32 -- exactly what mma.sync ... .f32.bf16.bf16.f32 computes, and what
+// the JAX kernel asks of its dot_general (bf16 operands,
+// preferred_element_type float32).  The probabilities are rounded to bf16
+// before p.v in both.
+//
+// One block per (b, h), one warp per 16 query rows (S padded to kSp, a
+// multiple of 16; at S = 30 two warps).  q, k and v of the head are staged
+// once with 16-byte cp.async (each row slice is one 128-byte line), rows
+// S..kSp-1 zeroed, row stride 144 bytes so ldmatrix is free of bank
+// conflicts.  Each warp computes S = Q K^T for its 16 rows on mma.sync
+// (A = q by ldmatrix, B = k rows by ldmatrix), applies scale and bias in
+// fp32 on the accumulators, and takes the softmax with shuffles among the
+// four lanes that hold a row (tile_softmax); keys j >= S never enter it.
+// Dropout calls keep_at() for each element.  P is rounded to bf16 and
+// repacked in registers from the accumulator layout into the A operand of
+// ctx = P V (mma.cuh's accum_to_a), V read by ldmatrix.trans.  The context
+// goes through the warp's own q rows in shared memory and leaves with
+// 16-byte stores; padded rows are not written.  wgmma would pad the query
+// tile to 64 rows (2-3x at S = 20, 30) and the products are far under the
+// byte bound at either rate.
+using bf16 = __nv_bfloat16;
+
+// Shared memory: q, k, v (kSp x kRow bf16 each) and the key bias (kSp).
+template <int kSp>
+constexpr size_t tc_smem_bytes() {
+  return 3 * kSp * mma::kRow * sizeof(bf16) + kSp * sizeof(float);
+}
+
+template <int kSp, bool kFull>
+__global__ void __launch_bounds__(kSp * 2)
+attention_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                        bf16* __restrict__ out, int S, int NH, float scale,
+                        Dropout drop) {
+  using namespace mma;
+  constexpr int kNT = kSp / 8;       // 8-key accumulator tiles
+  constexpr int kTcThreads = kSp * 2;  // one warp per 16 query rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + kSp * kRow;
+  bf16* v_s = k_s + kSp * kRow;
+  float* key_bias = reinterpret_cast<float*>(v_s + kSp * kRow);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int H = NH * 64;
+  const size_t row3 = (size_t)3 * H;
+  const bf16* src = qkv + (size_t)b * S * row3 + (size_t)h * 64;
+  const int tid = threadIdx.x;
+  stage_rows(q_s, src, row3, S, kSp, tid, kTcThreads);
+  stage_rows(k_s, src + H, row3, S, kSp, tid, kTcThreads);
+  stage_rows(v_s, src + 2 * H, row3, S, kSp, tid, kTcThreads);
+  if (!kFull) {
+    for (int j = tid; j < kSp; j += kTcThreads) {
+      key_bias[j] = j < S ? bias[(size_t)b * S + j] : 0.f;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = (tid >> 5) * 16;
+  float s[kNT][4] = {};
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_rows(q_s, kRow, i0, kc * 16, lane));
+#pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      uint32_t bk[4];
+      ldmatrix_x4(bk, bt_rows(k_s, kRow, np * 16, kc * 16, lane));
+      mma_bf16(s[2 * np], a, bk[0], bk[1]);
+      mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+    }
+  }
+  const float* bias_bh = kFull ? bias + ((size_t)b * NH + h) * S * S : nullptr;
+  tile_softmax<kNT, kFull>(s, bias_bh, key_bias, i0, S, scale, lane);
+  if (drop.active) {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + 8 * (e >> 1);
+        const int j = n * 8 + 2 * t + (e & 1);
+        if (i < S && j < S) {
+          s[n][e] = keep_at(drop, b, h, i, j, NH, S) ? s[n][e] * drop.inv_keep : 0.f;
+        }
+      }
+    }
+  }
+
+  float o[8][4] = {};
+#pragma unroll
+  for (int kc = 0; kc < kSp / 16; ++kc) {
+    uint32_t a[4];
+    accum_to_a(a, s, kc);  // probs.astype(bf16), in registers
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, b_rows(v_s, kRow, kc * 16, np * 16, lane));
+      mma_bf16(o[2 * np], a, bv[0], bv[1]);
+      mma_bf16(o[2 * np + 1], a, bv[2], bv[3]);
+    }
+  }
+  // The warp's own q rows take its context; then the block writes it out.
+  __syncwarp();
+  accum_to_tile(q_s, i0, o, lane);
+  __syncthreads();
+  store_rows(out + (size_t)b * S * H + (size_t)h * 64, H, q_s, S, tid, kTcThreads);
+}
+
 __global__ void dropout_mask_kernel(int8_t* __restrict__ keep, int B, int NH,
                                     int S, Dropout drop) {
   const size_t n = (size_t)B * NH * S * S;
@@ -180,6 +302,30 @@ int launch(const void* qkv, const void* bias, void* out, int B, int S, int NH,
   return (int)cudaGetLastError();
 }
 
+template <int kSp, bool kFull>
+int launch_tc(const void* qkv, const void* bias, void* out, int B, int S, int NH,
+              const Dropout& drop, cudaStream_t stream) {
+  // At most 27.9 KB of shared memory (kSp = 64): no opt-in needed.
+  attention_fwd_tc_kernel<kSp, kFull><<<dim3(NH, B), kSp * 2, tc_smem_bytes<kSp>(),
+                                        stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
+      static_cast<bf16*>(out), S, NH, 1.0f / sqrtf(64.0f), drop);
+  return (int)cudaGetLastError();
+}
+
+template <bool kFull>
+int launch_tc_seq(const void* qkv, const void* bias, void* out, int B, int S, int NH,
+                  const Dropout& drop, cudaStream_t stream) {
+  switch ((S + 15) / 16) {
+    case 1: return launch_tc<16, kFull>(qkv, bias, out, B, S, NH, drop, stream);
+    case 2: return launch_tc<32, kFull>(qkv, bias, out, B, S, NH, drop, stream);
+    case 3: return launch_tc<48, kFull>(qkv, bias, out, B, S, NH, drop, stream);
+    default: return launch_tc<64, kFull>(qkv, bias, out, B, S, NH, drop, stream);
+  }
+}
+
+bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
+
 }  // namespace
 
 extern "C" {
@@ -209,6 +355,26 @@ int attention_fwd(const void* qkv, const void* bias, const void* keep,
                : launch<__nv_bfloat16, 64, false>(qkv, bias, out, B, S, NH, drop, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route: attention_fwd's arguments and function, for
+// bf16 (dtype 1) at 1 <= S <= 64 only; any other dtype or S is refused
+// with cudaErrorInvalidValue, and qkv or out not 16-byte aligned with
+// cudaErrorMisalignedAddress.
+int attention_fwd_tc(const void* qkv, const void* bias, const void* keep,
+                     void* out, int B, int S, int NH, int HD, int dtype,
+                     int full_bias, int dropout, unsigned int threshold,
+                     float inv_keep, unsigned long long seed, void* stream) {
+  if (HD != 64 || dtype != 1 || B < 1 || B > 65535 || S < 1 || S > kTcMaxSeq ||
+      NH < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (misaligned16(qkv) || misaligned16(out)) return (int)cudaErrorMisalignedAddress;
+  const Dropout drop{static_cast<const int8_t*>(keep), seed, threshold,
+                     inv_keep, dropout != 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return full_bias ? launch_tc_seq<true>(qkv, bias, out, B, S, NH, drop, st)
+                   : launch_tc_seq<false>(qkv, bias, out, B, S, NH, drop, st);
 }
 
 // Writes the Philox keep mask that K1 and K2 use for (seed, threshold)

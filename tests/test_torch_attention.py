@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from clip_lite_tpu.ops import attention as jax_attention
@@ -16,7 +17,13 @@ from clip_lite_torch.eval_utils import EncoderBundle
 from clip_lite_torch.config import Config
 from clip_lite_torch.ops.attention import (
     MASK_VALUE,
+    TC_MAX_SEQ,
+    attention_backward,
+    attention_backward_reference,
+    attention_float64,
+    attention_forward,
     attention_reference,
+    attention_route,
     fused_short_attention,
     resolve_fused_flag,
 )
@@ -185,3 +192,70 @@ def test_entry_point_defaults_to_cuda():
 ])
 def test_resolve_fused_flag(flag, device, expected):
     assert resolve_fused_flag(flag, device) is expected
+
+
+@pytest.mark.parametrize("dtype,seq,route", [
+    (torch.bfloat16, 1, "tensor_core"), (torch.bfloat16, 16, "tensor_core"),
+    (torch.bfloat16, 17, "tensor_core"), (torch.bfloat16, 20, "tensor_core"),
+    (torch.bfloat16, 30, "tensor_core"), (torch.bfloat16, 63, "tensor_core"),
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 65, "cuda_core"),
+    (torch.bfloat16, 256, "cuda_core"), (torch.float32, 1, "cuda_core"),
+    (torch.float32, 30, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.float32, 65, "cuda_core"),
+])
+def test_attention_route(dtype, seq, route):
+    """bf16 at S <= 64 takes the tensor cores; fp32 never does (TF32 would
+    change its numbers), nor bf16 above 64."""
+    assert TC_MAX_SEQ == 64
+    assert attention_route(dtype, seq) == route
+
+
+@pytest.mark.parametrize("seq", [30, 65])
+def test_cpu_wrappers_take_the_twins_on_either_route(seq):
+    """bf16 CPU tensors take the twins exactly whether the card would send
+    them to the tensor cores (S = 30) or the CUDA cores (S = 65), in both
+    directions, and count no launch on either route."""
+    rng = np.random.RandomState(seq)
+    qkv = torch.from_numpy(rng.randn(B, seq, 3 * H).astype(np.float32)).bfloat16()
+    bias = torch.zeros(B, seq)
+    bias[0, seq // 2:] = MASK_VALUE
+    g = torch.from_numpy(rng.randn(B, seq, H).astype(np.float32))
+    counts = (fused_short_attention.launches, fused_short_attention.tc_launches,
+              attention_backward.launches, attention_backward.tc_launches)
+    torch.testing.assert_close(attention_forward(qkv, bias, NH),
+                               attention_reference(qkv, bias, NH),
+                               rtol=0, atol=0)
+    dqkv, dbias = attention_backward(qkv, bias, g, NH)
+    want, _ = attention_backward_reference(qkv, bias, g.bfloat16(), NH)
+    torch.testing.assert_close(dqkv, want, rtol=0, atol=0)
+    assert dbias is None
+    assert counts == (fused_short_attention.launches,
+                      fused_short_attention.tc_launches,
+                      attention_backward.launches, attention_backward.tc_launches)
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
+def test_float64_evaluation_matches_jax(inputs, full_bias_inputs, full):
+    """The float64 bar of the bf16 kernels computes the same function: on
+    fp32 inputs its output, dqkv and (for a full bias) dbias equal JAX's
+    XLA attention and its VJP, given the same keep mask."""
+    qkv, bias = full_bias_inputs if full else inputs
+    rate = 0.1
+    key = jax.random.PRNGKey(7)
+    keep = np.asarray(jax.random.bernoulli(key, 1.0 - rate, (B, NH, S, S)))
+    g = np.random.RandomState(3).randn(B, S, H).astype(np.float32)
+    out, dqkv, dbias = attention_float64(
+        torch.from_numpy(qkv), torch.from_numpy(bias), torch.from_numpy(g), NH,
+        rate, torch.from_numpy(keep))
+    assert out.dtype == dqkv.dtype == torch.float64
+    assert (dbias is not None) == full
+    jax_out, vjp = jax.vjp(lambda x, y: jax_attention._xla_attention(
+        x, y, NH, rate, key), jnp.asarray(qkv), jnp.asarray(bias))
+    jax_dqkv, jax_dbias = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_out), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(dqkv.numpy(), np.asarray(jax_dqkv), rtol=1e-4,
+                               atol=1e-5)
+    if full:
+        np.testing.assert_allclose(dbias.numpy(), np.asarray(jax_dbias),
+                                   rtol=1e-4, atol=1e-5)

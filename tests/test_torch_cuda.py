@@ -1,7 +1,11 @@
 """K1 and K2, the CUDA attention kernels, against their plain versions on
 the card: forward and backward, with dropout off and on (Philox masks),
 under a (B, S) key bias and under MPNet's full (B, NH, S, S) bias, whose
-gradient dbias K2 returns.
+gradient dbias K2 returns.  Both routes: the tensor-core kernels (bf16 at
+S <= 64, checked at the edges of their tiling, and against the float64
+evaluation of the same function) and the CUDA-core kernels (fp32, bf16
+above 64, and bf16 below when launched directly), with the dispatch
+between them.
 K3, the normalize kernel, against its plain version bit for bit; the
 on-device preprocessing and the device-resident cache on the card.
 
@@ -20,10 +24,14 @@ from clip_lite_torch.models.bert import BertModel
 from clip_lite_torch.models.mpnet import MPNetModel
 from clip_lite_torch.ops.attention import (
     MASK_VALUE,
+    _launch_bwd,
+    _launch_fwd,
     attention_backward,
     attention_backward_reference,
+    attention_float64,
     attention_forward,
     attention_reference,
+    attention_route,
     dropout_keep_mask,
     fused_short_attention,
     philox_keep_mask,
@@ -180,6 +188,113 @@ def test_full_bias_kernels_match_reference(device, dtype, rate, b, s, nh):
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
     torch.testing.assert_close(dqkv.float(), dref.float(), **TOLS[dtype])
     torch.testing.assert_close(dbias, dbias_ref, **TOLS[torch.float32])
+
+
+def _kernel_within_twice_the_twin(pairs, exact):
+    """Each (kernel, twin) output lies from the float64 value of the same
+    function: the kernel's max error at most twice the twin's, a bar that
+    does not depend on the order of either's sums."""
+    for (got, twin), want in zip(pairs, exact):
+        if want is None:
+            continue
+        k_err = (got.double() - want).abs().max().item()
+        t_err = (twin.double() - want).abs().max().item()
+        assert k_err <= 2.0 * t_err, (k_err, t_err)
+
+
+TC_SEQS = [16, 17, 20, 32, 48, 63, 64, 65]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
+@pytest.mark.parametrize("nh", [1, 12])
+@pytest.mark.parametrize("s", TC_SEQS)
+def test_bf16_route_edges_match_reference(device, s, nh, full, rate):
+    """bf16 at the edges of the tensor-core tiling (S a multiple of 16, one
+    over, one under, and 65, which takes the CUDA-core route): K1 and K2
+    against their twins given the kernels' Philox mask, dbias at fp32's
+    bar, and all of them within twice the twins' distance from float64."""
+    b = 3
+    qkv, key_bias = _inputs(device, b, s, nh, seed=s)
+    bias = _full_bias(device, key_bias, nh) if full else key_bias
+    qkv = qkv.bfloat16()
+    g = torch.randn(b, s, nh * 64, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1)
+                    ).bfloat16()
+    seed = 2468
+    keep = dropout_keep_mask(seed, b, nh, s, rate, device) if rate else None
+    tc = fused_short_attention.tc_launches, attention_backward.tc_launches
+    out = attention_forward(qkv, bias, nh, dropout_rate=rate, seed=seed)
+    dqkv, dbias = attention_backward(qkv, bias, g, nh, dropout_rate=rate,
+                                     seed=seed)
+    torch.cuda.synchronize()
+    on_tc = int(s <= 64)
+    assert (fused_short_attention.tc_launches - tc[0],
+            attention_backward.tc_launches - tc[1]) == (on_tc, on_tc)
+    ref = attention_reference(qkv, bias, nh, rate, keep)
+    dref, dbias_ref = attention_backward_reference(qkv, bias, g, nh, rate, keep)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[torch.bfloat16])
+    torch.testing.assert_close(dqkv.float(), dref.float(), **TOLS[torch.bfloat16])
+    assert (dbias is None) == (not full)
+    if full:
+        torch.testing.assert_close(dbias, dbias_ref, **TOLS[torch.float32])
+    _kernel_within_twice_the_twin(
+        [(out, ref), (dqkv, dref), (dbias, dbias_ref)],
+        attention_float64(qkv, bias, g, nh, rate, keep))
+
+
+def test_dispatch_sends_bf16_to_the_tensor_cores_up_to_64(device):
+    """The route by dtype and S, read from the per-route launch counts:
+    bf16 at S = 64 takes the tensor cores, at S = 65 the CUDA cores; fp32
+    never takes them, and the tensor-core kernels refuse it: the launch
+    raises and counts nothing."""
+    for dtype, s, on_tc in ((torch.bfloat16, 64, 1), (torch.bfloat16, 65, 0),
+                            (torch.float32, 30, 0)):
+        assert attention_route(dtype, s) == ("tensor_core" if on_tc
+                                             else "cuda_core")
+        qkv, bias = _inputs(device, 2, s, 12)
+        qkv = qkv.to(dtype)
+        g = torch.randn(2, s, 768, device=device).to(dtype)
+        counts = (fused_short_attention.launches, fused_short_attention.tc_launches,
+                  attention_backward.launches, attention_backward.tc_launches)
+        attention_forward(qkv, bias, 12)
+        attention_backward(qkv, bias, g, 12)
+        assert (fused_short_attention.launches - counts[0],
+                fused_short_attention.tc_launches - counts[1],
+                attention_backward.launches - counts[2],
+                attention_backward.tc_launches - counts[3]) == (1, on_tc, 1, on_tc)
+    qkv, bias = _inputs(device, 2, 30, 12)
+    before = fused_short_attention.launches, attention_backward.launches
+    with pytest.raises(RuntimeError):
+        _launch_fwd(qkv, bias, 12, 0.0, 0, None, tc=True)
+    with pytest.raises(RuntimeError):
+        _launch_bwd(qkv, bias, torch.zeros(2, 30, 768, device=device), 12, 0.0,
+                    0, None, tc=True)
+    assert (fused_short_attention.launches, attention_backward.launches) == before
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
+def test_cuda_core_route_in_bf16_matches_reference(device, full):
+    """The CUDA-core kernels, launched for bf16 at S <= 64 (chip_smoke's
+    timing of the old route), still match their twins there."""
+    b, s, nh = 5, 33, 4
+    qkv, key_bias = _inputs(device, b, s, nh)
+    bias = _full_bias(device, key_bias, nh) if full else key_bias
+    qkv = qkv.bfloat16()
+    g = torch.randn(b, s, nh * 64, device=device).bfloat16()
+    tc = fused_short_attention.tc_launches, attention_backward.tc_launches
+    out = _launch_fwd(qkv, bias, nh, 0.1, 3, None, tc=False)
+    dqkv, dbias = _launch_bwd(qkv, bias, g, nh, 0.1, 3, None, tc=False)
+    torch.cuda.synchronize()
+    assert (fused_short_attention.tc_launches, attention_backward.tc_launches) == tc
+    keep = dropout_keep_mask(3, b, nh, s, 0.1, device)
+    dref, dbias_ref = attention_backward_reference(qkv, bias, g, nh, 0.1, keep)
+    torch.testing.assert_close(
+        out.float(), attention_reference(qkv, bias, nh, 0.1, keep).float(),
+        **TOLS[torch.bfloat16])
+    torch.testing.assert_close(dqkv.float(), dref.float(), **TOLS[torch.bfloat16])
+    if full:
+        torch.testing.assert_close(dbias, dbias_ref, **TOLS[torch.float32])
 
 
 def test_full_bias_autograd_function_launches_k2_with_dbias(device):

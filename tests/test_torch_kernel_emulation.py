@@ -1,0 +1,396 @@
+"""K1's and K2's CUDA sources, both routes, run on the CPU against their
+plain twins.
+
+Only the card runs the kernels for real (tests/test_torch_cuda.py,
+chip_smoke.py).  This file checks their index math on the CPU: g++
+compiles ``clip_lite_torch/ops/csrc/attention_{fwd,bwd}.cu`` with three
+textual substitutions, against headers (below) that emulate on the host
+the CUDA the kernels use.  One block runs at a time, one ``std::thread``
+per CUDA thread; ``__syncthreads`` and ``__syncwarp`` are barriers;
+``__shfl_xor_sync``, ``ldmatrix`` and ``mma.sync`` are warp collectives
+that follow the PTX ISA's fragment layouts.  The substitutions:
+
+- the bodies of ``mma.cuh``'s inline-PTX helpers become the emulated
+  collectives;
+- each ``extern __shared__`` array becomes a pointer to the emulated
+  block's memory;
+- each ``kernel<<<grid, block, smem, stream>>>(args)`` becomes
+  ``emu_launch(kernel, grid, block, smem, stream, args)``.
+
+The C entry points then run on CPU tensors' pointers.  This says nothing
+of the PTX's syntax, the card's memory model or speed.  It skips where
+g++ with C++20's ``<barrier>`` is missing.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import pytest
+import torch
+
+from clip_lite_torch.ops.attention import (
+    MASK_VALUE,
+    attention_backward_reference,
+    attention_float64,
+    attention_reference,
+    dropout_threshold,
+    philox_keep_mask,
+)
+
+CSRC = Path(__file__).resolve().parents[1] / "clip_lite_torch" / "ops" / "csrc"
+# As on the card (tests/test_torch_cuda.py): bf16 may flip one rounding
+# where the fp32 sums' order differs; dbias is fp32 on both sides.
+TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+        torch.bfloat16: dict(rtol=1.6e-2, atol=1e-2)}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+CUDA_RUNTIME_H = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cstdint>
+#include <cstring>
+#include <math.h>
+#include <stdint.h>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__
+#define __align__(n)
+#define __launch_bounds__(...)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorMisalignedAddress = 716 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <typename F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e ? "emulated error" : "no error";
+}
+
+inline thread_local dim3 threadIdx;
+inline thread_local dim3 blockIdx;
+inline dim3 gridDim, blockDim;
+alignas(16) inline unsigned char emu_smem[256 * 1024];
+
+// One warp's exchange slots for the collectives.
+struct Warp {
+  std::barrier<>* bar;
+  const void* ptr[32];
+  float f[32];
+  uint32_t a[32][4];
+  uint32_t b[32][2];
+};
+inline Warp* emu_warps;
+inline std::barrier<>* emu_block_bar;
+
+inline Warp& my_warp() { return emu_warps[threadIdx.x / 32]; }
+inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { my_warp().bar->arrive_and_wait(); }
+
+inline float __shfl_xor_sync(unsigned, float v, int o) {
+  Warp& w = my_warp();
+  const int lane = threadIdx.x % 32;
+  w.f[lane] = v;
+  w.bar->arrive_and_wait();
+  const float r = w.f[lane ^ o];
+  w.bar->arrive_and_wait();
+  return r;
+}
+
+inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
+
+template <typename... KArgs, typename... Args>
+void emu_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t, void*,
+                Args... args) {
+  gridDim = grid;
+  blockDim = block;
+  const int n = block.x;
+  const int nw = (n + 31) / 32;
+  for (unsigned by = 0; by < grid.y; ++by) {
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::barrier<> block_bar(n);
+      std::vector<Warp> warps(nw);
+      for (int w = 0; w < nw; ++w) {
+        warps[w].bar = new std::barrier<>(std::min(32, n - 32 * w));
+      }
+      emu_warps = warps.data();
+      emu_block_bar = &block_bar;
+      std::vector<std::thread> threads;
+      for (int t = 0; t < n; ++t) {
+        threads.emplace_back([=]() {
+          threadIdx = dim3(t);
+          blockIdx = dim3(bx, by);
+          kernel(args...);
+        });
+      }
+      for (auto& th : threads) th.join();
+      for (auto& w : warps) delete w.bar;
+    }
+  }
+}
+"""
+
+CUDA_BF16_H = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+
+struct __nv_bfloat16 { uint16_t x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+
+// Round to nearest even, as the card's __float2bfloat16_rn.
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(uint16_t)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const uint32_t u = (uint32_t)b.x << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+"""
+
+# The inline-PTX helpers of mma.cuh, emulated.  ldmatrix: lanes 8m..8m+7
+# give the rows of matrix m; lane (g, t) = (lane / 4, lane % 4) receives
+# row g, columns 2t, 2t+1 (transposed: rows 2t, 2t+1, column g).  mma: A
+# register r of lane (g, t) holds A[g + 8 (r % 2)][2t + 8 (r / 2) + {0, 1}],
+# B register r holds B[2t + 8r + {0, 1}][g], C element e holds
+# C[g + 8 (e / 2)][2t + e % 2].
+PTX_BODIES = {
+    "cp_async16": "{ std::memcpy(smem, gmem, 16); }",
+    "cp_async_wait_all": "{}",
+    "ldmatrix_x4": r"""{
+  Warp& w = my_warp();
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  w.ptr[lane] = p;
+  w.bar->arrive_and_wait();
+  for (int m = 0; m < 4; ++m) {
+    const uint16_t* row = (const uint16_t*)w.ptr[8 * m + g];
+    r[m] = (uint32_t)row[2 * t] | ((uint32_t)row[2 * t + 1] << 16);
+  }
+  w.bar->arrive_and_wait();
+}""",
+    "ldmatrix_x4_trans": r"""{
+  Warp& w = my_warp();
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  w.ptr[lane] = p;
+  w.bar->arrive_and_wait();
+  for (int m = 0; m < 4; ++m) {
+    const uint16_t* r0 = (const uint16_t*)w.ptr[8 * m + 2 * t];
+    const uint16_t* r1 = (const uint16_t*)w.ptr[8 * m + 2 * t + 1];
+    r[m] = (uint32_t)r0[g] | ((uint32_t)r1[g] << 16);
+  }
+  w.bar->arrive_and_wait();
+}""",
+    "mma_bf16": r"""{
+  Warp& w = my_warp();
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
+  w.b[lane][0] = b0;
+  w.b[lane][1] = b1;
+  w.bar->arrive_and_wait();
+  auto half = [](uint32_t v, int k) {
+    return __bfloat162float(__nv_bfloat16{(uint16_t)((k & 1) ? v >> 16 : v & 0xffffu)});
+  };
+  auto A = [&](int row, int k) {
+    return half(w.a[(row % 8) * 4 + (k % 8) / 2][(k >= 8) * 2 + (row >= 8)], k);
+  };
+  auto B = [&](int k, int col) { return half(w.b[col * 4 + (k % 8) / 2][k >= 8], k); };
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    float acc = c[e];
+    for (int k = 0; k < 16; ++k) acc += A(row, k) * B(k, col);
+    c[e] = acc;
+  }
+  w.bar->arrive_and_wait();
+}""",
+}
+
+
+def _replace_body(src: str, name: str, body: str) -> str:
+    m = re.search(r"void " + name + r"\(", src)
+    assert m, f"{name} not found in mma.cuh"
+    start = src.index("{", m.end())
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[:start] + body + src[i + 1:]
+    raise AssertionError(f"unbalanced braces after {name}")
+
+
+def _emulated_sources(out: Path) -> None:
+    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (out / "cuda_bf16.h").write_text(CUDA_BF16_H)
+    mma = (CSRC / "mma.cuh").read_text()
+    for name, body in PTX_BODIES.items():
+        mma = _replace_body(mma, name, body)
+    (out / "mma.cuh").write_text(mma)
+    shutil.copy(CSRC / "attention_common.cuh", out)
+    for name in ("attention_fwd", "attention_bwd"):
+        src = (CSRC / f"{name}.cu").read_text()
+        src = src.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
+                          "unsigned char* smem_raw = emu_smem;")
+        src = src.replace("extern __shared__ float smem[];",
+                          "float* smem = (float*)emu_smem;")
+        src, n = re.subn(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ",
+                         src, flags=re.S)
+        assert n >= 1, f"no launch found in {name}.cu"
+        (out / f"{name}.cu").write_text(src)
+
+
+def _gxx(out: Path, src: Path, target: Path) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-w",
+         "-I", str(out), "-x", "c++", str(src), "-o", str(target)],
+        capture_output=True, text=True)
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    out = tmp_path_factory.mktemp("cuda_emu")
+    probe = out / "probe.cc"
+    probe.write_text("#include <barrier>\nstd::barrier<> b(1);\n")
+    if _gxx(out, probe, out / "libprobe.so").returncode:
+        pytest.skip("needs g++ with C++20's <barrier>")
+    _emulated_sources(out)
+    loaded = {}
+    for name in ("attention_fwd", "attention_bwd"):
+        r = _gxx(out, out / f"{name}.cu", out / f"lib{name}.so")
+        assert r.returncode == 0, r.stderr[-4000:]
+        loaded[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+    drop = [ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint64,
+            ctypes.c_void_p]
+    fwd, bwd = loaded["attention_fwd"], loaded["attention_bwd"]
+    for fn in (fwd.attention_fwd, fwd.attention_fwd_tc):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + drop
+    for fn in (bwd.attention_bwd, bwd.attention_bwd_tc):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + drop
+    return fwd, bwd
+
+
+def _case(b, s, nh, full, dtype, seed=0):
+    g = torch.Generator().manual_seed(1000 * s + nh + seed)
+    qkv = torch.randn(b, s, 3 * nh * 64, generator=g).to(dtype)
+    lengths = torch.randint(1, s + 1, (b,), generator=g)
+    key_bias = (1.0 - (torch.arange(s)[None] < lengths[:, None]).float()) * MASK_VALUE
+    bias = key_bias
+    if full:
+        bias = (torch.randn(1, nh, s, s, generator=g) * 0.5
+                + key_bias[:, None, None, :]).contiguous()
+    grad = torch.randn(b, s, nh * 64, generator=g).to(dtype)
+    return qkv, bias, grad
+
+
+def _run(libs, route, qkv, bias, grad, nh, rate, seed=31):
+    """Both kernels of ``route`` on CPU pointers: (out, dqkv, dbias)."""
+    fwd, bwd = libs
+    b, s, _ = qkv.shape
+    full = bias.ndim == 4
+    drop = ((1, dropout_threshold(rate), float(torch.tensor(1.0 / (1.0 - rate))), seed)
+            if rate else (0, 0, 1.0, 0))
+    code = DTYPE_CODES[qkv.dtype]
+    out = torch.empty(b, s, nh * 64, dtype=qkv.dtype)
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty_like(bias) if full else None
+    tc = route == "tensor_core"
+    err = (fwd.attention_fwd_tc if tc else fwd.attention_fwd)(
+        qkv.data_ptr(), bias.data_ptr(), None, out.data_ptr(), b, s, nh, 64, code,
+        int(full), *drop, None)
+    assert err == 0
+    err = (bwd.attention_bwd_tc if tc else bwd.attention_bwd)(
+        qkv.data_ptr(), bias.data_ptr(), grad.data_ptr(), None, dqkv.data_ptr(),
+        None if dbias is None else dbias.data_ptr(), b, s, nh, 64, code, int(full),
+        *drop, None)
+    assert err == 0
+    return out, dqkv, dbias
+
+
+def _check(got, qkv, bias, grad, nh, rate, seed=31):
+    out, dqkv, dbias = got
+    b, s, _ = qkv.shape
+    keep = philox_keep_mask(seed, b, nh, s, rate) if rate else None
+    ref = attention_reference(qkv, bias, nh, rate, keep)
+    dref, dbias_ref = attention_backward_reference(qkv, bias, grad, nh, rate, keep)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[qkv.dtype])
+    torch.testing.assert_close(dqkv.float(), dref.float(), **TOLS[qkv.dtype])
+    if bias.ndim == 4:
+        torch.testing.assert_close(dbias, dbias_ref, **TOLS[torch.float32])
+    return (ref, dref, dbias_ref), keep
+
+
+# The tiling's edges: one row, one over a tile, between tiles, full tiles;
+# the full bias with dropout at each, the key bias without at one.
+TC_CASES = [(1, True, 0.1), (17, True, 0.1), (30, True, 0.1), (64, True, 0.1),
+            (30, False, 0.0)]
+
+
+@pytest.mark.parametrize("s,full,rate", TC_CASES,
+                         ids=[f"S{s}-{'full' if f else 'key'}-rate{r}"
+                              for s, f, r in TC_CASES])
+def test_tensor_core_route_matches_reference(libs, s, full, rate):
+    """The tensor-core K1 and K2 (bf16) at the edges of their 16-row tiles
+    against the twins, and within twice the twins' distance from the
+    float64 evaluation of the same function."""
+    nh = 2
+    qkv, bias, grad = _case(2, s, nh, full, torch.bfloat16)
+    got = _run(libs, "tensor_core", qkv, bias, grad, nh, rate)
+    twins, keep = _check(got, qkv, bias, grad, nh, rate)
+    exact = attention_float64(qkv, bias, grad, nh, rate, keep)
+    for k, t, e in zip(got, twins, exact):
+        if e is not None:
+            assert ((k.double() - e).abs().max()
+                    <= 2.0 * (t.double() - e).abs().max())
+
+
+def test_cuda_core_route_matches_reference(libs):
+    """The CUDA-core K1 and K2 (fp32, the exact parity checks' route) under
+    a full bias with dropout, S off the warp's multiple."""
+    nh = 2
+    qkv, bias, grad = _case(2, 17, nh, True, torch.float32)
+    _check(_run(libs, "cuda_core", qkv, bias, grad, nh, 0.1), qkv, bias, grad,
+           nh, 0.1)
+
+
+def test_tensor_core_entry_points_refuse_what_they_do_not_take(libs):
+    """fp32, S > 64 and misaligned pointers are refused before any launch."""
+    fwd, bwd = libs
+    qkv, bias, grad = _case(1, 65, 1, False, torch.bfloat16)
+    out = torch.empty(1, 65, 64, dtype=torch.bfloat16)
+    dqkv = torch.empty_like(qkv)
+    for s, code, offset, want in ((65, 1, 0, 1), (64, 0, 0, 1), (30, 1, 2, 716)):
+        assert fwd.attention_fwd_tc(qkv.data_ptr() + offset, bias.data_ptr(), None,
+                                    out.data_ptr(), 1, s, 1, 64, code, 0, 0, 0,
+                                    1.0, 0, None) == want
+        assert bwd.attention_bwd_tc(qkv.data_ptr() + offset, bias.data_ptr(),
+                                    grad.data_ptr(), None, dqkv.data_ptr(), None, 1,
+                                    s, 1, 64, code, 0, 0, 0, 1.0, 0, None) == want
