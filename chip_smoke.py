@@ -75,7 +75,15 @@ caught:
    and bf16 out, bit for bit; its output's NCHW view is channels_last;
    the kernel's (as a caller pays it and on the device alone), the plain
    version's and the library call's (``torch.addcmul``, uint8 or float32
-   in) times and the bound; then
+   in) times and the bound.  Then K3's fused pass (flip, colour jitter
+   and normalize in one launch) at the same batch with StepRNG draws
+   against the plain composition: within FUSED_ATOL with its own contrast
+   means and given the twin's (the count of elements that differ at all
+   logged), bit for bit with the flip alone; its times beside the eager
+   composition's, and its bound (bytes, and fp32 instructions a jittered
+   pixel counted in the SASS of ``augment_pixel_probe`` by cuobjdump, at
+   132 SMs x 128 lanes x the maximum SM clock), and the route it replaced
+   (eager flip and jitter, then the standalone K3); then
    ``device_preprocess`` whole (flip + normalize, and with colour jitter)
    in ms per batch.
 10. The uint8 training path: configs/fs_tpu_tuned.yaml with DATA.DEVICE_CACHE
@@ -89,11 +97,14 @@ caught:
    finite loss and grad norm at every step; uint8 (128, 224, 224, 3)
    batches with S = 20; the images the model received in step 1 differ
    from a normalize-only pass exactly where that step's draws flipped or
-   jittered; K3 launched 10 + 1 times, K1 12 x 11, K2 12 x 10; BatchNorm
-   statistics moved.  Then the median step over steps 3-10, pairs/s, peak
-   memory, the cache's bytes, and K1/K2 times at qkv (128, 20, 2304),
-   key and full bias, both routes and the library call.
-11. One JSON line listing every ported kernel; then the device line last.
+   jittered; K3's fused pass launched 10 times (one a step) and the
+   standalone K3 once (the eval sweep), K1 12 x 11, K2 12 x 10; BatchNorm
+   statistics moved.  Then the median step over steps 3-10, pairs/s, the
+   host's enqueue time, each beside phase 6's float32 step, peak memory,
+   the cache's bytes, and K1/K2 times at qkv (128, 20, 2304), key and
+   full bias, both routes and the library call.
+11. One JSON line listing every ported kernel (K3's standalone and fused
+   entry points each with their own launches); then the device line last.
 """
 
 import functools
@@ -147,6 +158,18 @@ PARITY_TOL = {"float32": dict(loss=1e-5, rel=1e-3, cos=0.99999),
 # fault of the kernels.
 BF16_FLOOR_FACTOR = 1.5
 KEEP_RATE_TOL = 0.002
+# K3's fused pass against the plain composition (flip, jitter, normalize as
+# separate tensor operations), same draws, on the normalized output: with
+# its own contrast means (an exact integer sum against the twin's fp32
+# mean) and given the twin's means (then only the two sides' roundings may
+# differ, and they mirror each other).
+FUSED_ATOL = {"own means": 1e-4, "twin means": 1e-5}
+# SASS opcodes that run on the fp32 pipes (and the conversions and the
+# special-function unit, counted at the fp32 rate: a lower bound).
+FP32_OPCODES = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET",
+                "FCHK", "FRND", "FADD32I", "FMUL32I", "FFMA32I", "MUFU",
+                "F2I", "I2F", "F2F", "I2FP", "F2IP"}
+H100_SMS, FP32_LANES = 132, 128
 L2_SPILL_BYTES = 120e6  # timed inputs together: over twice the 50 MB L2
 N_ITEMS, BATCH = 256, 128
 # The flagship with MPNet-base as its text tower (768 wide, 12 layers of 12
@@ -813,7 +836,7 @@ def phase_training(overrides=(), name: str = "training") -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, step_s=median, pairs_per_s=BATCH / median,
-                peak_mib=peak_mb)
+                enqueue_s=enqueue, peak_mib=peak_mb)
 
 
 def parity(a, b) -> dict:
@@ -905,9 +928,127 @@ def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
     return out
 
 
+def sass_fp32_instructions(kernel: str) -> dict:
+    """The fp32-pipe instructions of ``kernel`` in the built K3 library's
+    SASS (cuobjdump), up to its first unconditional EXIT (the division's
+    slow path lies beyond): their count and opcodes."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from clip_lite_torch.ops import _build
+
+    sass = subprocess.run(
+        [str(Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"),
+         "-sass", str(_build._target("normalize"))],
+        capture_output=True, text=True, check=True).stdout
+    sections = re.split(r"\n\s*Function : ", sass)
+    body = [sec for sec in sections if kernel in sec.split("\n", 1)[0]]
+    if len(body) != 1:
+        raise AssertionError(f"{kernel}: {len(body)} SASS functions found")
+    counts = {}
+    for line in body[0].splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)",
+                     line)
+        if not m:
+            continue
+        if m[2] == "EXIT" and not m[1]:
+            break
+        if m[2] in FP32_OPCODES:
+            counts[m[2]] = counts.get(m[2], 0) + 1
+    return dict(count=sum(counts.values()), opcodes=counts)
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in Hz."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def phase_fused(u8: torch.Tensor) -> dict:
+    """K3's fused flip + colour jitter + normalize pass at the flagship
+    image batch with StepRNG draws, against the plain composition at both
+    tolerances; its times beside the eager composition's, and its bound
+    (bytes, and SASS-counted fp32 instructions a jittered pixel)."""
+    from clip_lite_torch.ops.image_ops import (
+        AugDraws, augment_reference, random_color_jitter, random_flip)
+    from clip_lite_torch.ops.layers import StepRNG
+    from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
+
+    draws = AugDraws.sample(StepRNG(0, 0, "cuda"), BATCH)
+    means = (random_flip(u8, draws.flip).float()
+             * draws.brightness.view(-1, 1, 1, 1)).mean(dim=(1, 2, 3))
+    errors = {}
+    for name, mu in (("own means", None), ("twin means", means)):
+        got = augment_normalize_u8(u8, draws, True, True, mu)
+        want = augment_reference(u8, draws, True, True, mu)
+        torch.cuda.synchronize()
+        if got.shape != u8.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"K3 fused ({name}): {tuple(got.shape)}, "
+                                 "or values that are not finite")
+        errors[name] = dict(max_abs_err=(got - want).abs().max().item(),
+                            not_identical=int((got != want).sum()))
+        if errors[name]["max_abs_err"] > FUSED_ATOL[name]:
+            raise AssertionError(f"K3 fused ({name}): {errors[name]} over "
+                                 f"{FUSED_ATOL[name]}")
+    flip_only = augment_normalize_u8(u8, draws, True, False)
+    if not torch.equal(flip_only, augment_reference(u8, draws, True, False)):
+        raise AssertionError("K3 fused, flip only: not bit for bit the plain "
+                             "composition")
+    if not got.permute(0, 3, 1, 2).is_contiguous(
+            memory_format=torch.channels_last):
+        raise AssertionError("K3 fused: the NCHW view is not channels_last")
+    del got, want, flip_only
+    copies = l2_spilling_copies(u8)
+    fused = lambda y: augment_normalize_u8(y, draws, True, True)  # noqa: E731
+    eager = lambda y: augment_reference(y, draws, True, True)  # noqa: E731
+    # The route before the fused pass: the eager flip and jitter, then the
+    # standalone K3 (the plain twin's normalize builds its constants from
+    # host memory, a sync on every call, so its host time is no "before").
+    before = lambda y: normalize_u8(random_color_jitter(  # noqa: E731
+        random_flip(y, draws.flip), draws))
+    sass = sass_fp32_instructions("augment_pixel_probe")
+    pixels = u8.numel() // 3
+    jittered = int(draws.apply.sum()) * pixels // BATCH
+    # A plain pixel's three conversions, subtractions and multiplications.
+    n_ops = jittered * sass["count"] + (pixels - jittered) * 9
+    n_bytes = (u8.numel() * (1 + 4) + BATCH * (2 + 4 * 4))
+    t_ops = n_ops / (H100_SMS * FP32_LANES * sm_clock_hz())
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    r = dict(
+        errors=errors, max_abs_err=errors["own means"]["max_abs_err"],
+        ms=time_ms(fused, copies), ms_device=device_ms(fused, copies),
+        host_ms=enqueue_ms(fused, copies),
+        plain_ms=time_ms(eager, copies, iters=10),
+        plain_ms_device=device_ms(eager, copies, iters=10),
+        plain_host_ms=enqueue_ms(eager, copies, iters=10),
+        before_ms=time_ms(before, copies, iters=10),
+        before_ms_device=device_ms(before, copies, iters=10),
+        before_host_ms=enqueue_ms(before, copies, iters=10),
+        library_ms=None, bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_bytes_ms=1e3 * t_bytes, bound_ops_ms=1e3 * t_ops,
+        sass_fp32_per_jittered_pixel=sass, jittered_images=int(
+            draws.apply.sum()), flipped_images=int(draws.flip.sum()))
+    log(f"K3 fused at {IMAGE_SHAPE} ({r['flipped_images']} flipped, "
+        f"{r['jittered_images']} jittered): max|kernel-plain| {errors}; flip "
+        f"only bit for bit; kernel {r['ms']} ms ({r['ms_device']} on the "
+        f"device, {r['host_ms']} of host time to enqueue), eager composition "
+        f"{r['plain_ms']} ms ({r['plain_ms_device']} on the device, "
+        f"{r['plain_host_ms']} to enqueue), eager flip + jitter + the "
+        f"standalone K3 {r['before_ms']} ms ({r['before_ms_device']} on the "
+        f"device, {r['before_host_ms']} to enqueue), bound {r['bound_ms']} ms "
+        f"({r['bound_by']}: {n_bytes} bytes, {r['bound_bytes_ms']} ms; "
+        f"{n_ops} fp32 instructions, {sass['count']} a jittered pixel "
+        f"{sass['opcodes']}, {r['bound_ops_ms']} ms); NCHW view channels_last")
+    return r
+
+
 def phase_normalize() -> dict:
     """K3 at the flagship image batch in its four variants, against its
-    plain version bit for bit; then device_preprocess whole."""
+    plain version bit for bit; then the fused pass; then
+    device_preprocess whole."""
     from clip_lite_torch.ops.image_ops import AugDraws, device_preprocess
     from clip_lite_torch.ops.layers import StepRNG
     from clip_lite_torch.ops.normalize import (
@@ -954,23 +1095,28 @@ def phase_normalize() -> dict:
                 ms_device=device_ms(lambda y: normalize_u8(y, dtype), copies),
                 plain_ms=time_ms(lambda y: normalize_reference(y, dtype), copies),
                 library_ms=library_ms,
+                library_ms_device=device_ms(
+                    lambda y: torch.addcmul(shift, y, scale, out=buf), copies),
                 **bound(n_bytes, 2 * x.numel(), torch.float32))
             r = result[name]
             log(f"K3 {name}: max|kernel-plain| {err} (bit for bit); kernel "
                 f"{r['ms']} ms ({r['ms_device']} on the device), plain {r['plain_ms']} ms, library "
                 f"(torch.addcmul on {x.dtype} input, max|lib-plain| "
-                f"{lib_err}) {library_ms} ms, bound {r['bound_ms']} ms "
+                f"{lib_err}) {library_ms} ms ({r['library_ms_device']} on the "
+                f"device), bound {r['bound_ms']} ms "
                 f"({r['bound_by']}: {n_bytes} bytes); {len(copies)} input "
                 f"copies; NCHW view channels_last")
             del copies, buf, out, ref
+    del f32
+    result["fused"] = phase_fused(u8)
     draws = AugDraws.sample(StepRNG(0, 0, "cuda"), BATCH)
     copies = l2_spilling_copies(u8)
     pre = {jitter: time_ms(lambda y: device_preprocess(
         y, draws, flip=True, color_jitter=jitter), copies, iters=20)
         for jitter in (False, True)}
-    log(f"device_preprocess at {IMAGE_SHAPE} uint8: flip + normalize "
-        f"{pre[False]} ms, flip + colour jitter + normalize {pre[True]} ms "
-        f"per batch")
+    log(f"device_preprocess at {IMAGE_SHAPE} uint8 (K3's fused pass): flip "
+        f"+ normalize {pre[False]} ms, flip + colour jitter + normalize "
+        f"{pre[True]} ms per batch")
     result["device_preprocess_ms"] = {"flip": pre[False],
                                       "flip_jitter": pre[True]}
     return result
@@ -1023,7 +1169,7 @@ def attention_times_at(s: int) -> dict:
     return out
 
 
-def phase_uint8_training(float_step_s: float) -> dict:
+def phase_uint8_training(float_step: dict) -> dict:
     """The uint8 training main path: fs_tpu_tuned + DATA.DEVICE_CACHE, a
     COCO-sized corpus on the card, 10 steps of 128 through the loop with
     the cache as the batch iterator, one eval sweep of one cache batch."""
@@ -1035,7 +1181,7 @@ def phase_uint8_training(float_step_s: float) -> dict:
         attention_backward, fused_short_attention)
     from clip_lite_torch.ops.image_ops import AugDraws
     from clip_lite_torch.ops.layers import StepRNG
-    from clip_lite_torch.ops.normalize import normalize_u8
+    from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
     from clip_lite_torch.train import train_loop
 
     gc.collect()
@@ -1096,7 +1242,7 @@ def phase_uint8_training(float_step_s: float) -> dict:
     cache.set_start(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    normalize_u8.launches = 0
+    normalize_u8.launches = augment_normalize_u8.launches = 0
     fused_short_attention.launches = fused_short_attention.tc_launches = 0
     attention_backward.launches = attention_backward.tc_launches = 0
     t0 = time.perf_counter()
@@ -1106,6 +1252,7 @@ def phase_uint8_training(float_step_s: float) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"normalize": normalize_u8.launches,
+                "augment_normalize": augment_normalize_u8.launches,
                 "attention_fwd": fused_short_attention.launches,
                 "attention_bwd": attention_backward.launches}
     routes = {"attention_fwd_tc": fused_short_attention.tc_launches,
@@ -1117,7 +1264,10 @@ def phase_uint8_training(float_step_s: float) -> dict:
     log(f"uint8 eval sweep: {json.dumps(evals)}")
     log(f"uint8 training path: {TRAIN_STEPS} steps + eval in {wall} s; "
         f"launches {launches}, on the tensor-core route {routes}")
-    expected = {"normalize": TRAIN_STEPS + len(val_batches),
+    # Training: K3's fused pass, one a step; the eval sweep: the
+    # standalone K3 (no draws).
+    expected = {"normalize": len(val_batches),
+                "augment_normalize": TRAIN_STEPS,
                 "attention_fwd": n_layers * (TRAIN_STEPS + len(val_batches)),
                 "attention_bwd": n_layers * TRAIN_STEPS}
     if launches != expected:
@@ -1148,14 +1298,16 @@ def phase_uint8_training(float_step_s: float) -> dict:
     log(f"uint8 training throughput at batch {BATCH}: median step {median} s "
         f"over steps 3-{TRAIN_STEPS} ({times}), {BATCH / median} pairs/s, "
         f"median host enqueue {enqueue} s "
-        f"(float32 path, phase 6: {float_step_s} s, {BATCH / float_step_s} "
-        f"pairs/s); peak memory {peak_mb} MiB with the cache's "
-        f"{cache.memory_bytes() / 2 ** 20} MiB")
+        f"(float32 path, phase 6: median step {float_step['step_s']} s, "
+        f"{float_step['pairs_per_s']} pairs/s, median host enqueue "
+        f"{float_step['enqueue_s']} s); peak memory {peak_mb} MiB with the "
+        f"cache's {cache.memory_bytes() / 2 ** 20} MiB")
     del state, cache, val_batches, seen, first_batch
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, step_s=median, pairs_per_s=BATCH / median,
-                peak_mib=peak_mb, attention_s20=attention_times_at(seq))
+                enqueue_s=enqueue, peak_mib=peak_mb,
+                attention_s20=attention_times_at(seq))
 
 
 def main() -> int:
@@ -1186,7 +1338,7 @@ def main() -> int:
         f"against {training['peak_mib']} MiB")
     phase_training_parity(MPNET, name="MPNet training parity")
     norm = phase_normalize()
-    uint8 = phase_uint8_training(training["step_s"])
+    uint8 = phase_uint8_training(training)
     k1_launches = {"inference": inference["attention_fwd"],
                    "training": training["launches"]["attention_fwd"],
                    "mpnet_inference": mpnet_inference["attention_fwd"],
@@ -1226,16 +1378,25 @@ def main() -> int:
              launches=sum(k2_launches.values()), launches_by_path=k2_launches,
              **attention_row("k2", attn, "key bias"),
              full_bias=attention_row("k2", full, "full bias")),
-        # The main keys are the training path's variant (float32 in, after
-        # the jitter; 10 of the 11 launches); the eval sweep's is uint8 in.
+        # The eval sweep's launch (uint8 in, no draws); the main keys are
+        # that variant, the other three beside it.
         dict(name="normalize_u8 (K3)", route="cuda",
              source="clip_lite_torch/ops/csrc/normalize.cu",
              replaces="clip_lite_tpu/ops/pallas_kernels.py:30",
              launches=uint8["launches"]["normalize"],
-             launches_by_path={"uint8_training": uint8["launches"]["normalize"]},
-             **norm["float32->float32"],
+             launches_by_path={"uint8_eval": uint8["launches"]["normalize"]},
+             **norm["uint8->float32"],
              variants={k: v for k, v in norm.items()
-                       if k != "device_preprocess_ms"},
+                       if k not in ("fused", "device_preprocess_ms")}),
+        # The training step's launch: flip, colour jitter and K3 in one
+        # pass (XLA's fusion of image_ops.py:44-145 around K3 in JAX).
+        dict(name="augment_normalize_u8 (K3, fused)", route="cuda",
+             source="clip_lite_torch/ops/csrc/normalize.cu",
+             replaces="clip_lite_tpu/ops/pallas_kernels.py:30",
+             launches=uint8["launches"]["augment_normalize"],
+             launches_by_path={
+                 "uint8_training": uint8["launches"]["augment_normalize"]},
+             **norm["fused"],
              device_preprocess_ms=norm["device_preprocess_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))

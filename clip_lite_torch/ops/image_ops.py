@@ -4,9 +4,13 @@ the counterpart of the JAX package's ``ops/image_ops.py:31-145``.
 The host ships uint8 crops and the step finishes augmentation on the
 card: per-image random horizontal flip, colour jitter (brightness,
 contrast, saturation, and hue by an exact HSV round trip, applied with
-p = 0.8), then the ImageNet normalize.  The normalize is K3
-(:func:`~clip_lite_torch.ops.normalize.normalize_u8`) on the card; flip
-and jitter are plain PyTorch, as the JAX package leaves them to XLA.
+p = 0.8), then the ImageNet normalize.  On the card all three are one pass
+of K3 (:func:`~clip_lite_torch.ops.normalize.augment_normalize_u8`), as
+XLA fuses them into one in the JAX step; the functions below are its plain
+twin, which CPU tensors take.  The twin divides by 255 and by 6 as a
+product with the fp32 reciprocal, which is what eager PyTorch computes on
+the card for a division by a Python scalar, so that the CPU and the card
+round alike.
 
 Every random draw of a batch lives in one :class:`AugDraws` (one entry
 per image), drawn from the step's :class:`StepRNG` or passed in by the
@@ -21,13 +25,19 @@ from typing import Optional, Tuple
 import torch
 
 from clip_lite_torch.ops.layers import StepRNG
-from clip_lite_torch.ops.normalize import normalize_u8
+from clip_lite_torch.ops.normalize import (
+    augment_normalize_u8,
+    normalize_reference,
+    normalize_u8,
+)
 
 GRAY_WEIGHTS = (0.299, 0.587, 0.114)
 # The JAX package's jitter defaults (image_ops.py:99-102).
 BRIGHTNESS = CONTRAST = SATURATION = 0.4
 HUE = 0.1
 JITTER_P = 0.8
+INV_255 = 1.0 / 255.0  # torch rounds a Python scalar factor to fp32
+INV_6 = 1.0 / 6.0
 
 
 @dataclass
@@ -84,7 +94,7 @@ def _rgb_to_hsv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     bc = (maxc - b) / safe_c
     h = torch.where(maxc == r, bc - gc,
                     torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
-    h = torch.where(c > 0, torch.remainder(h / 6.0, 1.0), 0.0)
+    h = torch.where(c > 0, torch.remainder(h * INV_6, 1.0), 0.0)
     return h, s, v
 
 
@@ -111,19 +121,22 @@ def _hsv_to_rgb(h: torch.Tensor, s: torch.Tensor,
 def random_hue(images: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """Rotate image i's hue by ``shift[i]`` (a fraction of the colour
     wheel) through an exact HSV round trip; [0, 255] float in and out."""
-    h, s, v = _rgb_to_hsv(images.float() / 255.0)
+    h, s, v = _rgb_to_hsv(images.float() * INV_255)
     rgb = _hsv_to_rgb(torch.remainder(h + _per_image(shift, 3), 1.0), s, v)
     return torch.clamp(rgb * 255.0, 0.0, 255.0)
 
 
-def random_color_jitter(images: torch.Tensor,
-                        draws: AugDraws) -> torch.Tensor:
+def random_color_jitter(images: torch.Tensor, draws: AugDraws,
+                        mean: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-image brightness, contrast, saturation and hue jitter in
-    [0, 255] space, kept where ``draws.apply``; float32 out."""
+    [0, 255] space, kept where ``draws.apply``; float32 out.  ``mean``
+    (B,), where given, is each image's contrast mean (the mean of the
+    brightened image), which is otherwise computed here."""
     x = images.float()
     x = x * _per_image(draws.brightness)
     fc = _per_image(draws.contrast)
-    mean = x.mean(dim=(1, 2, 3), keepdim=True)
+    mean = (x.mean(dim=(1, 2, 3), keepdim=True) if mean is None
+            else _per_image(mean))
     x = (x - mean) * fc + mean
     fs = _per_image(draws.saturation)
     wr, wg, wb = GRAY_WEIGHTS  # Python scalars: no host-to-device copy
@@ -134,21 +147,33 @@ def random_color_jitter(images: torch.Tensor,
     return torch.where(_per_image(draws.apply), x, images.float())
 
 
+def augment_reference(images_u8: torch.Tensor, draws: AugDraws,
+                      flip: bool = True, color_jitter: bool = True,
+                      mean: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain twin of K3's fused pass: :func:`random_flip` (if
+    ``flip``), :func:`random_color_jitter` (if ``color_jitter``), then
+    the normalize, each a separate tensor operation; float32 out."""
+    if flip:
+        images_u8 = random_flip(images_u8, draws.flip)
+    if color_jitter:
+        images_u8 = random_color_jitter(images_u8, draws, mean)
+    return normalize_reference(images_u8)
+
+
 def device_preprocess(images_u8: torch.Tensor,
                       draws: Optional[AugDraws] = None, flip: bool = True,
                       color_jitter: bool = False) -> torch.Tensor:
     """The on-device tail of the augmentation pipeline: flip and colour
     jitter (when ``draws`` is given and each is on), then the normalize
-    into float32 (K3 on the card).  The JAX package's ``use_pallas`` knob
-    and its ``normalize_images`` dispatcher have no counterpart (ROADMAP
-    Queue 3)."""
-    if draws is not None:
-        if flip:
-            images_u8 = random_flip(images_u8, draws.flip)
-        if color_jitter:
-            images_u8 = random_color_jitter(images_u8, draws)
-    return normalize_u8(images_u8)
+    into float32.  On the card, with draws, one launch of K3's fused pass
+    (:func:`augment_normalize_u8`); without, the standalone normalize
+    (:func:`normalize_u8`); CPU tensors take their plain twins.  The JAX
+    package's ``use_pallas`` knob and its ``normalize_images`` dispatcher
+    have no counterpart (ROADMAP Queue 3)."""
+    if draws is None:
+        return normalize_u8(images_u8)
+    return augment_normalize_u8(images_u8, draws, flip, color_jitter)
 
 
 __all__ = ["AugDraws", "random_flip", "random_hue", "random_color_jitter",
-           "device_preprocess"]
+           "augment_reference", "device_preprocess"]

@@ -6,8 +6,9 @@ S <= 64, checked at the edges of their tiling, and against the float64
 evaluation of the same function) and the CUDA-core kernels (fp32, bf16
 above 64, and bf16 below when launched directly), with the dispatch
 between them.
-K3, the normalize kernel, against its plain version bit for bit; the
-on-device preprocessing and the device-resident cache on the card.
+K3, the normalize kernel, against its plain version bit for bit; K3's
+fused flip + colour jitter + normalize pass against the plain composition;
+the on-device preprocessing and the device-resident cache on the card.
 
 These tests need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  The
 file imports no JAX, so it also runs where JAX is absent:
@@ -36,9 +37,18 @@ from clip_lite_torch.ops.attention import (
     fused_short_attention,
     philox_keep_mask,
 )
-from clip_lite_torch.ops.image_ops import AugDraws, device_preprocess
+from clip_lite_torch.ops.image_ops import (
+    AugDraws,
+    augment_reference,
+    device_preprocess,
+    random_flip,
+)
 from clip_lite_torch.ops.layers import StepRNG, init_weights
-from clip_lite_torch.ops.normalize import normalize_reference, normalize_u8
+from clip_lite_torch.ops.normalize import (
+    augment_normalize_u8,
+    normalize_reference,
+    normalize_u8,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -467,19 +477,104 @@ def test_k3_rejects_what_it_does_not_take(device):
 
 
 def test_device_preprocess_launches_k3_once(device):
+    """With draws, one launch of K3's fused pass and none of the standalone
+    K3, whether the jitter is on or off; without draws, the standalone K3
+    once.  Each against the CPU's plain composition."""
     x = torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8, device=device)
     draws = AugDraws.sample(StepRNG(0, 0, device), 8)
-    for jitter in (False, True):
-        before = normalize_u8.launches
-        out = device_preprocess(x, draws, flip=True, color_jitter=jitter)
-        torch.cuda.synchronize()
-        assert normalize_u8.launches == before + 1
-        assert out.dtype == torch.float32 and out.shape == x.shape
-        cpu_draws = AugDraws(*(getattr(draws, f).cpu() for f in (
-            "flip", "apply", "brightness", "contrast", "saturation", "hue")))
-        cpu = device_preprocess(x.cpu(), cpu_draws, flip=True,
+    cpu_draws = AugDraws(*(getattr(draws, f).cpu() for f in (
+        "flip", "apply", "brightness", "contrast", "saturation", "hue")))
+    for use_draws, jitter in ((True, False), (True, True), (False, True)):
+        before = normalize_u8.launches, augment_normalize_u8.launches
+        out = device_preprocess(x, draws if use_draws else None, flip=True,
                                 color_jitter=jitter)
+        torch.cuda.synchronize()
+        assert (normalize_u8.launches - before[0],
+                augment_normalize_u8.launches - before[1]) == (
+                    (0, 1) if use_draws else (1, 0))
+        assert out.dtype == torch.float32 and out.shape == x.shape
+        cpu = device_preprocess(x.cpu(), cpu_draws if use_draws else None,
+                                flip=True, color_jitter=jitter)
         torch.testing.assert_close(out.cpu(), cpu, rtol=0, atol=1e-4)
+
+
+def _twin_means(x, draws, flip):
+    """The plain composition's contrast means (random_color_jitter's)."""
+    if flip:
+        x = random_flip(x, draws.flip)
+    return (x.float() * draws.brightness.view(-1, 1, 1, 1)).mean(dim=(1, 2, 3))
+
+
+# Odd sizes (images off a 16-byte boundary, a short last block), the
+# flagship crop, one pixel an image, rows too wide to stage in shared
+# memory.
+FUSED_SHAPES = [(3, 7, 9, 3), (5, 33, 17, 3), (2, 224, 224, 3), (4, 1, 1, 3),
+                (1, 3, 75001, 3)]
+
+
+@pytest.mark.parametrize("flip,jitter", [(True, True), (True, False),
+                                         (False, True), (False, False)])
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_pass_matches_plain_composition(device, shape, flip, jitter):
+    """K3's fused pass against the plain composition on the card, given the
+    same draws (apply taking both values): within 1e-4 on the normalized
+    output with its own contrast means, within 1e-5 given the twin's."""
+    g = torch.Generator(device=device).manual_seed(sum(shape))
+    x = torch.randint(0, 256, shape, dtype=torch.uint8, device=device,
+                      generator=g)
+    draws = AugDraws.sample(StepRNG(1, 2, device), shape[0])
+    draws.flip = torch.arange(shape[0], device=device) % 2 == 0
+    draws.apply = torch.arange(shape[0], device=device) % 3 != 1
+    got = augment_normalize_u8(x, draws, flip, jitter)
+    want = augment_reference(x, draws, flip, jitter)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    means = _twin_means(x, draws, flip)
+    got = augment_normalize_u8(x, draws, flip, jitter, means)
+    want = augment_reference(x, draws, flip, jitter, means)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_fused_pass_output_is_channels_last_for_the_stem(device):
+    x = torch.randint(0, 256, (2, 16, 16, 3), dtype=torch.uint8, device=device)
+    draws = AugDraws.sample(StepRNG(0, 0, device), 2)
+    out = augment_normalize_u8(x, draws)
+    assert out.is_contiguous() and out.permute(0, 3, 1, 2).is_contiguous(
+        memory_format=torch.channels_last)
+
+
+def test_fused_pass_rejects_what_it_does_not_take(device):
+    x = torch.randint(0, 256, (2, 4, 4, 3), dtype=torch.uint8, device=device)
+    draws = AugDraws.sample(StepRNG(0, 0, device), 2)
+    before = augment_normalize_u8.launches
+    with pytest.raises(ValueError):
+        augment_normalize_u8(x[:, ::2], draws)  # not contiguous
+    with pytest.raises(ValueError):
+        augment_normalize_u8(x[:0], draws)  # empty
+    with pytest.raises(TypeError):
+        augment_normalize_u8(x.float(), draws)
+    with pytest.raises(ValueError):
+        augment_normalize_u8(torch.cat([x, x]), draws)  # batch of 4, draws of 2
+    cpu_draws = AugDraws(*(getattr(draws, f).cpu() for f in (
+        "flip", "apply", "brightness", "contrast", "saturation", "hue")))
+    with pytest.raises(ValueError):
+        augment_normalize_u8(x, cpu_draws)  # draws on another device
+    assert augment_normalize_u8.launches == before
+
+
+def test_fused_pass_makes_no_host_sync(device):
+    """The draws are read on the card: no .item(), .cpu() or pageable copy
+    (torch raises on any synchronizing call in this mode)."""
+    x = torch.randint(0, 256, (4, 24, 24, 3), dtype=torch.uint8, device=device)
+    draws = AugDraws.sample(StepRNG(0, 0, device), 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = device_preprocess(x, draws, flip=True, color_jitter=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
 
 
 def test_device_cache_batches_are_a_function_of_seed_and_step(device):

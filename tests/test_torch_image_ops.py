@@ -11,10 +11,11 @@ Bars: normalize 1e-5 in fp32 and 1e-2 in bf16 (one bf16 rounding of
 values up to 2.7); flip exact; jitter, hue and the whole of
 ``device_preprocess`` 1e-4 absolute on the normalized output (about 6e-3
 on the 0-255 scale).  The readings (``python tests/test_torch_image_ops.py``
-prints them): normalize 4.8e-7 apart in fp32, the hue rotation 0.0 and
-the colour jitter 1.5e-4 on the 0-255 scale, ``device_preprocess`` with
-flip and jitter 2.6e-6 on the normalized output, the HSV round trip
-2.4e-7 on the 0-1 scale."""
+prints them): normalize 4.8e-7 apart in fp32, the hue rotation 1.1e-4
+and the colour jitter 1.6e-4 on the 0-255 scale, ``device_preprocess``
+with flip and jitter 2.9e-6 on the normalized output, the HSV round trip
+6.0e-7 on the 0-1 scale (the port divides by 255 and 6 as a product with
+the fp32 reciprocal, as eager PyTorch does on the card; JAX divides)."""
 
 import numpy as np
 import pytest
@@ -29,7 +30,11 @@ from clip_lite_tpu.ops.pallas_kernels import normalize_u8 as jnormalize_u8
 from clip_lite_torch.data import transforms
 from clip_lite_torch.ops import image_ops
 from clip_lite_torch.ops.image_ops import AugDraws
-from clip_lite_torch.ops.normalize import normalize_reference, normalize_u8
+from clip_lite_torch.ops.normalize import (
+    augment_normalize_u8,
+    normalize_reference,
+    normalize_u8,
+)
 
 NORM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -191,6 +196,34 @@ def test_device_preprocess_without_draws_normalizes_only():
         image_ops.device_preprocess(imgs, None, flip=True,
                                     color_jitter=True).numpy(),
         normalize_reference(imgs).numpy())
+
+
+def test_random_color_jitter_given_its_own_means_is_bit_identical():
+    """The ``mean`` argument (which lets a test give the twin and K3's
+    fused pass the same contrast means) changes nothing when it holds the
+    means the twin computes itself."""
+    imgs = torch.from_numpy(_u8(12, (16, 9, 7, 3)))
+    draws = jax_aug_draws(jax.random.PRNGKey(3), 16)
+    means = (imgs.float() * draws.brightness.view(-1, 1, 1, 1)).mean(
+        dim=(1, 2, 3))
+    assert torch.equal(image_ops.random_color_jitter(imgs, draws, means),
+                       image_ops.random_color_jitter(imgs, draws))
+
+
+@pytest.mark.parametrize("with_draws", [True, False],
+                         ids=["draws", "no-draws"])
+def test_device_preprocess_on_cpu_launches_no_kernel(with_draws):
+    """CPU tensors take the plain composition: neither K3 entry point
+    counts a launch."""
+    imgs = torch.from_numpy(_u8(31, (4, 6, 5, 3)))
+    draws = jax_aug_draws(jax.random.PRNGKey(1), 4) if with_draws else None
+    before = normalize_u8.launches, augment_normalize_u8.launches
+    got = image_ops.device_preprocess(imgs, draws, flip=True,
+                                      color_jitter=True)
+    assert (normalize_u8.launches, augment_normalize_u8.launches) == before
+    want = (image_ops.augment_reference(imgs, draws) if with_draws
+            else normalize_reference(imgs))
+    assert torch.equal(got, want)
 
 
 def test_aug_draws_laws():

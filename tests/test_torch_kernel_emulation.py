@@ -3,15 +3,14 @@ plain twins.
 
 Only the card runs the kernels for real (tests/test_torch_cuda.py,
 chip_smoke.py).  This file checks their index math on the CPU: g++
-compiles ``clip_lite_torch/ops/csrc/attention_{fwd,bwd}.cu`` with three
-textual substitutions, against headers (below) that emulate on the host
-the CUDA the kernels use.  One block runs at a time, one ``std::thread``
-per CUDA thread; ``__syncthreads`` and ``__syncwarp`` are barriers;
-``__shfl_xor_sync``, ``ldmatrix`` and ``mma.sync`` are warp collectives
-that follow the PTX ISA's fragment layouts.  The substitutions:
+compiles ``clip_lite_torch/ops/csrc/attention_{fwd,bwd}.cu`` against the
+emulated CUDA of ``tests/cuda_emulation.py`` (one thread per CUDA thread,
+barriers for ``__syncthreads`` and ``__syncwarp``, warp collectives for
+``__shfl_xor_sync``), with three textual substitutions:
 
-- the bodies of ``mma.cuh``'s inline-PTX helpers become the emulated
-  collectives;
+- the bodies of ``mma.cuh``'s inline-PTX helpers become emulated
+  collectives that follow the PTX ISA's fragment layouts (``ldmatrix``,
+  ``mma.sync``);
 - each ``extern __shared__`` array becomes a pointer to the emulated
   block's memory;
 - each ``kernel<<<grid, block, smem, stream>>>(args)`` becomes
@@ -25,11 +24,16 @@ g++ with C++20's ``<barrier>`` is missing.
 import ctypes
 import re
 import shutil
-import subprocess
 from pathlib import Path
 
 import pytest
 import torch
+from cuda_emulation import (
+    CSRC,
+    emulation_dir,
+    gxx,
+    rewrite_launches,
+)
 
 from clip_lite_torch.ops.attention import (
     MASK_VALUE,
@@ -40,142 +44,11 @@ from clip_lite_torch.ops.attention import (
     philox_keep_mask,
 )
 
-CSRC = Path(__file__).resolve().parents[1] / "clip_lite_torch" / "ops" / "csrc"
 # As on the card (tests/test_torch_cuda.py): bf16 may flip one rounding
 # where the fp32 sums' order differs; dbias is fp32 on both sides.
 TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5),
         torch.bfloat16: dict(rtol=1.6e-2, atol=1e-2)}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-CUDA_RUNTIME_H = r"""
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cstdint>
-#include <cstring>
-#include <math.h>
-#include <stdint.h>
-#include <thread>
-#include <vector>
-
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __shared__
-#define __align__(n)
-#define __launch_bounds__(...)
-
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct uint4 { unsigned x, y, z, w; };
-inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
-  return {a, b, c, d};
-}
-
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaErrorMisalignedAddress = 716 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-template <typename F>
-inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
-inline cudaError_t cudaGetLastError() { return 0; }
-inline const char* cudaGetErrorString(cudaError_t e) {
-  return e ? "emulated error" : "no error";
-}
-
-inline thread_local dim3 threadIdx;
-inline thread_local dim3 blockIdx;
-inline dim3 gridDim, blockDim;
-alignas(16) inline unsigned char emu_smem[256 * 1024];
-
-// One warp's exchange slots for the collectives.
-struct Warp {
-  std::barrier<>* bar;
-  const void* ptr[32];
-  float f[32];
-  uint32_t a[32][4];
-  uint32_t b[32][2];
-};
-inline Warp* emu_warps;
-inline std::barrier<>* emu_block_bar;
-
-inline Warp& my_warp() { return emu_warps[threadIdx.x / 32]; }
-inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { my_warp().bar->arrive_and_wait(); }
-
-inline float __shfl_xor_sync(unsigned, float v, int o) {
-  Warp& w = my_warp();
-  const int lane = threadIdx.x % 32;
-  w.f[lane] = v;
-  w.bar->arrive_and_wait();
-  const float r = w.f[lane ^ o];
-  w.bar->arrive_and_wait();
-  return r;
-}
-
-inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
-
-template <typename... KArgs, typename... Args>
-void emu_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t, void*,
-                Args... args) {
-  gridDim = grid;
-  blockDim = block;
-  const int n = block.x;
-  const int nw = (n + 31) / 32;
-  for (unsigned by = 0; by < grid.y; ++by) {
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> block_bar(n);
-      std::vector<Warp> warps(nw);
-      for (int w = 0; w < nw; ++w) {
-        warps[w].bar = new std::barrier<>(std::min(32, n - 32 * w));
-      }
-      emu_warps = warps.data();
-      emu_block_bar = &block_bar;
-      std::vector<std::thread> threads;
-      for (int t = 0; t < n; ++t) {
-        threads.emplace_back([=]() {
-          threadIdx = dim3(t);
-          blockIdx = dim3(bx, by);
-          kernel(args...);
-        });
-      }
-      for (auto& th : threads) th.join();
-      for (auto& w : warps) delete w.bar;
-    }
-  }
-}
-"""
-
-CUDA_BF16_H = r"""
-#pragma once
-#include <cstdint>
-#include <cstring>
-
-struct __nv_bfloat16 { uint16_t x; };
-struct __nv_bfloat162 { __nv_bfloat16 x, y; };
-
-// Round to nearest even, as the card's __float2bfloat16_rn.
-inline __nv_bfloat16 __float2bfloat16_rn(float f) {
-  uint32_t u;
-  std::memcpy(&u, &f, 4);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)((u >> 16) | 0x40)};
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return {(uint16_t)(u >> 16)};
-}
-inline float __bfloat162float(__nv_bfloat16 b) {
-  const uint32_t u = (uint32_t)b.x << 16;
-  float f;
-  std::memcpy(&f, &u, 4);
-  return f;
-}
-inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
-  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
-}
-"""
 
 # The inline-PTX helpers of mma.cuh, emulated.  ldmatrix: lanes 8m..8m+7
 # give the rows of matrix m; lane (g, t) = (lane / 4, lane % 4) receives
@@ -247,45 +120,29 @@ def _replace_body(src: str, name: str, body: str) -> str:
 
 
 def _emulated_sources(out: Path) -> None:
-    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
-    (out / "cuda_bf16.h").write_text(CUDA_BF16_H)
     mma = (CSRC / "mma.cuh").read_text()
     for name, body in PTX_BODIES.items():
         mma = _replace_body(mma, name, body)
     (out / "mma.cuh").write_text(mma)
     shutil.copy(CSRC / "attention_common.cuh", out)
+    smem = {"extern __shared__ __align__(16) unsigned char smem_raw[];":
+            "unsigned char* smem_raw = emu_block_smem();",
+            "extern __shared__ float smem[];":
+            "float* smem = (float*)emu_block_smem();"}
     for name in ("attention_fwd", "attention_bwd"):
         src = (CSRC / f"{name}.cu").read_text()
-        src = src.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
-                          "unsigned char* smem_raw = emu_smem;")
-        src = src.replace("extern __shared__ float smem[];",
-                          "float* smem = (float*)emu_smem;")
-        src, n = re.subn(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ",
-                         src, flags=re.S)
-        assert n >= 1, f"no launch found in {name}.cu"
-        (out / f"{name}.cu").write_text(src)
-
-
-def _gxx(out: Path, src: Path, target: Path) -> subprocess.CompletedProcess:
-    return subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-w",
-         "-I", str(out), "-x", "c++", str(src), "-o", str(target)],
-        capture_output=True, text=True)
+        for old, new in smem.items():
+            src = src.replace(old, new)
+        (out / f"{name}.cu").write_text(rewrite_launches(src, f"{name}.cu"))
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++")
-    out = tmp_path_factory.mktemp("cuda_emu")
-    probe = out / "probe.cc"
-    probe.write_text("#include <barrier>\nstd::barrier<> b(1);\n")
-    if _gxx(out, probe, out / "libprobe.so").returncode:
-        pytest.skip("needs g++ with C++20's <barrier>")
+    out = emulation_dir(tmp_path_factory)
     _emulated_sources(out)
     loaded = {}
     for name in ("attention_fwd", "attention_bwd"):
-        r = _gxx(out, out / f"{name}.cu", out / f"lib{name}.so")
+        r = gxx(out, out / f"{name}.cu", out / f"lib{name}.so")
         assert r.returncode == 0, r.stderr[-4000:]
         loaded[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
     drop = [ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint64,
