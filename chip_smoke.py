@@ -50,6 +50,26 @@ caught:
    memory; each step's line also holds the host time until the step was
    enqueued (``enqueue_seconds``), near the whole step when the host, not
    the card, sets the pace.
+6b. Checkpoints (the JAX package's msgpack format), the flagship as in
+   phase 6 with dropout 0.1, cuDNN's deterministic algorithms on:
+   (a) 10 steps through train_loop with a CheckpointManager
+   (checkpoint_every 5: a val sweep of one batch, then an asynchronous
+   checkpoint; climax_freq 1; keep_recent 1); every save logged with its
+   bytes, the seconds it held the loop and until it was written, each
+   step with whether a write was in flight; a save with none in flight
+   must return within a tenth of its write; a sync save of the final
+   state equals the async checkpoint_10 bit for bit.  (b) A fresh state
+   resumes from checkpoint_5 and runs steps 6-10; (c) the same 10 steps
+   with no checkpoints: after step 10 the resumed run's parameters,
+   BatchNorm statistics, trace and slow weights lie no further from (a)'s
+   than (c)'s do, and the counters agree.  (d) EncoderBundle from the
+   final checkpoint encodes one batch of images and captions exactly as
+   one built from (a)'s live state_dict, K1 launched 12 times each.  (e)
+   The uint8 path (fs_tpu_tuned + DATA.DEVICE_CACHE, 512 tiles): 3 steps
+   with a checkpoint after step 2, then a fresh state resumed there: its
+   step 3 sees the same cache batch and the same augmented images (K3's
+   fused pass) bit for bit.  Launch counts set to 0 just before each run
+   and read just after.
 7. Training parity on the card: from one state, one step with
    FUSED_ATTENTION true (K1/K2) and one with false (plain attention),
    dropout 0, at batch 32 (to keep the phase short): loss, grad norm and
@@ -117,6 +137,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -796,7 +817,7 @@ def phase_training(overrides=(), name: str = "training") -> dict:
     t0 = time.perf_counter()
     state = train_loop(state, checked_step, iter(batches), TRAIN_STEPS,
                        log_every=TRAIN_STEPS, eval_step=recorded_eval,
-                       val_batches=val_batches, val_every=TRAIN_STEPS)
+                       val_batches=val_batches, checkpoint_every=TRAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"attention_fwd": fused_short_attention.launches,
@@ -1122,24 +1143,25 @@ def phase_normalize() -> dict:
     return result
 
 
-def synthetic_corpus(cfg, rng: np.random.Generator):
-    """A decoded corpus the size of COCO train2017: N_CORPUS uint8 tiles
-    filled on the card from a seeded generator, N_CAPS captions an item
-    of 8-20 real tokens (ids drawn with numpy), as DecodedCorpus."""
+def synthetic_corpus(cfg, rng: np.random.Generator, n: int = N_CORPUS):
+    """A decoded corpus of ``n`` items, by default the size of COCO
+    train2017: uint8 tiles filled on the card from a seeded generator,
+    N_CAPS captions an item of 8-20 real tokens (ids drawn with numpy), as
+    DecodedCorpus."""
     from clip_lite_torch.data.device_cache import DecodedCorpus
 
-    images = torch.empty((N_CORPUS, CACHE_SIZE, CACHE_SIZE, 3),
+    images = torch.empty((n, CACHE_SIZE, CACHE_SIZE, 3),
                          dtype=torch.uint8, device="cuda")
     images.random_(0, 256, generator=torch.Generator(device="cuda").manual_seed(5))
     seq = cfg.DATA.MAX_CAPTION_LENGTH
     lengths = rng.integers(CAPTION_TOKENS[0], CAPTION_TOKENS[1] + 1,
-                           (N_CORPUS, N_CAPS))
+                           (n, N_CAPS))
     mask = (np.arange(seq) < lengths[..., None]).astype(np.int32)
     ids = rng.integers(1, cfg.MODEL.TEXTUAL.VOCAB_SIZE,
-                       (N_CORPUS, N_CAPS, seq)).astype(np.int32) * mask
+                       (n, N_CAPS, seq)).astype(np.int32) * mask
     return DecodedCorpus(images, list(ids), list(mask),
-                         np.full(N_CORPUS, N_CAPS, np.int32),
-                         np.arange(N_CORPUS, dtype=np.int64))
+                         np.full(n, N_CAPS, np.int32),
+                         np.arange(n, dtype=np.int64))
 
 
 def attention_times_at(s: int) -> dict:
@@ -1248,7 +1270,7 @@ def phase_uint8_training(float_step: dict) -> dict:
     t0 = time.perf_counter()
     state = train_loop(state, checked_step, iter(cache), TRAIN_STEPS,
                        log_every=TRAIN_STEPS, eval_step=recorded_eval,
-                       val_batches=val_batches, val_every=TRAIN_STEPS)
+                       val_batches=val_batches, checkpoint_every=TRAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"normalize": normalize_u8.launches,
@@ -1309,6 +1331,343 @@ def phase_uint8_training(float_step: dict) -> dict:
                 enqueue_s=enqueue, peak_mib=peak_mb,
                 attention_s20=attention_times_at(seq))
 
+def state_tensors(state) -> dict:
+    """Copies of every tensor of a train state: parameters, BatchNorm
+    statistics, the optimizer's trace and slow weights."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for attr in ("trace", "slow"):
+        out.update({f"{attr}.{k}": v.clone()
+                    for k, v in state.optimizer._by_name(attr).items()})
+    return out
+
+
+def distance(a: dict, b: dict) -> float:
+    """The largest |a - b| over every element of two state_tensors."""
+    if set(a) != set(b):
+        raise AssertionError("the two states hold other tensors")
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def phase_checkpoint() -> dict:
+    """Checkpoints on the card: the flagship at full width and depth, AMP
+    bf16, batch 128, in a temporary directory deleted at the end.
+    (a) 10 steps through train_loop, checkpoint_every 5 (a val sweep of one
+    batch, then a checkpoint), climax_freq 1, keep_recent 1, asynchronous
+    writes; then a sync save of the same state, bit for bit the async one;
+    (b) a fresh state resumed from checkpoint_5 runs steps 6-10 on the same
+    batches; (c) the same 10 steps with no checkpoints; (d) EncoderBundle
+    from the final checkpoint against one from (a)'s live state_dict; (e)
+    the uint8 path (fs_tpu_tuned + DATA.DEVICE_CACHE, 512 tiles) resumed
+    after step 2, whose step 3 must see the uninterrupted batch."""
+    import os
+    import shutil
+    import tempfile
+
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.device_cache import DeviceDataCache
+    from clip_lite_torch.data.tokenizers import HashingTokenizer
+    from clip_lite_torch.engine import (
+        create_train_state, make_eval_step, make_train_step, metrics_to_floats)
+    from clip_lite_torch.eval_utils import EncoderBundle
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+    from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
+    from clip_lite_torch.train import train_loop
+    from clip_lite_torch.utils.checkpointing import (
+        CheckpointManager, peek_iteration)
+
+    kernels = {"attention_fwd": fused_short_attention,
+               "attention_bwd": attention_backward,
+               "normalize": normalize_u8,
+               "augment_normalize": augment_normalize_u8}
+    launches = {}
+
+    def counted(name: str, fn, **want):
+        """Run ``fn`` with every launch count set to 0 just before and read
+        just after into ``launches[name]``, which must equal ``want``
+        (kernels not named: 0)."""
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = launches[name] = {n: k.launches for n, k in kernels.items()}
+        log(f"checkpoint ({name}): launches {got}")
+        if got != dict(dict.fromkeys(kernels, 0), **want):
+            raise AssertionError(f"({name}) launches {got}, expected {want}")
+        return out
+
+    def loop(name, cfg, state, source, steps, manager=None, **kw):
+        """train_loop with each step timed between syncs of the training
+        stream (not of the checkpoints' side stream), noting whether a
+        write was in flight as it began; returns the state, the records
+        and the last batch."""
+        train_step, records, last = make_train_step(cfg), [], {}
+
+        def step(st, batch):
+            torch.cuda.current_stream().synchronize()
+            rec = dict(step=st.step + 1, during_write=bool(
+                manager is not None and manager.in_flight))
+            start = time.perf_counter()
+            st, metrics = train_step(st, batch)
+            values = metrics_to_floats(metrics)  # syncs the training stream
+            rec["seconds"] = time.perf_counter() - start
+            records.append(rec)
+            last["batch"] = batch
+            if not math.isfinite(values["total_loss"]):
+                raise AssertionError(f"({name}) step {st.step}: {values}")
+            return st, metrics
+
+        state = train_loop(state, step, source, steps, log_every=10 ** 6,
+                           manager=manager, **kw)
+        return state, records, last["batch"]
+
+    # Bit for bit between runs: deterministic algorithms.  By default the
+    # token-type embedding's gradient (all 3,840 indices 0) sums in another
+    # order from run to run on the card, one ulp apart; the deterministic
+    # mode has an implementation of every op of the step (no warning).
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            cfg = Config(str(FLAGSHIP), [])
+            n_layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+            rng = np.random.default_rng(11)
+            tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE,
+                                   cfg.DATA.MAX_CAPTION_LENGTH)
+            crop = cfg.DATA.IMAGE_CROP_SIZE
+            batches = [training_batch(rng, tok, BATCH, crop)
+                       for _ in range(TRAIN_STEPS)]
+            val_batches = [training_batch(rng, tok, BATCH, crop)]
+            cadence = dict(eval_step=make_eval_step(cfg), val_batches=val_batches,
+                           checkpoint_every=5, climax_freq=1)
+
+            # (a) The uninterrupted run with checkpoints.
+            dir_a = os.path.join(root, "a")
+            kept5 = os.path.join(root, "checkpoint_5.msgpack")
+            state = create_train_state(cfg, device="cuda")
+            t0 = time.perf_counter()
+            manager = CheckpointManager(dir_a, keep_recent=1, state=state)
+            log(f"checkpoint: the manager (its device and pinned buffers) built "
+                f"in {time.perf_counter() - t0} s")
+            if not manager.async_writes:
+                raise AssertionError("a CUDA state's manager writes "
+                                     "synchronously")
+            saves = []
+            real = {"step": manager.step, "climax": manager.climax_step}
+
+            def timed_save(kind):
+                def save(iteration, *args, **kwargs):
+                    rec = dict(kind=kind, iteration=iteration,
+                               waited_for_a_write=manager.in_flight,
+                               start=time.perf_counter())
+                    path = real[kind](iteration, *args, **kwargs)
+                    rec.update(path=os.path.basename(path),
+                               blocked_s=time.perf_counter() - rec["start"])
+                    saves.append(rec)
+                    if kind == "step" and iteration == 5:
+                        # keep_recent 1 rotates checkpoint_5 away at step 10; (b)
+                        # resumes from a link to it, made once it is written.
+                        manager._pending.add_done_callback(
+                            lambda _: os.link(path, kept5))
+                    return path
+                return save
+
+            manager.step, manager.climax_step = timed_save("step"), \
+                timed_save("climax")
+            t0 = time.perf_counter()
+            state, steps_a, _ = counted(
+                "a", lambda: loop("a", cfg, state, iter(batches), TRAIN_STEPS,
+                                  manager, **cadence),
+                attention_fwd=n_layers * (TRAIN_STEPS + 2),
+                attention_bwd=n_layers * TRAIN_STEPS)
+            wall = time.perf_counter() - t0
+            for rec in saves:
+                w = next(x for x in manager.written if x["done"] > rec["start"]
+                         and os.path.basename(x["path"]) == rec["path"])
+                rec.update(bytes=w["bytes"], host_s=w["host_s"],
+                           write_s=w["write_s"],
+                           until_written_s=w["done"] - rec.pop("start"))
+                log(f"checkpoint (a) save: {json.dumps(rec)}")
+            files = sorted(os.listdir(dir_a))
+            log(f"checkpoint (a): 10 steps in {wall} s, files left {files}; "
+                f"steps {json.dumps(steps_a)}")
+            if [r["path"] for r in saves] != [
+                    "checkpoint_5.msgpack", "climax_model_9.msgpack",
+                    "checkpoint_10.msgpack", "climax_model_10.msgpack",
+                    "checkpoint_10.msgpack"] or files != [
+                    "checkpoint_10.msgpack", "checkpoint_best.msgpack",
+                    "climax_model_10.msgpack", "climax_model_9.msgpack"]:
+                raise AssertionError(f"saves {saves}, files left {files}")
+            free = [r for r in saves if not r["waited_for_a_write"]]
+            if not free or any(r["blocked_s"] >= r["until_written_s"] / 10
+                               for r in free):
+                raise AssertionError("an asynchronous save with none in flight "
+                                     "held the loop for a tenth of its write")
+            final_a = state_tensors(state)
+            counters_a = (state.step, state.optimizer.count,
+                          state.optimizer.la_count)
+            live_sd = {k: v.detach().clone()
+                       for k, v in state.model.state_dict().items()}
+            t0 = time.perf_counter()
+            sync_path = CheckpointManager(
+                os.path.join(root, "sync"), async_writes=False,
+                state=state).step(10)
+            sync_s = time.perf_counter() - t0
+            with open(sync_path, "rb") as f_sync, open(
+                    os.path.join(dir_a, "checkpoint_10.msgpack"), "rb") as f_a:
+                if f_sync.read() != f_a.read():
+                    raise AssertionError("the async checkpoint_10 differs from a "
+                                         "sync save of the same state")
+            log(f"checkpoint: a sync save of the state took {sync_s} s "
+                f"({os.path.getsize(sync_path)} bytes), bit for bit the async "
+                "checkpoint_10")
+            os.remove(sync_path)
+            del state, manager
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b) A fresh state resumed from checkpoint_5, steps 6-10.
+            state = create_train_state(cfg, device="cuda")
+            manager = CheckpointManager(os.path.join(root, "b"), keep_recent=1,
+                                        state=state)
+            t0 = time.perf_counter()
+            if peek_iteration(kept5) != 5 or manager.load(kept5) != 5:
+                raise AssertionError("checkpoint_5 holds another iteration")
+            load_s = time.perf_counter() - t0
+            log(f"checkpoint: loading checkpoint_5 ({os.path.getsize(kept5)} "
+                f"bytes) into a state on the card took {load_s} s")
+            state, _, _ = counted(
+                "b", lambda: loop("b", cfg, state, iter(batches[5:]), TRAIN_STEPS,
+                                  manager, resume_from=kept5, **cadence),
+                attention_fwd=n_layers * 6, attention_bwd=n_layers * 5)
+            final_b = state_tensors(state)
+            counters_b = (state.step, state.optimizer.count,
+                          state.optimizer.la_count)
+            del state, manager
+            gc.collect()
+            shutil.rmtree(os.path.join(root, "b"))
+            os.remove(kept5)
+
+            # (c) The same 10 steps, no checkpoints.
+            state = create_train_state(cfg, device="cuda")
+            state, steps_c, _ = counted(
+                "c", lambda: loop("c", cfg, state, iter(batches), TRAIN_STEPS),
+                attention_fwd=n_layers * TRAIN_STEPS,
+                attention_bwd=n_layers * TRAIN_STEPS)
+            final_c = state_tensors(state)
+            counters_c = (state.step, state.optimizer.count,
+                          state.optimizer.la_count)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            d_ab, d_ac, d_bc = (distance(final_a, final_b),
+                                distance(final_a, final_c),
+                                distance(final_b, final_c))
+            del final_a, final_b, final_c
+            log(f"checkpoint: after step 10, max |difference| over params, "
+                f"BatchNorm statistics, trace and slow: resumed (b) to (a) "
+                f"{d_ab}, second run (c) to (a) {d_ac}, (b) to (c) {d_bc}; "
+                f"(step, count, la_count) {counters_a} {counters_b} {counters_c}")
+            if not counters_a == counters_b == counters_c == (10, 10, 10):
+                raise AssertionError("the counters differ")
+            if d_ab > d_ac:
+                raise AssertionError("the resumed run lies further from (a) than "
+                                     "a second uninterrupted run")
+            quiet = [r["seconds"] for r in steps_c[2:]]
+            during = [r for r in steps_a if r["during_write"]]
+            log(f"checkpoint: steps that began during a write "
+                f"{json.dumps(during)};"
+                f" (c)'s steps 3-10, no writes: {min(quiet)}-{max(quiet)} s, "
+                f"median {statistics.median(quiet)}")
+
+            # (d) EncoderBundle from the final checkpoint against the live model.
+            images = val_batches[0]["image"]
+            texts = captions(np.random.default_rng(12), BATCH)
+            t0 = time.perf_counter()
+            from_file = EncoderBundle(cfg, os.path.join(
+                dir_a, "checkpoint_10.msgpack"), batch_size=BATCH, device="cuda")
+            bundle_s = time.perf_counter() - t0
+            live = EncoderBundle(cfg, batch_size=BATCH, state_dict=live_sd,
+                                 device="cuda")
+            del live_sd
+            out = {}
+            for name, bundle in (("d_file", from_file), ("d_live", live)):
+                bundle.encode_images(images[:8])  # warm-up, not counted
+                out[name] = counted(name, lambda: (
+                    bundle.encode_images(images),
+                    bundle.encode_texts(texts, tok)),
+                    attention_fwd=n_layers)
+            log(f"checkpoint (d): EncoderBundle from checkpoint_10 built in "
+                f"{bundle_s} s; embeddings {out['d_file'][0].shape} "
+                f"{out['d_file'][1].shape}")
+            for a, b in zip(out["d_file"], out["d_live"]):
+                if not (np.isfinite(a).all() and np.array_equal(a, b)):
+                    raise AssertionError("the bundle from the checkpoint encodes "
+                                         "otherwise than the live model")
+            del from_file, live, out
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (e) The uint8 path, resumed after step 2.
+            cfg_u8 = Config(str(TUNED), ["DATA.DEVICE_CACHE", True])
+            cache = DeviceDataCache(
+                synthetic_corpus(cfg_u8, np.random.default_rng(13), n=512),
+                BATCH,
+                cache_size=cfg_u8.DATA.CACHE_IMAGE_SIZE,
+                crop_size=cfg_u8.DATA.IMAGE_CROP_SIZE,
+                seq_buckets=cfg_u8.DATA.SEQ_BUCKETS, seed=cfg_u8.RANDOM_SEED,
+                device="cuda")
+            dir_e = os.path.join(root, "e")
+            seen = {}
+            after_2 = os.path.join(dir_e, "checkpoint_2.msgpack")
+            for name, resume in (("e", None), ("e_resumed", after_2)):
+                state = create_train_state(cfg_u8, device="cuda")
+                inputs = []
+                hook = state.model.image_encoder.register_forward_pre_hook(
+                    lambda module, args: inputs.append(args[0].detach().clone()))
+                manager = CheckpointManager(dir_e, keep_recent=2, state=state)
+                cache.set_start(0)
+                want = dict(attention_fwd=n_layers, attention_bwd=n_layers,
+                            augment_normalize=1)
+                if resume is None:
+                    want = {k: 3 * v for k, v in want.items()}
+                state, _, batch = counted(name, lambda: loop(
+                    name, cfg_u8, state, cache, 3, manager, checkpoint_every=2,
+                    resume_from=resume), **want)
+                hook.remove()
+                seen[name] = (batch, inputs[-1], state_tensors(state))
+                del state, manager, inputs
+                gc.collect()
+            (b1, x1, s1), (b2, x2, s2) = seen["e"], seen["e_resumed"]
+            same_batch = all(torch.equal(b1[k], b2[k]) for k in b1)
+            same_input = torch.equal(x1, x2)
+            log(f"checkpoint (e): uint8 step 3 after a resume at step 2: the "
+                f"cache "
+                f"batch equal {same_batch}, the augmented images the model saw "
+                f"equal {same_input}; the state after step 3 at max |difference| "
+                f"{distance(s1, s2)} from the uninterrupted run's")
+            if not (same_batch and same_input):
+                raise AssertionError("the resumed uint8 step saw another batch")
+            del cache, seen
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        torch.backends.cudnn.benchmark = flags[2]
+    nondeterministic = sorted({str(w.message) for w in warned
+                               if "deterministic" in str(w.message)})
+    log(f"checkpoint: ops with no deterministic implementation: "
+        f"{nondeterministic or 'none'}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, sync_save_s=sync_s, load_s=load_s,
+                bundle_s=bundle_s, distances=(d_ab, d_ac))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1327,6 +1686,7 @@ def main() -> int:
     inference = phase_main_path()
     attn = phase_attention_training()
     training = phase_training()
+    ckpt = phase_checkpoint()
     phase_training_parity()
     full = phase_attention_training(full_bias=True)
     mpnet_inference = phase_main_path(MPNET, "MPNet inference")
@@ -1339,14 +1699,24 @@ def main() -> int:
     phase_training_parity(MPNET, name="MPNet training parity")
     norm = phase_normalize()
     uint8 = phase_uint8_training(training)
+    # phase_checkpoint's runs: (a) train with checkpoints, (b) resumed, (c)
+    # again without, (d) the two bundles' encodes, (e) uint8 and resumed.
+    by_run = {f"checkpoint_{run}": n for run, n in ckpt["launches"].items()}
     k1_launches = {"inference": inference["attention_fwd"],
                    "training": training["launches"]["attention_fwd"],
                    "mpnet_inference": mpnet_inference["attention_fwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_fwd"],
-                   "uint8_training": uint8["launches"]["attention_fwd"]}
+                   "uint8_training": uint8["launches"]["attention_fwd"],
+                   **{k: n["attention_fwd"] for k, n in by_run.items()}}
     k2_launches = {"training": training["launches"]["attention_bwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
-                   "uint8_training": uint8["launches"]["attention_bwd"]}
+                   "uint8_training": uint8["launches"]["attention_bwd"],
+                   **{k: n["attention_bwd"] for k, n in by_run.items()
+                      if n["attention_bwd"]}}
+    k3_fused_launches = {
+        "uint8_training": uint8["launches"]["augment_normalize"],
+        **{k: n["augment_normalize"] for k, n in by_run.items()
+           if n["augment_normalize"]}}
     s20 = uint8["attention_s20"]
     timed = ("ms", "ms_device", "ms_cuda_core", "ms_cuda_core_device",
              "library_ms", "library_ms_device")
@@ -1393,9 +1763,8 @@ def main() -> int:
         dict(name="augment_normalize_u8 (K3, fused)", route="cuda",
              source="clip_lite_torch/ops/csrc/normalize.cu",
              replaces="clip_lite_tpu/ops/pallas_kernels.py:30",
-             launches=uint8["launches"]["augment_normalize"],
-             launches_by_path={
-                 "uint8_training": uint8["launches"]["augment_normalize"]},
+             launches=sum(k3_fused_launches.values()),
+             launches_by_path=k3_fused_launches,
              **norm["fused"],
              device_preprocess_ms=norm["device_preprocess_ms"]),
     ]

@@ -1,4 +1,5 @@
-"""Weight bridge: a flax ``{params, batch_stats}`` tree -> a port state_dict.
+"""Weight bridge between a flax ``{params, batch_stats}`` tree and a port
+state_dict, both ways.
 
 The tree arrives as nested dicts of numpy arrays (``jax.device_get`` of
 the variables, or a decoded checkpoint), so this module imports neither
@@ -20,11 +21,16 @@ used exactly once and every port key filled, with matching shapes.
 :func:`jax_path` goes the other way for one key: the JAX package's dotted
 path of a port parameter, so that a path regex written for the JAX
 package (``OPTIM.NO_DECAY``) selects the same parameters in the port.
+:func:`to_jax_variables` inverts :func:`convert` for a whole state_dict,
+wrapper levels and kernel layouts included; :func:`to_jax_params` and
+:func:`from_jax_params` do the same for tensors keyed by parameter name
+alone (the optimizer's per-parameter buffers, which follow the params
+tree in the JAX package).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +65,19 @@ def _leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
 def convert(variables: dict, module: nn.Module) -> Dict[str, torch.Tensor]:
     """Map ``variables`` onto the state_dict of ``module`` (which may live
     on the ``meta`` device: only its keys and shapes are read)."""
-    expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    return _convert(variables, {k: tuple(v.shape)
+                                for k, v in module.state_dict().items()})
+
+
+def from_jax_params(params: dict, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A tree that follows the JAX params tree (an optimizer's ``trace``,
+    ``nu`` or ``slow_params``) as tensors keyed by the parameter names of
+    ``module``."""
+    return _convert({"params": params}, {k: tuple(p.shape)
+                                         for k, p in module.named_parameters()})
+
+
+def _convert(variables: dict, expected: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
     extra = set(variables) - set(_COLLECTIONS)
     if extra:
         raise KeyError(f"unknown variable collections {sorted(extra)}")
@@ -88,13 +106,69 @@ def convert(variables: dict, module: nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
-def jax_path(module: nn.Module, key: str) -> str:
+def jax_layout(leaf: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the JAX leaf named ``leaf`` holds it, a view: a Dense
+    ``kernel`` (in, out), a conv ``kernel`` HWIO; other leaves as they
+    are."""
+    if leaf != "kernel":
+        return t
+    return t.t() if t.ndim == 2 else t.permute(2, 3, 1, 0)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A C-order numpy copy of ``t`` on the host, whatever its device and
+    strides (CUDA convs are ``channels_last``)."""
+    return t.detach().contiguous().cpu().numpy()
+
+
+def to_jax_params(tensors: Dict[str, torch.Tensor], module: nn.Module,
+                  leaf: Callable[[torch.Tensor], object] = to_numpy) -> dict:
+    """Tensors keyed by state_dict keys of ``module`` as a nested dict by
+    their JAX paths, each in the JAX layout and passed through ``leaf``
+    (by default a C-order numpy copy)."""
+    items, modules = [], dict(module.named_modules())
+    for key, t in tensors.items():
+        path = jax_path(module, key, modules).split(".")
+        items.append((path, leaf(jax_layout(path[-1], t))))
+    return _nest(items)
+
+
+def to_jax_variables(state_dict: Dict[str, torch.Tensor], module: nn.Module,
+                     leaf: Callable[[torch.Tensor], object] = to_numpy) -> dict:
+    """The inverse of :func:`convert`: the JAX package's ``{params,
+    batch_stats}`` of ``module``'s ``state_dict``."""
+    params = {k for k, _ in module.named_parameters()}
+    return {"params": to_jax_params(
+                {k: t for k, t in state_dict.items() if k in params}, module,
+                leaf),
+            "batch_stats": to_jax_params(
+                {k: t for k, t in state_dict.items() if k not in params},
+                module, leaf)}
+
+
+def _nest(items: Iterable[Tuple[list, object]]) -> dict:
+    tree: dict = {}
+    for path, value in items:
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        if path[-1] in node:
+            raise KeyError(f"{'.'.join(path)} filled twice")
+        node[path[-1]] = value
+    return tree
+
+
+def jax_path(module: nn.Module, key: str,
+             modules: Optional[Dict[str, nn.Module]] = None) -> str:
     """The JAX package's dotted path (``optim._path_str`` of its
-    parameter tree) of the state_dict key ``key`` of ``module``."""
+    parameter tree) of the state_dict key ``key`` of ``module``;
+    ``modules``, ``dict(module.named_modules())``, saves the lookups when
+    many keys are mapped."""
     *mods, leaf = key.split(".")
-    owner = module.get_submodule(".".join(mods))
+    get = modules.__getitem__ if modules is not None else module.get_submodule
+    owner = get(".".join(mods))
     if isinstance(owner, (BatchNorm, LayerNorm)) and not isinstance(
-            module.get_submodule(".".join(mods[:-1])), _FLAX_NORM_OWNERS):
+            get(".".join(mods[:-1])), _FLAX_NORM_OWNERS):
         mods.append(f"{type(owner).__name__}_0")
     if leaf == "weight":
         leaf = ("scale" if isinstance(owner, (BatchNorm, LayerNorm))

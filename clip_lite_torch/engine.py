@@ -19,6 +19,10 @@ uint8 host pipeline's) gets its augmentation on the device inside the
 step, as the JAX package's ``_maybe_device_preprocess`` gives it: flip,
 colour jitter and the normalize (K3) in training, the normalize alone in
 eval.
+
+:func:`to_jax_tree` and :func:`load_jax_tree` give and take the state as
+the JAX package's ``TrainState`` tree (``engine.py:35-41`` there),
+``{step, params, batch_stats, opt_state}``, what its checkpoints hold.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from clip_lite_torch import bridge
 from clip_lite_torch.config import Config
 from clip_lite_torch.eval_utils import resolve_device
 from clip_lite_torch.factories import OptimizerFactory, PretrainingModelFactory
@@ -93,6 +98,39 @@ def create_train_state(config: Config, device="cuda",
     model = model.to(device, memory_format=memory_format)
     return TrainState(step=0, model=model,
                       optimizer=OptimizerFactory.from_config(config, model))
+
+
+def to_jax_tree(state: TrainState) -> dict:
+    """The state as the JAX package's ``TrainState`` tree: ``step`` an int32
+    0-d array, ``params`` and ``batch_stats`` the flax variables,
+    ``opt_state`` the ``FusedOptState``.  Its tensors are views of the live
+    ones in the JAX layout (on the state's device, not necessarily
+    contiguous)."""
+    model = state.model
+
+    def view(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    return dict(
+        step=np.asarray(state.step, np.int32),
+        **bridge.to_jax_variables(model.state_dict(), model, view),
+        opt_state=state.optimizer.jax_state(
+            lambda tensors: bridge.to_jax_params(tensors, model, view)))
+
+
+@torch.no_grad()
+def load_jax_tree(state: TrainState, tree: dict) -> None:
+    """Copy the JAX package's ``TrainState`` tree into ``state``, in place
+    and on its device; raises unless every tensor is filled."""
+    extra = set(tree) - {"step", "params", "batch_stats", "opt_state"}
+    if extra:
+        raise KeyError(f"unknown TrainState fields {sorted(extra)}")
+    model = state.model
+    model.load_state_dict(bridge.convert(
+        {"params": tree["params"], "batch_stats": tree["batch_stats"]}, model))
+    state.optimizer.load_jax_state(
+        tree["opt_state"], lambda t: bridge.from_jax_params(t, model))
+    state.step = int(tree["step"])
 
 
 def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -186,5 +224,6 @@ def metrics_to_floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(names, np.asarray(values, np.float64).tolist()))
 
 
-__all__ = ["TrainState", "create_train_state", "make_train_step",
-           "make_eval_step", "metrics_to_floats"]
+__all__ = ["TrainState", "create_train_state", "load_jax_tree",
+           "make_train_step", "make_eval_step", "metrics_to_floats",
+           "to_jax_tree"]

@@ -4,7 +4,9 @@ ready for inference.
 The counterpart of the JAX package's ``eval_utils.py``.  Every eval
 (retrieval, zero-shot, VOC classification, bias EDA) encodes images and
 captions through :class:`EncoderBundle`: tower, projection head, then L2
-normalisation, in fixed-size batches with the tail padded.
+normalisation, in fixed-size batches with the tail padded.  The weights
+come from a checkpoint of either package (a full one or a climax
+snapshot), from a port state_dict, or are seeded.
 """
 
 from __future__ import annotations
@@ -32,19 +34,37 @@ def resolve_device(device) -> torch.device:
 class EncoderBundle:
     """Two-tower encoders + projectors on one device, in eval mode.
 
-    ``state_dict`` is a port state_dict (e.g. from
-    ``bridge.from_jax_variables``); without one the weights are random,
-    drawn from a generator seeded with ``config.RANDOM_SEED``.  Under
-    ``config.AMP`` the towers and heads compute in bfloat16 with fp32
-    parameters and fp32 normalization and softmax statistics.
+    The weights are ``checkpoint_path``'s (the JAX package's msgpack
+    format, a full checkpoint or a climax snapshot, written by either
+    package): its ``params`` and ``batch_stats``, the fast weights and not
+    the Lookahead slow ones, as the JAX package's evals take them.  Or
+    ``state_dict``'s, a port state_dict (e.g. from
+    ``bridge.from_jax_variables``); with neither, random weights drawn from
+    a generator seeded with ``config.RANDOM_SEED``.  ``project`` adds the
+    loss's projection heads after the towers and ``normalize`` the L2
+    normalisation, as in the JAX package.  Under ``config.AMP`` the towers
+    and heads compute in bfloat16 with fp32 parameters and fp32
+    normalization and softmax statistics.
     """
 
-    def __init__(self, config: Config, state_dict: Optional[dict] = None,
-                 batch_size: int = 128, device="cuda"):
+    def __init__(self, config: Config, checkpoint_path: Optional[str] = None,
+                 batch_size: int = 128, project: bool = True,
+                 normalize: bool = True, *, state_dict: Optional[dict] = None,
+                 device="cuda"):
         self.config = config
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        self.project, self.normalize = project, normalize
         model = PretrainingModelFactory.from_config(config)
+        if checkpoint_path is not None:
+            if state_dict is not None:
+                raise ValueError("pass checkpoint_path or state_dict, not both")
+            # Here, not at the top: checkpointing imports the engine, which
+            # imports this module.
+            from clip_lite_torch.bridge import convert
+            from clip_lite_torch.utils.checkpointing import load_model_variables
+
+            state_dict = convert(load_model_variables(checkpoint_path), model)
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(
                 config.RANDOM_SEED))
@@ -54,23 +74,39 @@ class EncoderBundle:
                          else torch.preserve_format)
         self.model = model.eval().to(self.device, memory_format=memory_format)
 
+    def _finish(self, feats: torch.Tensor, project: Callable) -> np.ndarray:
+        if self.project:
+            feats = project(feats)
+        if self.normalize:
+            feats = l2_normalize(feats)
+        return feats.float().cpu().numpy()
+
     @torch.inference_mode()
     def _img_fn(self, images: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-        feats = self.model.project_image(self.model.encode_image(
-            x.to(self.device)))
-        return l2_normalize(feats).cpu().numpy()
+        return self._finish(self.model.encode_image(x.to(self.device)),
+                            self.model.project_image)
 
     @torch.inference_mode()
     def _txt_fn(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         batch = {"input_ids": torch.from_numpy(ids).long().to(self.device),
                  "attention_mask": torch.from_numpy(mask).long().to(self.device)}
-        feats = self.model.project_text(self.model.encode_text(batch))
-        return l2_normalize(feats).cpu().numpy()
+        return self._finish(self.model.encode_text(batch),
+                            self.model.project_text)
 
     def encode_images(self, images: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) fp32 -> (N, D) fp32."""
         return _chunked(self._img_fn, self.batch_size, images)
+
+    def encode_image_batches(self, batch_iter) -> np.ndarray:
+        """The images of every batch of ``batch_iter`` (arrays, or dicts
+        with an ``image``), encoded and joined."""
+        outs = []
+        for batch in batch_iter:
+            img = batch["image"] if isinstance(batch, dict) else batch
+            outs.append(_chunked(self._img_fn, self.batch_size,
+                                 np.asarray(img)))
+        return np.concatenate(outs, axis=0)
 
     def encode_texts(self, texts: List[str], tokenizer) -> np.ndarray:
         """Captions -> (N, D) fp32, tokenized to DATA.MAX_CAPTION_LENGTH."""

@@ -20,11 +20,20 @@ tensor; the gradients in ``.grad`` are read and left as they are.  The
 clip scale stays a device tensor, so a step never waits on the device.
 The JAX package's hoisted-Lookahead and donation modes exist only to work
 around XLA and have no counterpart here.
+
+:meth:`FusedOptimizer.jax_state` and :meth:`~FusedOptimizer.load_jax_state`
+give and take the state in the layout of the JAX package's
+``FusedOptState`` (``optim/fused.py:34-39`` there), what its checkpoints
+hold for ``OPTIM.FUSED: true``: ``{trace, nu, slow_params, count,
+la_count}``, the first three following the params tree (``nu`` empty for
+SGD, ``slow_params`` empty without Lookahead), the counters int32 0-d
+arrays with JAX's meaning (both 0 before the first step; the sync runs
+when ``la_count % k == 0`` after the increment).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +42,9 @@ from torch import nn
 from clip_lite_torch.optim import make_decays_fn, make_lr_fn
 
 _ADAM_BETAS, _ADAM_EPS = (0.9, 0.999), 1e-8
+# FusedOptState's fields, and the _Group buffer behind each tree.
+_BUFFERS = {"trace": "trace", "nu": "nu", "slow_params": "slow"}
+_FIELDS = (*_BUFFERS, "count", "la_count")
 
 
 class _Group:
@@ -71,8 +83,10 @@ class FusedOptimizer:
         decays = make_decays_fn(_O.NO_DECAY)
         groups: Dict[Tuple[float, float], _Group] = {}
         self.names: Dict[int, str] = {}
+        modules = dict(model.named_modules())
         for name, p in model.named_parameters():
-            wd = _O.WEIGHT_DECAY if decays(jax_path(model, name)) else 0.0
+            wd = (_O.WEIGHT_DECAY if decays(jax_path(model, name, modules))
+                  else 0.0)
             key = (lr_for(name), wd)
             group = groups.setdefault(key, _Group(*key))
             group.params.append(p)
@@ -153,8 +167,67 @@ class FusedOptimizer:
 
     def slow_state(self) -> Dict[str, torch.Tensor]:
         """The Lookahead slow weights by parameter name."""
-        return {self.names[id(p)]: s for g in self.groups
-                for p, s in zip(g.params, g.slow)}
+        return self._by_name("slow")
+
+    def _by_name(self, attr: str) -> Dict[str, torch.Tensor]:
+        return {self.names[id(p)]: b for g in self.groups
+                for p, b in zip(g.params, getattr(g, attr))}
+
+    def _holds(self, field: str) -> bool:
+        return {"nu": self.adam, "slow_params": self.lookahead}.get(field, True)
+
+    def jax_state(self, to_tree: Callable[[Dict[str, torch.Tensor]], dict]
+                  ) -> dict:
+        """The state as the JAX package's ``FusedOptState`` tree; ``to_tree``
+        maps buffers keyed by parameter name onto the params tree
+        (``bridge.to_jax_params``).  The buffers are the live tensors'
+        views, not copies."""
+        tree = {field: to_tree(self._by_name(attr)) if self._holds(field)
+                else {} for field, attr in _BUFFERS.items()}
+        tree["count"] = np.asarray(self.count, np.int32)
+        tree["la_count"] = np.asarray(self.la_count, np.int32)
+        return tree
+
+    @torch.no_grad()
+    def load_jax_state(self, tree: dict,
+                       from_tree: Callable[[dict], Dict[str, torch.Tensor]]
+                       ) -> None:
+        """Copy a ``FusedOptState`` tree into the buffers and counters, in
+        place; ``from_tree`` maps a params-like tree onto tensors keyed by
+        parameter name (``bridge.from_jax_params``).  Raises for any other
+        layout, among them the optax chain's state that the JAX package
+        writes under ``OPTIM.FUSED: false``: the port has only the fused
+        optimizer (``factories.OptimizerFactory``)."""
+        if not isinstance(tree, dict) or set(tree) != set(_FIELDS):
+            found = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(
+                f"the optimizer state holds {found}, not the fused "
+                f"optimizer's {list(_FIELDS)}; a JAX run with OPTIM.FUSED "
+                "false writes the optax chain's state, which the port (fused "
+                "optimizer only) cannot resume")
+        for field, attr in _BUFFERS.items():
+            if bool(tree[field]) != self._holds(field):
+                raise ValueError(
+                    f"opt_state.{field} does not fit this optimizer (AdamW "
+                    f"{self.adam}, Lookahead {self.lookahead}): the checkpoint "
+                    "was written under another OPTIM config")
+            if tree[field]:
+                values = from_tree(tree[field])
+                for g in self.groups:
+                    for p, b in zip(g.params, getattr(g, attr)):
+                        b.copy_(values[self.names[id(p)]])
+        self.count = int(tree["count"])
+        self.la_count = int(tree["la_count"])
 
 
-__all__ = ["FusedOptimizer"]
+def slow_params_from_state(optimizer: FusedOptimizer
+                           ) -> Optional[Dict[str, torch.Tensor]]:
+    """The Lookahead slow weights by parameter name, or None without
+    Lookahead: the counterpart of the JAX package's
+    ``optim/lookahead.py::slow_params_from_state``.  Only callers that ask
+    for the slow weights use it: evals take the fast ones
+    (``eval_utils.EncoderBundle``), as the JAX package's do."""
+    return optimizer.slow_state() if optimizer.lookahead else None
+
+
+__all__ = ["FusedOptimizer", "slow_params_from_state"]

@@ -9,6 +9,10 @@ between them.
 K3, the normalize kernel, against its plain version bit for bit; K3's
 fused flip + colour jitter + normalize pass against the plain composition;
 the on-device preprocessing and the device-resident cache on the card.
+Checkpoints of a state on the card: an asynchronous save taken while the
+next step runs equals a synchronous save of the same step, bit for bit,
+and a checkpoint written from channels_last CUDA tensors loads in a CPU
+process.
 
 These tests need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  The
 file imports no JAX, so it also runs where JAX is absent:
@@ -16,11 +20,19 @@ file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import json
+import os
+import subprocess
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+from clip_lite_torch.config import Config
 from clip_lite_torch.data.device_cache import DecodedCorpus, DeviceDataCache
+from clip_lite_torch.engine import create_train_state, make_train_step
 from clip_lite_torch.models.bert import BertModel
 from clip_lite_torch.models.mpnet import MPNetModel
 from clip_lite_torch.ops.attention import (
@@ -49,6 +61,8 @@ from clip_lite_torch.ops.normalize import (
     normalize_reference,
     normalize_u8,
 )
+from clip_lite_torch.utils import checkpointing as ckpt_mod
+from clip_lite_torch.utils.checkpointing import CheckpointManager
 
 pytestmark = pytest.mark.cuda
 
@@ -602,3 +616,104 @@ def test_device_cache_batches_are_a_function_of_seed_and_step(device):
         assert any(torch.equal(a["image"][j], tile[y:y + crop, x:x + crop])
                    for y in range(cache - crop + 1)
                    for x in range(cache - crop + 1))
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")
+# The flagship cut to a tiny size, as the CPU tests cut it (AMP on).
+TINY = ["MODEL.VISUAL.NETWORK_NAME", "resnet18", "MODEL.VISUAL.FEATURE_SIZE",
+        512, "MODEL.VISUAL.WIDTH", 8, "DATA.IMAGE_CROP_SIZE", 32,
+        "MODEL.TEXTUAL.NUM_HIDDEN_LAYERS", 2, "MODEL.TEXTUAL.HIDDEN_SIZE", 128,
+        "DATA.MAX_CAPTION_LENGTH", 8, "MODEL.TEXTUAL.VOCAB_SIZE", 128,
+        "OPTIM.WARMUP_STEPS", 2]
+
+
+def _tiny_run(device, steps):
+    cfg = Config(FLAGSHIP, TINY)
+    state = create_train_state(cfg, device=device)
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.standard_normal((8, 32, 32, 3), dtype=np.float32),
+             "input_ids": rng.integers(1, 128, (8, 8)).astype(np.int32),
+             "attention_mask": np.ones((8, 8), np.int32)}
+    step = make_train_step(cfg)
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    return state, lambda st: step(st, batch)
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def test_async_save_during_the_next_step_equals_a_sync_save(
+        device, tmp_path, monkeypatch):
+    """The worker's copy to the host is held until the next step has run
+    (its in-place updates included): the file still holds the state as it
+    was when ``step()`` returned."""
+    state, step = _tiny_run(device, 2)
+    sync = CheckpointManager(str(tmp_path / "sync"), async_writes=False,
+                             state=state).step(2)
+    release = threading.Event()
+    real_to_host = ckpt_mod._Staging.to_host
+
+    def gated(self):
+        assert release.wait(timeout=60)
+        return real_to_host(self)
+
+    monkeypatch.setattr(ckpt_mod._Staging, "to_host", gated)
+    manager = CheckpointManager(str(tmp_path / "async"), state=state)
+    assert manager.async_writes
+    path = manager.step(2)
+    state, _ = step(state)
+    torch.cuda.synchronize()
+    assert manager.in_flight
+    release.set()
+    manager.wait()
+    assert _read(path) == _read(sync)
+    after = CheckpointManager(str(tmp_path / "after"), async_writes=False,
+                              state=state).step(2)
+    assert _read(after) != _read(sync)  # the next step did move the state
+
+
+def test_checkpoint_from_channels_last_cuda_loads_in_a_cpu_process(
+        device, tmp_path):
+    state, _ = _tiny_run(device, 3)
+    assert any(p.ndim == 4 and not p.is_contiguous()
+               and p.is_contiguous(memory_format=torch.channels_last)
+               for p in state.model.parameters())
+    path = CheckpointManager(str(tmp_path), state=state).step(3)
+    want = str(tmp_path / "want.pt")
+    torch.save({"model": {k: v.cpu() for k, v in
+                          state.model.state_dict().items()},
+                "trace": {k: v.cpu() for k, v in
+                          state.optimizer._by_name("trace").items()},
+                "slow": {k: v.cpu() for k, v in
+                         state.optimizer.slow_state().items()}}, want)
+    script = f"""
+import torch
+from clip_lite_torch.config import Config
+from clip_lite_torch.engine import create_train_state
+from clip_lite_torch.utils.checkpointing import CheckpointManager
+assert not torch.cuda.is_available()
+state = create_train_state(Config({FLAGSHIP!r}, {json.dumps(TINY)}),
+                           device="cpu")
+assert CheckpointManager({str(tmp_path / "cpu")!r}, state=state).load(
+    {path!r}) == 3
+want = torch.load({want!r})
+got = {{"model": state.model.state_dict(),
+        "trace": state.optimizer._by_name("trace"),
+        "slow": state.optimizer.slow_state()}}
+for part in want:
+    assert set(got[part]) == set(want[part]), part
+    for k, v in want[part].items():
+        assert torch.equal(got[part][k], v), (part, k)
+assert (state.step, state.optimizer.count, state.optimizer.la_count) == \
+    (3, 3, 3)
+print("loaded on the CPU")
+"""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert "loaded on the CPU" in out.stdout

@@ -70,7 +70,7 @@ def bundles(tmp_path_factory):
         f.write(serialization.msgpack_serialize(v))
     jax_bundle = JBundle(jcfg, checkpoint_path=path, batch_size=4)
     cfg = Config(FLAGSHIP, TINY)
-    port = EncoderBundle(cfg, bridge.from_jax_variables(v, cfg),
+    port = EncoderBundle(cfg, state_dict=bridge.from_jax_variables(v, cfg),
                          batch_size=4, device="cpu")
     return jax_bundle, port
 
@@ -159,7 +159,7 @@ def test_config_copy_matches_jax(path):
         JConfig(path, overrides)._C.to_dict()
 
 
-_FORBIDDEN = {"jax", "flax", "optax", "clip_lite_tpu", "jaxlib"}
+_FORBIDDEN = {"jax", "flax", "optax", "clip_lite_tpu", "jaxlib", "msgpack"}
 
 
 def _port_sources():

@@ -20,7 +20,12 @@ both engines augment and normalize on the device
 (``_maybe_device_preprocess``).  JAX's augmentation draws are reproduced
 from ``fold_in(key, step)`` -> ``split(..., 3)`` -> the split of
 ``engine.py:77`` and passed to the port as ``aug_draws``; metrics at
-rtol 1e-4 at every step."""
+rtol 1e-4 at every step.
+
+Resume across the packages: the JAX run saves a checkpoint after step 3
+through the JAX ``CheckpointManager``; the port resumes from it through
+``train_loop(resume_from=...)`` and runs steps 4-6, across the Lookahead
+sync after step 5, to JAX's final state at the same bar."""
 
 import json
 import logging
@@ -40,6 +45,7 @@ from clip_lite_tpu.factories import OptimizerFactory as JOptimizerFactory
 from clip_lite_tpu.factories import PretrainingModelFactory as JModelFactory
 from clip_lite_tpu.optim import param_paths
 from clip_lite_tpu.train import crossed_interval as jcrossed_interval
+from clip_lite_tpu.utils.checkpointing import CheckpointManager as JCheckpointManager
 from clip_lite_tpu.utils.loggers import MetricsWriter as JMetricsWriter
 from clip_lite_tpu.utils.timers import Timer as JTimer
 from clip_lite_torch import bridge
@@ -51,6 +57,7 @@ from clip_lite_torch.engine import (
     metrics_to_floats,
 )
 from clip_lite_torch.train import crossed_interval, train_loop
+from clip_lite_torch.utils.checkpointing import CheckpointManager
 from clip_lite_torch.utils.loggers import MetricsWriter
 from clip_lite_torch.utils.timers import Timer, device_mem_usage_mb
 from test_torch_image_ops import jax_aug_draws
@@ -84,6 +91,7 @@ TRAIN = ["AMP", False, "MODEL.VISUAL.NETWORK_NAME", "resnet18",
          # stays inside the 1e-4 bar.
          "OPTIM.CNN_LR", 0.002]
 B, L, CROP, STEPS = 8, 8, 32, 6
+RESUME_AT = 3  # the JAX run's checkpoint, the port's resume point
 U8_STEPS = 3
 IMG_DIM = 8 * 8  # ResNet-18's 8 x width channels at width 8
 COMPONENTS = ("total_loss", "cross_modal_loss", "visual_loss", "textual_loss")
@@ -134,13 +142,15 @@ def _inject_uniform(mp, noise):
 
 
 def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM, uint8=False,
-            steps=None, txt_dim=128, first_grads=True):
+            steps=None, txt_dim=128, first_grads=True, checkpoint_dir=None):
     """The JAX run of ``steps`` steps (default ``STEPS``, ``U8_STEPS`` on
     uint8 pixels when ``uint8``) on ``b`` seeded pairs of ``crop`` px, with
     ``img_dim``/``txt_dim`` wide prior noise for the towers' features:
     initial variables, per-step metrics, first-step grads (float batches
     only, unless ``first_grads`` is false), final state, the eval step's
-    components and the augmentation draws (uint8 only)."""
+    components, the augmentation draws (uint8 only) and, given a
+    ``checkpoint_dir``, the path of the checkpoint the JAX
+    ``CheckpointManager`` wrote there after step ``RESUME_AT``."""
     rng = np.random.RandomState(0)
     make = _batch_u8 if uint8 else _batch
     steps = steps or (U8_STEPS if uint8 else STEPS)
@@ -172,10 +182,13 @@ def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM, uint8=False,
         grads = None if uint8 or not first_grads else jax.tree.map(
             np.asarray, jax.jit(jax.grad(loss_fn))(state.params))
         step = jax.jit(jengine.make_train_step(model, tx))
-        metrics = []
-        for batch in batches:
+        metrics, checkpoint = [], None
+        for i, batch in enumerate(batches):
             state, m = step(state, batch, key)
             metrics.append(jax.tree.map(float, jax.device_get(m)))
+            if checkpoint_dir and i + 1 == RESUME_AT:
+                checkpoint = JCheckpointManager(checkpoint_dir,
+                                                state=state).step(i + 1)
         evals = jax.tree.map(float, jax.device_get(jax.jit(
             jengine.make_eval_step(model))(state, val_batch, key)))
     final = jax.tree.map(np.asarray, {"params": state.params,
@@ -185,12 +198,13 @@ def jax_run(train=TRAIN, b=B, crop=CROP, img_dim=IMG_DIM, uint8=False,
         if uint8 else None
     return dict(batches=batches, val_batch=val_batch, noise=noise,
                 variables=variables, grads=grads, metrics=metrics,
-                evals=evals, final=final, slow=slow, draws=draws)
+                evals=evals, final=final, slow=slow, draws=draws,
+                checkpoint=checkpoint)
 
 
 @pytest.fixture(scope="module")
-def reference():
-    return jax_run()
+def reference(tmp_path_factory):
+    return jax_run(checkpoint_dir=str(tmp_path_factory.mktemp("jax_ckpt")))
 
 
 def run_port(reference, train=TRAIN, fused="true"):
@@ -255,6 +269,47 @@ def test_final_state_matches_jax(reference, port_run):
                            "batch_stats": reference["final"]["batch_stats"]},
                           model)
     for name, value in port_run["state"].optimizer.slow_state().items():
+        np.testing.assert_allclose(value.numpy(), slow[name].numpy(),
+                                   err_msg=name, **TOL)
+
+
+def test_resume_from_jax_checkpoint_matches_jax(reference, tmp_path):
+    """The port, from random weights, resumes from the JAX run's checkpoint
+    after step 3 and runs steps 4-6 (the Lookahead sync after step 5) on
+    the same batches and prior noise: every step's metrics and the final
+    state, slow weights included, match JAX's continuation."""
+    cfg = Config(FLAGSHIP, TRAIN + ["MODEL.TEXTUAL.FUSED_ATTENTION", "true"])
+    state = create_train_state(cfg, device="cpu")
+    noise = {k: torch.from_numpy(v) for k, v in reference["noise"].items()}
+    train_step, metrics = make_train_step(cfg), []
+
+    def step(st, batch):
+        st, m = train_step(st, batch, prior_noise=noise)
+        metrics.append(metrics_to_floats(m))
+        return st, m
+
+    state = train_loop(state, step, iter(reference["batches"][RESUME_AT:]),
+                       STEPS, manager=CheckpointManager(str(tmp_path),
+                                                        state=state),
+                       resume_from=reference["checkpoint"])
+    assert state.step == state.optimizer.count == state.optimizer.la_count \
+        == STEPS
+    for i, (got, want) in enumerate(zip(metrics,
+                                        reference["metrics"][RESUME_AT:])):
+        for name in COMPONENTS + ("grad_norm",):
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                       atol=1e-6,
+                                       err_msg=f"step {RESUME_AT + i + 1} {name}")
+    assert len(metrics) == STEPS - RESUME_AT
+    model = state.model
+    want = bridge.convert(reference["final"], model)
+    for name, value in model.state_dict().items():
+        np.testing.assert_allclose(value.numpy(), want[name].numpy(),
+                                   err_msg=name, **TOL)
+    slow = bridge.convert({"params": reference["slow"],
+                           "batch_stats": reference["final"]["batch_stats"]},
+                          model)
+    for name, value in state.optimizer.slow_state().items():
         np.testing.assert_allclose(value.numpy(), slow[name].numpy(),
                                    err_msg=name, **TOL)
 
@@ -338,7 +393,7 @@ def test_train_loop_cadence(reference, tmp_path, caplog):
                            iter(reference["batches"]), 5, log_every=2,
                            eval_step=make_eval_step(cfg),
                            val_batches=[reference["val_batch"]] * 2,
-                           val_every=4, writer=writer)
+                           checkpoint_every=4, writer=writer)
     writer.close()
     assert state.step == 5
     with open(tmp_path / "metrics.jsonl") as f:
