@@ -123,6 +123,26 @@ caught:
    host's enqueue time, each beside phase 6's float32 step, peak memory,
    the cache's bytes, and K1/K2 times at qkv (128, 20, 2304), key and
    full bias, both routes and the library call.
+10b. Data and the training CLI: CLRec files of ndarray records at COCO's
+   shapes (512 train and 256 val images of 480 x 640 and 640 x 480, five
+   captions each) written with the port's ClRecWriter; the host loader
+   alone (batches/s of 128 with a worker a core, pinned); then
+   clip_lite_torch.train.main as ``python -m clip_lite_torch.train`` runs
+   it, each run with the counts set to 0 just before and read just after:
+   (A) the flagship through the host loader, 20 steps of 128,
+   --checkpoint-every 10 (a val sweep of two batches, then a checkpoint),
+   K1 12 a step and 24 a sweep, K2 12 a step, checkpoint_10 and _20
+   written, finite losses; the CLI's median step over steps 3-9 (start
+   to start) beside the loader's batches/s and phase 6's step; (C) A
+   resumed from its
+   checkpoint_10 to 20: the batches of steps 11-20 equal A's (image_id,
+   input_ids, attention_mask, and images to the byte), and the final
+   state equals A's bit for bit (A and C run under deterministic
+   algorithms); an EncoderBundle from A's checkpoint_20 encodes as A's
+   live weights do; (B) fs_tpu_tuned with DATA.DEVICE_CACHE: the cache
+   built through load_host from the train dataset (512 tiles of 256 px;
+   its build seconds and bytes), K3's fused pass once a step, K1/K2 as in
+   A; its median step.
 11. One JSON line listing every ported kernel (K3's standalone and fused
    entry points each with their own launches); then the device line last.
 """
@@ -198,6 +218,9 @@ N_ITEMS, BATCH = 256, 128
 MPNET = ["MODEL.TEXTUAL.NETWORK_NAME", "microsoft/mpnet-base"]
 TRAIN_STEPS, PARITY_BATCH, RATE = 10, 32, 0.1
 IMAGE_SHAPE = (BATCH, 224, 224, 3)
+# The data phase: CLRec records at COCO's shapes, CLI steps per run, and
+# batches timed through the host loader alone.
+DATA_TRAIN, DATA_VAL, DATA_STEPS, DATA_LOADER_BATCHES = 512, 256, 20, 6
 # COCO train2017's image count, at the configs' CACHE_IMAGE_SIZE of 256.
 N_CORPUS, CACHE_SIZE, N_CAPS, CAPTION_TOKENS = 118_287, 256, 5, (8, 20)
 WORDS = ("a an the man woman child dog cat horse bus train car plate pizza "
@@ -1331,6 +1354,294 @@ def phase_uint8_training(float_step: dict) -> dict:
                 enqueue_s=enqueue, peak_mib=peak_mb,
                 attention_s20=attention_times_at(seq))
 
+def write_coco_corpus(root: str, rng: np.random.Generator) -> None:
+    """CLRec train and val files of ndarray records at COCO's shapes (480 x
+    640 and 640 x 480 in turn), seeded uint8 images, five captions each
+    drawn from WORDS; written with the port's ClRecWriter."""
+    import os
+
+    from clip_lite_torch.data.readers import ClRecWriter
+
+    for split, n in (("train", DATA_TRAIN), ("val", DATA_VAL)):
+        with ClRecWriter(os.path.join(
+                root, f"coco_{split}_train_sbert2017.clrec")) as w:
+            for i in range(n):
+                shape = (480, 640, 3) if i % 2 == 0 else (640, 480, 3)
+                w.append({"image_id": i, "captions": captions(rng, 5),
+                          "image": rng.integers(0, 256, shape, dtype=np.uint8)})
+
+
+def phase_data_cli(float_step: dict) -> dict:
+    """The training CLI (clip_lite_torch.train.main, as ``python -m
+    clip_lite_torch.train`` calls it) over a COCO-shaped CLRec corpus:
+    (A) the flagship through the host loader, 20 steps of 128, val sweeps
+    and checkpoints at 10 and 20; (B) fs_tpu_tuned through the device cache
+    built from the dataset; (C) A resumed from its checkpoint_10 to 20;
+    then an EncoderBundle from A's checkpoint_20.  A and C run under
+    deterministic algorithms (CUDNN_DETERMINISTIC, no cuDNN benchmark), so
+    C must end where A did, bit for bit."""
+    import os
+    import shutil
+    import tempfile
+
+    import clip_lite_torch.data.device_cache as device_cache
+    import clip_lite_torch.train as cli
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.pipeline import infinite_batches
+    from clip_lite_torch.data.tokenizers import HashingTokenizer
+    from clip_lite_torch.eval_utils import EncoderBundle
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+    from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
+
+    counters = {"attention_fwd": fused_short_attention,
+                "attention_bwd": attention_backward,
+                "normalize": normalize_u8,
+                "augment_normalize": augment_normalize_u8}
+    workers = os.cpu_count() or 1
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    real_make_step, real_from_dataset = cli.make_train_step, \
+        device_cache.DeviceDataCache.from_dataset.__func__
+    real_load_host = device_cache.load_host
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    logger = logging.getLogger("clip_lite_torch")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        write_coco_corpus(root, np.random.default_rng(21))
+        log(f"data: {DATA_TRAIN} train and {DATA_VAL} val records of 480 x 640 "
+            f"and 640 x 480 uint8 written in {time.perf_counter() - t0} s")
+        sizes = ["MODEL.NAME", "captions", "DATA.ROOT", root,
+                 "OPTIM.BATCH_SIZE", BATCH, "OPTIM.NUM_ITERATIONS", DATA_STEPS,
+                 "OPTIM.WARMUP_STEPS", DATA_STEPS // 2]
+        same_bits = ["CUDNN_DETERMINISTIC", True, "CUDNN_BENCHMARK", False]
+
+        def args(name, config, extra=(), flags=()):
+            return cli.parser.parse_args([str(a) for a in (
+                "--config", config, "--serialization-dir",
+                os.path.join(root, name), "--checkpoint-every", 10,
+                "--log-every", 5, "--cpu-workers", workers, *flags,
+                "--config-override", *sizes, *extra)])
+
+        # The loader alone: batches/s with the CLI's loader over the corpus.
+        cfg_a = Config(str(FLAGSHIP), sizes)
+        loader, _ = cli.init_dataloaders(cfg_a, args("loader", FLAGSHIP),
+                                         torch.device("cuda"))
+        stream = infinite_batches(loader)
+        first = next(stream)
+        t0 = time.perf_counter()
+        for _ in range(DATA_LOADER_BATCHES):
+            next(stream)
+        loader_s = (time.perf_counter() - t0) / DATA_LOADER_BATCHES
+        stream.close()
+        log(f"data: the host loader alone, {workers} workers: "
+            f"{1 / loader_s} batches/s of {BATCH} ({loader_s} s a batch over "
+            f"{DATA_LOADER_BATCHES}); image {first['image'].dtype} "
+            f"{tuple(first['image'].shape)} pinned "
+            f"{first['image'].is_pinned()}, ids "
+            f"{tuple(first['input_ids'].shape)}")
+        if not (first["image"].is_pinned() and tuple(first["image"].shape) == (
+                BATCH, 224, 224, 3)):
+            raise AssertionError("the loader's batches are not pinned crops")
+        del loader, stream, first
+
+        def run(name, a, keep_batches=()):
+            """main(a) with the launch counts set to 0 just before and read
+            just after; every step's entry time, and the batches of the
+            steps in ``keep_batches``."""
+            record = {"t": [], "batches": {}}
+
+            def make_step(cfg):
+                step = real_make_step(cfg)
+
+                def recorded(state, batch):
+                    it = state.step + 1
+                    record["t"].append(time.perf_counter())
+                    if it in keep_batches:  # host batches: no sync
+                        record["batches"][it] = batch
+                    return step(state, batch)
+                return recorded
+
+            cli.make_train_step = make_step
+            for k in counters.values():
+                k.launches = 0
+            fused_short_attention.tc_launches = 0
+            attention_backward.tc_launches = 0
+            t0 = time.perf_counter()
+            state = cli.main(a)
+            torch.cuda.synchronize()
+            record["wall"] = time.perf_counter() - t0
+            record["launches"] = {n: k.launches for n, k in counters.items()}
+            record["launches"].update(
+                attention_fwd_tc=fused_short_attention.tc_launches,
+                attention_bwd_tc=attention_backward.tc_launches)
+            cli.make_train_step = real_make_step
+            metrics = [json.loads(line) for line in open(os.path.join(
+                root, name, "metrics.jsonl"))]
+            record["metrics"] = metrics
+            log(f"data ({name}): to step {DATA_STEPS}, with sweeps and "
+                f"checkpoints, in {record['wall']} s; launches "
+                f"{record['launches']}; "
+                f"metrics {json.dumps(metrics)}")
+            if not metrics or not all(math.isfinite(m["total_loss"])
+                                      for m in metrics):
+                raise AssertionError(f"({name}) loss not finite: {metrics}")
+            return state, record
+
+        def expect(name, cfg, record, steps, **want):
+            n_layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+            sweeps = len([m for m in record["metrics"] if m["split"] == "val"])
+            expected = dict(dict.fromkeys(counters, 0), attention_fwd=n_layers * (
+                steps + sweeps * (DATA_VAL // BATCH)),
+                attention_bwd=n_layers * steps, **want)
+            got = {k: record["launches"][k] for k in counters}
+            if got != expected:
+                raise AssertionError(f"({name}) launches {got}, expected "
+                                     f"{expected}")
+            check_routes(cfg, cfg.DATA.MAX_CAPTION_LENGTH, record["launches"])
+
+        def step_times(record):
+            """Steps 3-9 (before the first sweep), each from its start to
+            the next step's: the step, its share of the loop, and the wait
+            for the next batch.  Steps 1-2 are left out, as phase 6 leaves
+            them out (and the loader's prefetch fills while the state is
+            built)."""
+            t = record["t"]
+            return [b - a for a, b in zip(t[2:9], t[3:10])]
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        # (A) The host loader.
+        a_args = args("a", FLAGSHIP, same_bits)
+        state_a, rec_a = run("a", a_args, keep_batches=range(11, DATA_STEPS + 1))
+        expect("a", cfg_a, rec_a, DATA_STEPS)
+        ckpt_a = a_args.serialization_dir + cfg_a.RUN_ID
+        files = sorted(os.listdir(ckpt_a))
+        if not {"checkpoint_10.msgpack", "checkpoint_20.msgpack"} <= set(files):
+            raise AssertionError(f"(a) wrote {files}")
+        times_a = step_times(rec_a)
+        step_a = statistics.median(times_a)
+        log(f"data (a): checkpoints {files}; the CLI through the host loader "
+            f"at batch {BATCH}: median step {step_a} s over steps 3-9 "
+            f"({times_a}), {1 / step_a} steps/s; "
+            f"{DATA_STEPS / rec_a['wall']} steps/s over the whole run with "
+            f"sweeps and checkpoints; the loader alone {1 / loader_s} "
+            f"batches/s; phase 6's step on fixed batches "
+            f"{float_step['step_s']} s ({1 / float_step['step_s']} steps/s)")
+        out["a"] = dict(launches=rec_a["launches"], step_s=step_a,
+                        loader_batches_per_s=1 / loader_s,
+                        wall_s=rec_a["wall"])
+        final_a = state_tensors(state_a)
+        live_sd = {k: v.detach().clone()
+                   for k, v in state_a.model.state_dict().items()}
+        del state_a
+        gc.collect()
+
+        # (C) A resumed from its checkpoint_10, to 20.
+        c_args = args("c", FLAGSHIP, same_bits, ["--resume-from", os.path.join(
+            ckpt_a, "checkpoint_10.msgpack")])
+        state_c, rec_c = run("c", c_args, keep_batches=range(11, DATA_STEPS + 1))
+        expect("c", cfg_a, rec_c, DATA_STEPS - 10)
+        same = sorted(rec_c["batches"]) == list(range(11, DATA_STEPS + 1)) and all(
+            torch.equal(rec_a["batches"][i][k], rec_c["batches"][i][k])
+            for i in range(11, DATA_STEPS + 1)
+            for k in ("image_id", "input_ids", "attention_mask", "image"))
+        d_ac = distance(final_a, state_tensors(state_c))
+        log(f"data (c): resumed at 10: batches of steps 11-{DATA_STEPS} equal "
+            f"(A's) {same}; the final state at max |difference| {d_ac} from A's")
+        if not same or d_ac != 0.0:
+            raise AssertionError("the resumed CLI run left run A's stream or "
+                                 "state")
+        out["c"] = dict(launches=rec_c["launches"], distance=d_ac)
+        del state_c, rec_a, rec_c, final_a
+        gc.collect()
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+
+        # An EncoderBundle from A's checkpoint_20 against A's live weights.
+        n_layers = cfg_a.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+        rng = np.random.default_rng(22)
+        images = rng.standard_normal((BATCH, 224, 224, 3), dtype=np.float32)
+        texts = captions(rng, BATCH)
+        tok = HashingTokenizer(cfg_a.MODEL.TEXTUAL.VOCAB_SIZE,
+                               cfg_a.DATA.MAX_CAPTION_LENGTH)
+        encoded = []
+        for kw in (dict(checkpoint_path=os.path.join(ckpt_a,
+                                                     "checkpoint_20.msgpack")),
+                   dict(state_dict=live_sd)):
+            bundle = EncoderBundle(cfg_a, batch_size=BATCH, device="cuda", **kw)
+            fused_short_attention.launches = 0
+            encoded.append((bundle.encode_images(images),
+                            bundle.encode_texts(texts, tok)))
+            if fused_short_attention.launches != n_layers:
+                raise AssertionError("the bundle's text encode launched K1 "
+                                     f"{fused_short_attention.launches} times")
+            del bundle
+        out["bundle_launches"] = 2 * n_layers
+        if not all(np.isfinite(x).all() and np.array_equal(x, y)
+                   for x, y in zip(*encoded)):
+            raise AssertionError("the bundle from the CLI's checkpoint encodes "
+                                 "otherwise than the run's live weights")
+        log(f"data: EncoderBundle from (a)'s checkpoint_20: embeddings "
+            f"{encoded[0][0].shape} {encoded[0][1].shape}, equal to the live "
+            "weights'")
+        del live_sd, encoded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (B) The device cache built from the dataset.
+        built = {}
+
+        def from_dataset(klass, *a, **kw):
+            built["cache"] = real_from_dataset(klass, *a, **kw)
+            return built["cache"]
+
+        def load_host(*a, **kw):
+            built["load_host"] = built.get("load_host", 0) + 1
+            return real_load_host(*a, **kw)
+
+        device_cache.DeviceDataCache.from_dataset = classmethod(from_dataset)
+        device_cache.load_host = load_host
+        b_extra = ["DATA.DEVICE_CACHE", True, "DATA.NATIVE_PIPELINE", False]
+        cfg_b = Config(str(TUNED), sizes + b_extra)
+        state_b, rec_b = run("b", args("b", TUNED, b_extra))
+        cache = built["cache"]
+        expect("b", cfg_b, rec_b, DATA_STEPS, augment_normalize=DATA_STEPS)
+        tiles = tuple(cache._images.shape)
+        if built.get("load_host") != 1 or tiles != (
+                DATA_TRAIN, cfg_b.DATA.CACHE_IMAGE_SIZE,
+                cfg_b.DATA.CACHE_IMAGE_SIZE, 3):
+            raise AssertionError(f"(b) cache of {tiles} tiles, load_host "
+                                 f"called {built.get('load_host')} times")
+        times_b = step_times(rec_b)
+        step_b = statistics.median(times_b)
+        log(f"data (b): the device cache built through load_host in "
+            f"{cache.build_seconds} s: {tiles} uint8 tiles, "
+            f"{cache.memory_bytes()} bytes; the CLI through the cache at batch "
+            f"{BATCH}: median step {step_b} s over steps 3-9 ({times_b}), "
+            f"{1 / step_b} steps/s; {DATA_STEPS / rec_b['wall']} steps/s over "
+            f"the whole run with the cache's build, sweeps and checkpoints")
+        out["b"] = dict(launches=rec_b["launches"], step_s=step_b,
+                        build_s=cache.build_seconds,
+                        cache_bytes=cache.memory_bytes())
+        del state_b, rec_b, cache, built
+    finally:
+        cli.make_train_step = real_make_step
+        device_cache.DeviceDataCache.from_dataset = classmethod(real_from_dataset)
+        device_cache.load_host = real_load_host
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags[2:]
+        for handler in logger.handlers:  # the CLI's, into the directory
+            handler.close()
+        logger.handlers.clear()
+        logger.propagate = True
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def state_tensors(state) -> dict:
     """Copies of every tensor of a train state: parameters, BatchNorm
     statistics, the optimizer's trace and slow weights."""
@@ -1699,6 +2010,10 @@ def main() -> int:
     phase_training_parity(MPNET, name="MPNet training parity")
     norm = phase_normalize()
     uint8 = phase_uint8_training(training)
+    data = phase_data_cli(training)
+    cli = {"cli_host_loader": data["a"]["launches"],
+           "cli_resumed": data["c"]["launches"],
+           "cli_device_cache": data["b"]["launches"]}
     # phase_checkpoint's runs: (a) train with checkpoints, (b) resumed, (c)
     # again without, (d) the two bundles' encodes, (e) uint8 and resumed.
     by_run = {f"checkpoint_{run}": n for run, n in ckpt["launches"].items()}
@@ -1707,16 +2022,20 @@ def main() -> int:
                    "mpnet_inference": mpnet_inference["attention_fwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_fwd"],
                    "uint8_training": uint8["launches"]["attention_fwd"],
-                   **{k: n["attention_fwd"] for k, n in by_run.items()}}
+                   **{k: n["attention_fwd"] for k, n in by_run.items()},
+                   **{k: n["attention_fwd"] for k, n in cli.items()},
+                   "cli_bundle": data["bundle_launches"]}
     k2_launches = {"training": training["launches"]["attention_bwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"],
                    **{k: n["attention_bwd"] for k, n in by_run.items()
-                      if n["attention_bwd"]}}
+                      if n["attention_bwd"]},
+                   **{k: n["attention_bwd"] for k, n in cli.items()}}
     k3_fused_launches = {
         "uint8_training": uint8["launches"]["augment_normalize"],
         **{k: n["augment_normalize"] for k, n in by_run.items()
-           if n["augment_normalize"]}}
+           if n["augment_normalize"]},
+        "cli_device_cache": data["b"]["launches"]["augment_normalize"]}
     s20 = uint8["attention_s20"]
     timed = ("ms", "ms_device", "ms_cuda_core", "ms_cuda_core_device",
              "library_ms", "library_ms_device")

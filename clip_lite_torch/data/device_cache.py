@@ -9,10 +9,18 @@ crops out of the tiles.  The train step then finishes augmentation on
 the card (``engine._maybe_device_preprocess``).  Batches are a pure
 function of (seed, step), so a resume at step K replays the stream.
 
+The corpus comes from a dataset through :func:`load_host` (the JAX
+``_load_host``'s Python path: each record's centre square, resized to the
+tile by area, and every caption cleaned and tokenized), memoized on disk
+by :func:`load_host_cached` (``DATA.CACHE_HOST_DIR``);
+:meth:`DeviceDataCache.from_dataset` joins the two, as the training CLI
+calls it.  JPEG records and the native decode wait for ROADMAP Queue 1,
+item 4.
+
 Differences from the JAX cache, by design:
-  * it takes the corpus already decoded (what the JAX ``_load_host``
-    returns); reading CLRec, decoding JPEGs and the host decode cache
-    come with the loaders (ROADMAP Queue 1, item 4);
+  * the host cache's key folds in the tokenizer, the caption length and
+    the dataset's class besides the file, and an unnamed corpus is not
+    cached, so a cache that the JAX package wrote is not reused;
   * the draws come from a torch generator on the device, so batches are
     not the JAX cache's for the same seed;
   * one card, one rank: the seed-keyed corpus permutation that makes the
@@ -26,12 +34,17 @@ Differences from the JAX cache, by design:
 
 from __future__ import annotations
 
+import hashlib
+import os
+import pickle
+import time
 from typing import Dict, Iterator, NamedTuple, Sequence, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from clip_lite_torch.data.imgproc import resize_area
 from clip_lite_torch.eval_utils import resolve_device
 
 
@@ -46,6 +59,91 @@ class DecodedCorpus(NamedTuple):
     mask: Sequence[np.ndarray]
     n_caps: np.ndarray
     image_ids: np.ndarray
+
+
+def _resize_square(img: np.ndarray, size: int) -> np.ndarray:
+    """The centre square of ``img``, resized to ``size`` by area."""
+    h, w = img.shape[:2]
+    s = min(h, w)
+    y0, x0 = (h - s) // 2, (w - s) // 2
+    return resize_area(img[y0:y0 + s, x0:x0 + s], size, size)
+
+
+def load_host(dataset, cache_size: int, rows: np.ndarray) -> DecodedCorpus:
+    """Decode the dataset rows ``rows`` to (cache, cache, 3) uint8 tiles
+    and tokenize all their captions (each through the dataset's
+    ``caption_transform`` with ``default_rng(0)``): per-item unpadded
+    token stacks, as the JAX ``DeviceDataCache._load_host`` gives them.
+    ``dataset`` is a ``CocoCaptionsDataset`` (its ``reader``,
+    ``caption_transform`` and ``_tokenize``)."""
+    n = len(rows)
+    images = np.empty((n, cache_size, cache_size, 3), np.uint8)
+    ids_per_item, mask_per_item = [], []
+    n_caps = np.empty(n, np.int32)
+    image_ids = np.empty(n, np.int64)
+    for j, i in enumerate(rows):
+        rec = dataset.reader[int(i)]
+        images[j] = _resize_square(rec["image"], cache_size)
+        image_ids[j] = rec["image_id"]
+        caps = rec["captions"]
+        caps = caps if isinstance(caps, list) else [caps]
+        item_ids, item_mask = [], []
+        for cap in caps:
+            cap = dataset.caption_transform(
+                caption=cap, rng=np.random.default_rng(0))["caption"]
+            tid, tmask = dataset._tokenize(cap)
+            item_ids.append(tid)
+            item_mask.append(tmask)
+        ids_per_item.append(np.stack(item_ids))
+        mask_per_item.append(np.stack(item_mask))
+        n_caps[j] = len(caps)
+    return DecodedCorpus(images, ids_per_item, mask_per_item, n_caps,
+                         image_ids)
+
+
+def host_cache_key(dataset, cache_size: int, rows: np.ndarray) -> str:
+    """The key of :func:`load_host`'s result: the records' file (path,
+    size, mtime), the tile size, the rows, and what the tokens depend on:
+    the dataset's class, the tokenizer's name and vocabulary size and the
+    caption length.  A dataset without a file has no key (ValueError)."""
+    root = getattr(dataset, "root", "")
+    if not root:
+        raise ValueError("the host cache needs a corpus read from a file "
+                         f"({type(dataset).__name__} names none)")
+    st = os.stat(root)
+    tok = dataset.tokenizer
+    fingerprint = (os.path.abspath(root), st.st_size, st.st_mtime_ns,
+                   cache_size, len(dataset), rows.tobytes(),
+                   type(dataset).__name__, dataset.tokenizer_name,
+                   type(tok).__name__, tok.vocab_size,
+                   dataset.max_caption_length)
+    return hashlib.sha1(repr(fingerprint).encode()).hexdigest()[:16]
+
+
+def load_host_cached(dataset, cache_size: int, rows: np.ndarray,
+                     host_cache_dir: str) -> DecodedCorpus:
+    """:func:`load_host`, kept in ``host_cache_dir`` under
+    :func:`host_cache_key`: the tiles as an .npy (read back memory-mapped)
+    and the token stacks as a pickle, each written to a temporary name
+    and renamed.  The pickle is this program's own."""
+    key = host_cache_key(dataset, cache_size, rows)
+    os.makedirs(host_cache_dir, exist_ok=True)
+    img_path = os.path.join(host_cache_dir, f"corpus_{key}_images.npy")
+    meta_path = os.path.join(host_cache_dir, f"corpus_{key}_meta.pkl")
+    if os.path.exists(img_path) and os.path.exists(meta_path):
+        with open(meta_path, "rb") as f:
+            meta = pickle.load(f)
+        return DecodedCorpus(np.load(img_path, mmap_mode="r"), meta["ids"],
+                             meta["mask"], meta["n_caps"], meta["image_ids"])
+    out = load_host(dataset, cache_size, rows)
+    tmp = img_path + ".tmp.npy"
+    np.save(tmp, out.images)
+    os.replace(tmp, img_path)
+    with open(meta_path + ".tmp", "wb") as f:
+        pickle.dump({"ids": out.ids, "mask": out.mask, "n_caps": out.n_caps,
+                     "image_ids": out.image_ids}, f)
+    os.replace(meta_path + ".tmp", meta_path)
+    return out
 
 
 def _static_seq_len(max_len: int, seq_buckets, fallback: int) -> int:
@@ -118,6 +216,24 @@ class DeviceDataCache:
         self._window = torch.arange(crop_size, device=self.device)
         self._step = 0
 
+    @classmethod
+    def from_dataset(cls, dataset, batch_size: int, cache_size: int = 256,
+                     crop_size: int = 224, seq_buckets=None, seed: int = 0,
+                     ssl_aug: bool = False, host_cache_dir: str = "",
+                     device="cuda") -> "DeviceDataCache":
+        """The cache of every row of ``dataset``, decoded by
+        :func:`load_host` (through :func:`load_host_cached` with a
+        ``host_cache_dir``); ``build_seconds`` holds the time it took."""
+        t0 = time.perf_counter()
+        rows = np.arange(len(dataset))
+        corpus = (load_host_cached(dataset, cache_size, rows, host_cache_dir)
+                  if host_cache_dir else load_host(dataset, cache_size, rows))
+        cache = cls(corpus, batch_size, cache_size=cache_size,
+                    crop_size=crop_size, seq_buckets=seq_buckets, seed=seed,
+                    ssl_aug=ssl_aug, device=device)
+        cache.build_seconds = time.perf_counter() - t0
+        return cache
+
     def _generator(self, step: int) -> torch.Generator:
         word = np.random.SeedSequence((self.seed ^ 0x5EED, step)).generate_state(
             1, np.uint64)[0]
@@ -165,4 +281,5 @@ class DeviceDataCache:
         return self.memory_bytes()
 
 
-__all__ = ["DecodedCorpus", "DeviceDataCache", "_static_seq_len"]
+__all__ = ["DecodedCorpus", "DeviceDataCache", "_static_seq_len",
+           "host_cache_key", "load_host", "load_host_cached"]

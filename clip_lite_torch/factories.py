@@ -3,6 +3,8 @@ JAX package's ``factories.py`` does for its own."""
 
 from __future__ import annotations
 
+import ast
+
 import torch
 
 from clip_lite_torch.config import Config
@@ -137,3 +139,85 @@ class TokenizerFactory:
         return get_hf_tokenizer(_C.MODEL.TEXTUAL.NETWORK_NAME,
                                 max_length=_C.DATA.MAX_CAPTION_LENGTH,
                                 vocab_size=_C.MODEL.TEXTUAL.VOCAB_SIZE)
+
+
+class ImageTransformsFactory:
+    """Host image transforms by name, with the ``name::{'kw': v}`` syntax
+    for inline keyword arguments (a Python literal)."""
+
+    @classmethod
+    def create(cls, name: str, *args, **kwargs):
+        from clip_lite_torch.data.transforms import TRANSFORM_PRODUCTS
+
+        _kwargs = {}
+        if "::" in name:
+            name, raw = name.split("::")
+            _kwargs = ast.literal_eval(raw)
+        _kwargs.update(kwargs)
+        if name not in TRANSFORM_PRODUCTS:
+            raise KeyError(f"ImageTransformsFactory cannot create {name!r}. "
+                           f"Choices: {sorted(TRANSFORM_PRODUCTS)}")
+        return TRANSFORM_PRODUCTS[name](*args, **_kwargs)
+
+
+def _build_transform_pipeline(config: Config, split: str):
+    """DATA.IMAGE_TRANSFORM_TRAIN (or _VAL) as one Compose; the resizes
+    and crops take DATA.IMAGE_CROP_SIZE."""
+    from clip_lite_torch.data.transforms import Compose
+
+    _C = config
+    names = (_C.DATA.IMAGE_TRANSFORM_TRAIN if split == "train"
+             else _C.DATA.IMAGE_TRANSFORM_VAL)
+    tlist = []
+    for name in names:
+        base = name.split("::")[0]
+        if "resize" in base or "crop" in base:
+            tlist.append(ImageTransformsFactory.create(
+                name, _C.DATA.IMAGE_CROP_SIZE))
+        else:
+            tlist.append(ImageTransformsFactory.create(name))
+    return Compose(tlist)
+
+
+class PretrainingDatasetFactory:
+    """The pretraining dataset of MODEL.NAME: ``captions`` (CLRec records)
+    or ``random``; ``json`` reads JPEG files and waits for JPEG decode
+    (ROADMAP Queue 1, item 4)."""
+
+    @classmethod
+    def from_config(cls, config: Config, split: str = "train"):
+        from clip_lite_torch.data import datasets
+
+        _C = config
+        products = {"captions": datasets.CocoCaptionsDataset,
+                    "random": datasets.RandomDataset,
+                    "json": datasets.JsonDataset}
+        name = _C.MODEL.NAME
+        if name not in products:
+            raise KeyError(f"Unknown pretraining dataset {name!r}")
+        kwargs = dict(
+            data_root=_C.DATA.ROOT,
+            split=split,
+            mode=_C.DATA.NAME,
+            tokenizer_name=_C.MODEL.TEXTUAL.NETWORK_NAME,
+            vocab_size=_C.MODEL.TEXTUAL.VOCAB_SIZE,
+            seq_buckets=list(_C.DATA.SEQ_BUCKETS),
+            use_single_caption=_C.DATA.USE_SINGLE_CAPTION,
+            visual_self_supervised=_C.MODEL.VISUAL.SELF_SUPERVISED,
+            textual_self_supervised=_C.MODEL.TEXTUAL.SELF_SUPERVISED,
+            percentage=_C.DATA.USE_PERCENTAGE,
+            max_caption_length=_C.DATA.MAX_CAPTION_LENGTH,
+            image_transform=_build_transform_pipeline(_C, split),
+        )
+        if name == "captions":
+            kwargs["native_pipeline"] = _C.DATA.NATIVE_PIPELINE
+        return products[name](**kwargs)
+
+
+class NegativeSamplingDatasetFactory:
+    """The clustered hard-negative datasets (ROADMAP Queue 1, item 7)."""
+
+    @classmethod
+    def from_config(cls, config: Config, split: str = "train"):
+        raise NotImplementedError(
+            "cluster negative sampling lands with ROADMAP Queue 1, item 7")

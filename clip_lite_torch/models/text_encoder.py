@@ -8,8 +8,9 @@ vocabulary and width fixed by ``MPNetModel``'s defaults, as in the JAX
 package), BERT otherwise.  The sentence embedding is BERT's pooler output
 for a BERT name, the masked mean of the sequence output for any other
 (MPNet).  ``transform_embedding`` adds the two-layer head fc1, ReLU, fc2
-at ``txt_enc_dim``.  The ``glove`` and precomputed ``sbert`` modes need
-the data layer (ROADMAP Queue 1, item 4).
+at ``txt_enc_dim``.  The ``glove`` and precomputed ``sbert`` modes, with
+their word dictionaries and sentence vectors, wait for ROADMAP Queue 1,
+item 7.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ class TextEncoder(nn.Module):
         if mode not in ("train_sbert", "finetune_sbert"):
             raise NotImplementedError(
                 f"text mode {mode!r} is not ported yet: glove and precomputed "
-                "sbert wait for the data layer (ROADMAP Queue 1, item 4)")
+                "sbert, with their word dictionaries and sentence vectors, "
+                "wait for ROADMAP Queue 1, item 7")
         if "mpnet" in model_name:
             self.transformer = MPNetModel(
                 num_hidden_layers=num_hidden_layers, compute_dtype=compute_dtype,

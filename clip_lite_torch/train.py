@@ -1,18 +1,29 @@
-"""The pretraining loop, the counterpart of the loop of the JAX package's
-``train.py`` (lines 282-371 there), as a function over a batch source the
-caller supplies (the data loaders are not ported yet: ROADMAP Queue 1,
-item 4).
+"""The pretraining CLI, the counterpart of the JAX package's
+``train.py``: ``python -m clip_lite_torch.train --config <yaml> ...``
+trains on one card (``--device cpu`` for the CPU) from CLRec records
+through the host loader or, with ``DATA.DEVICE_CACHE``, through the
+device-resident cache, with val sweeps, checkpoints and
+``--resume-from``, as ``python -m clip_lite_tpu.train`` does.
 
-Per iteration: one train step; every ``log_every`` iterations the metrics
-come to the host, go to the log with the timer's stats and peak device
-memory, and to the metrics writer; every ``checkpoint_every`` iterations a
-validation sweep (when val batches are given) writes the mean loss
-components, and its mean ``total_loss`` is the metric of the checkpoint
-then written; in the last 20% of training a model-only climax snapshot
-every ``climax_freq`` iterations; at the end a final checkpoint.  With
-``resume_from`` the loop first restores the state from that checkpoint
-and starts the batch source at its iteration.  The cluster-negatives
-switch waits for ROADMAP Queue 1, item 4.
+``train_loop`` is the loop (lines 282-371 of the JAX ``train.py``) over
+any batch source.  Per iteration: one train step; every ``log_every``
+iterations the metrics come to the host, go to the log with the timer's
+stats and peak device memory, and to the metrics writer; every
+``checkpoint_every`` iterations a validation sweep (when val batches are
+given) writes the mean loss components, and its mean ``total_loss`` is
+the metric of the checkpoint then written; in the last 20% of training a
+model-only climax snapshot every ``climax_freq`` iterations; at the end a
+final checkpoint.  With ``resume_from`` the loop first restores the state
+from that checkpoint and starts the batch source at its iteration.
+
+``main`` refuses what the port does not have yet, naming its item of
+ROADMAP Queue 1: the switch to cluster negatives (item 7), pretrained
+weights (item 7), ``--profile-dir`` (item 8(b)) and
+``PARALLEL.STEPS_PER_CALL > 1`` (item 8(c)).
+
+Run (synthetic smoke, on the CPU):
+    python -m clip_lite_torch.train --device cpu \
+        --config-override MODEL.NAME random OPTIM.NUM_ITERATIONS 10
 """
 
 from __future__ import annotations
@@ -20,12 +31,40 @@ from __future__ import annotations
 import logging
 from typing import Callable, Dict, Iterable, Optional
 
-from clip_lite_torch.engine import TrainState, metrics_to_floats
-from clip_lite_torch.utils.checkpointing import CheckpointManager
+from clip_lite_torch.config import Config
+from clip_lite_torch.data.device_cache import DeviceDataCache
+from clip_lite_torch.data.pipeline import DataLoader, infinite_batches
+from clip_lite_torch.engine import (
+    TrainState,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    metrics_to_floats,
+)
+from clip_lite_torch.eval_utils import resolve_device
+from clip_lite_torch.factories import PretrainingDatasetFactory
+from clip_lite_torch.utils.checkpointing import CheckpointManager, peek_iteration
+from clip_lite_torch.utils.common import (
+    check_one_card,
+    common_parser,
+    common_setup,
+)
 from clip_lite_torch.utils.loggers import MetricsWriter
 from clip_lite_torch.utils.timers import Timer, device_mem_usage_mb
 
 logger = logging.getLogger("clip_lite_torch")
+
+parser = common_parser(description="Pretrain the VLInfo two-tower model.")
+group = parser.add_argument_group("Checkpointing and Logging")
+group.add_argument("--resume-from", default=None,
+                   help="Checkpoint path to resume from.")
+group.add_argument("--checkpoint-every", type=int, default=10000)
+group.add_argument("--log-every", type=int, default=500)
+group.add_argument("--climax-freq", type=int, default=1000,
+                   help="Checkpoint frequency in the last 20%% of training.")
+group.add_argument("--keep-recent", type=int, default=100)
+group.add_argument("--profile-dir", default=None,
+                   help="A trace of a few steps (ROADMAP Queue 1, item 8(b)).")
 
 
 def crossed_interval(iteration: int, interval: int,
@@ -130,4 +169,116 @@ def _validate(state: TrainState, eval_step: Callable, val_batches: Iterable,
     return means.get("total_loss")
 
 
-__all__ = ["crossed_interval", "train_loop"]
+def _check_supported(_C: Config, _A) -> None:
+    """The JAX CLI's refusals (its ``train.py:168-180``), then what the
+    port does not have yet."""
+    steps_per_call = max(1, _C.PARALLEL.STEPS_PER_CALL)
+    use_clusters = "clusters" in _C.DATA.NEGATIVE_SAMPLING
+    if _C.PARALLEL.ZERO1 and steps_per_call > 1:
+        raise ValueError("PARALLEL.ZERO1 is incompatible with "
+                         "PARALLEL.STEPS_PER_CALL > 1")
+    if _C.DATA.SEQ_BUCKETS and steps_per_call > 1:
+        raise ValueError("DATA.SEQ_BUCKETS is incompatible with "
+                         "PARALLEL.STEPS_PER_CALL > 1 (stacked batches "
+                         "must share one compiled shape)")
+    if _C.DATA.DEVICE_CACHE and (use_clusters or steps_per_call > 1):
+        raise ValueError("DATA.DEVICE_CACHE is incompatible with cluster "
+                         "negative sampling and STEPS_PER_CALL > 1")
+    if _C.DATA.DEVICE_CACHE and _C.MODEL.TEXTUAL.SELF_SUPERVISED:
+        raise ValueError("DATA.DEVICE_CACHE has no augmented-caption "
+                         "stream (visual SSL is supported on-device; "
+                         "textual SSL needs the host loader)")
+    if _C.DATA.DEVICE_CACHE and \
+            _C.DATA.CACHE_PLACEMENT not in ("sharded", "replicated"):
+        raise ValueError(f"Unknown placement {_C.DATA.CACHE_PLACEMENT!r}")
+    if use_clusters:
+        raise NotImplementedError("the switch to cluster negatives lands "
+                                  "with ROADMAP Queue 1, item 7")
+    if (_C.MODEL.VISUAL.PRETRAINED and _C.MODEL.VISUAL.PRETRAINED_PATH) or \
+            (_C.MODEL.TEXTUAL.PRETRAINED and _C.MODEL.TEXTUAL.PRETRAINED_PATH):
+        raise NotImplementedError("pretrained weights from local files land "
+                                  "with ROADMAP Queue 1, item 7")
+    if _A.profile_dir:
+        raise NotImplementedError("--profile-dir's step trace lands with "
+                                  "ROADMAP Queue 1, item 8(b)")
+    if steps_per_call > 1:
+        raise NotImplementedError("PARALLEL.STEPS_PER_CALL > 1 (the step "
+                                  "as one captured program) lands with "
+                                  "ROADMAP Queue 1, item 8(c)")
+
+
+def init_dataloaders(_C: Config, _A, device) -> tuple:
+    """The train and val loaders (the train one length-grouped under
+    DATA.SEQ_BUCKETS), pinning their batches for a CUDA ``device``."""
+    train_ds = PretrainingDatasetFactory.from_config(_C, split="train")
+    val_ds = PretrainingDatasetFactory.from_config(_C, split="val")
+    common = dict(num_workers=_A.cpu_workers, seed=_C.RANDOM_SEED,
+                  prefetch=_C.DATA.PREFETCH, drop_last=True,
+                  pin_memory=device.type == "cuda")
+    train_loader = DataLoader(
+        train_ds, _C.OPTIM.BATCH_SIZE, shuffle=True,
+        length_group_batches=(_C.DATA.LENGTH_GROUP_BATCHES
+                              if _C.DATA.SEQ_BUCKETS else 0), **common)
+    val_loader = DataLoader(val_ds, _C.OPTIM.BATCH_SIZE, shuffle=False,
+                            **common)
+    return train_loader, val_loader
+
+
+def main(_A) -> TrainState:
+    """Train as ``_A`` (this module's ``parser``) says; returns the final
+    state."""
+    check_one_card(_A)
+    device = resolve_device(_A.device)
+    _C = Config(_A.config, list(_A.config_override))
+    _check_supported(_C, _A)
+    common_setup(_C, _A, job_type="pretrain")
+    logger.info("Device: %s; batch %d", device, _C.OPTIM.BATCH_SIZE)
+
+    # The resume point before any loader is built (the JAX CLI decides
+    # its curriculum phase from it).
+    start_iteration = peek_iteration(_A.resume_from) if _A.resume_from else 0
+    train_loader, val_loader = init_dataloaders(_C, _A, device)
+    if _C.DATA.DEVICE_CACHE:
+        batches = DeviceDataCache.from_dataset(
+            train_loader.dataset, _C.OPTIM.BATCH_SIZE,
+            cache_size=_C.DATA.CACHE_IMAGE_SIZE,
+            crop_size=_C.DATA.IMAGE_CROP_SIZE,
+            seq_buckets=_C.DATA.SEQ_BUCKETS, seed=_C.RANDOM_SEED,
+            ssl_aug=_C.MODEL.VISUAL.SELF_SUPERVISED,
+            host_cache_dir=_C.DATA.CACHE_HOST_DIR, device=device)
+        batches.set_start(start_iteration)
+        logger.info("Device-resident dataset cache: %d items, %.2f GB, "
+                    "built in %.1f s; host pipeline out of the loop",
+                    len(train_loader.dataset), batches.memory_bytes() / 1e9,
+                    batches.build_seconds)
+    else:
+        batches = infinite_batches(train_loader, start_iteration)
+
+    state = create_train_state(_C, device=device)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    logger.info("Model: %s + %s | %.2fM params", _C.MODEL.VISUAL.NETWORK_NAME,
+                _C.MODEL.TEXTUAL.NAME, n_params / 1e6)
+    manager = CheckpointManager(_A.serialization_dir + _C.RUN_ID,
+                                keep_recent=_A.keep_recent, state=state)
+    writer = MetricsWriter(_A.serialization_dir)
+    try:
+        state = train_loop(
+            state, make_train_step(_C), batches, _C.OPTIM.NUM_ITERATIONS,
+            log_every=_A.log_every, eval_step=make_eval_step(_C),
+            val_batches=val_loader, writer=writer,
+            checkpoint_every=_A.checkpoint_every, climax_freq=_A.climax_freq,
+            manager=manager, resume_from=_A.resume_from)
+    finally:
+        writer.close()
+        if hasattr(batches, "close"):  # the loader's producer thread stops
+            batches.close()
+    logger.info("Done: %d iterations.", _C.OPTIM.NUM_ITERATIONS)
+    return state
+
+
+__all__ = ["crossed_interval", "init_dataloaders", "main", "parser",
+           "train_loop"]
+
+
+if __name__ == "__main__":
+    main(parser.parse_args())

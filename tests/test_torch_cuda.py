@@ -8,7 +8,8 @@ above 64, and bf16 below when launched directly), with the dispatch
 between them.
 K3, the normalize kernel, against its plain version bit for bit; K3's
 fused flip + colour jitter + normalize pass against the plain composition;
-the on-device preprocessing and the device-resident cache on the card.
+the on-device preprocessing and the device-resident cache on the card;
+the host loader's pinned batches, copied to the card.
 Checkpoints of a state on the card: an asynchronous save taken while the
 next step runs equals a synchronous save of the same step, bit for bit,
 and a checkpoint written from channels_last CUDA tensors loads in a CPU
@@ -616,6 +617,39 @@ def test_device_cache_batches_are_a_function_of_seed_and_step(device):
         assert any(torch.equal(a["image"][j], tile[y:y + crop, x:x + crop])
                    for y in range(cache - crop + 1)
                    for x in range(cache - crop + 1))
+
+
+class _Items:
+    """Twelve float32 images and ids, numbered."""
+
+    def __len__(self):
+        return 12
+
+    def __getitem__(self, i):
+        return {"image": np.full((8, 8, 3), i, np.float32),
+                "image_id": np.int64(i)}
+
+    def collate_fn(self, items):
+        return {k: np.stack([d[k] for d in items]) for k in items[0]}
+
+
+def test_loader_batches_are_pinned_and_reach_the_card(device):
+    """Each batch in its own pinned buffers, copied without blocking."""
+    from clip_lite_torch.data.pipeline import DataLoader, infinite_batches
+    from clip_lite_torch.engine import _to_device
+
+    loader = DataLoader(_Items(), 4, shuffle=False, pin_memory=True)
+    stream = infinite_batches(loader)
+    batches = [next(stream) for _ in range(5)]
+    stream.close()
+    assert all(t.is_pinned() for b in batches for t in b.values())
+    assert batches[0]["image"].data_ptr() != batches[1]["image"].data_ptr()
+    on_card = [_to_device(b, device) for b in batches]
+    torch.cuda.synchronize()
+    for b, c in zip(batches, on_card):
+        assert c["image"].device.type == "cuda"
+        assert torch.equal(c["image"].cpu(), b["image"])
+    assert on_card[3]["image_id"].tolist() == [0, 1, 2, 3]  # the second epoch
 
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

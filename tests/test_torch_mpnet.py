@@ -299,6 +299,6 @@ def test_slice_jax_paths_and_decay_sets_agree(mpnet_reference, mpnet_port_run):
 
 def test_text_modes_without_data_layer_raise():
     for mode in ("glove", "sbert"):
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             PretrainingModelFactory.from_config(
                 Config(FLAGSHIP, MPNET + ["MODEL.TEXTUAL.NAME", mode]))

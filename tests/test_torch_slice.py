@@ -159,7 +159,8 @@ def test_config_copy_matches_jax(path):
         JConfig(path, overrides)._C.to_dict()
 
 
-_FORBIDDEN = {"jax", "flax", "optax", "clip_lite_tpu", "jaxlib", "msgpack"}
+_FORBIDDEN = {"jax", "flax", "optax", "clip_lite_tpu", "jaxlib", "msgpack",
+              "cv2", "lmdb"}
 
 
 def _port_sources():
