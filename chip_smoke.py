@@ -143,6 +143,32 @@ caught:
    built through load_host from the train dataset (512 tiles of 256 px;
    its build seconds and bytes), K3's fused pass once a step, K1/K2 as in
    A; its median step.
+10c. The downstream eval CLIs on JPEG files: the seeded flagship written
+   as the JAX package's model-only checkpoint; synthetic trees of 480 x 640
+   JPEGs (PIL, seeded) in each dataset's layout: COCO retrieval (256
+   images, five captions each), ImageNet (10 classes of 32 train and 16
+   val images), VOC07 (20 classes, 256 trainval and 256 test images) and
+   the gender-labelled COCO subset (128 images with boxes).  The host
+   side first: images/s of the decode alone and of decode + transforms on
+   one thread (the decode's share of an item), and of the loader.  Then
+   each CLI's main as ``python -m clip_lite_torch.<cli>`` runs it, K1's
+   count set to 0 just before and read just after each: retrieval (K1 12
+   x 10 caption batches), zero-shot (12), bias_eda --prompt (12 x 2),
+   linear_clf --frozen (20 steps of 64) and a fine-tune (5 steps), voc_clf
+   (20 classes x 4 costs x 3 folds of the port's SVM, float64 on the
+   card) and voc_det (the Detectron2 export).  Checks: every recall and
+   top-1 a percentage, K1's launches and the tensor-core route, finite
+   unit-norm text embeddings that agree with the plain attention's on the
+   card (same checkpoint) within TEXT_TOL bf16, finite losses and the
+   probe's checkpoints in the JAX tree, every SVM at its gradient
+   tolerance and one against the same solver on the CPU within
+   SVM_REL_TOL, the export's 265 tensors with the checkpoint's stem.  Each
+   CLI's JSON and seconds are printed.  Then the solver alone at VOC07's
+   real fold shape (VOC07_SVM: more samples than features, so the active
+   set moves and fits take several Newton steps), on seeded unit-norm
+   features, for three positive shares x three costs, each fit on the card
+   and on the CPU: every fit converged, some in more than one Newton step,
+   decision values within SVM_REL_TOL.
 11. One JSON line listing every ported kernel (K3's standalone and fused
    entry points each with their own launches); then the device line last.
 """
@@ -1642,6 +1668,443 @@ def phase_data_cli(float_step: dict) -> dict:
     return out
 
 
+# The eval phase: synthetic JPEG trees at COCO's 480 x 640, and the CLIs'
+# sizes.
+VOC_CLASSES = ("aeroplane bicycle bird boat bottle bus car cat chair cow "
+               "diningtable dog horse motorbike person pottedplant sheep sofa "
+               "train tvmonitor").split()
+EVAL_COCO, EVAL_VOC, EVAL_GENDER = 256, 256, 128
+EVAL_IMAGENET = (10, 32, 16)  # classes, train and val images a class
+PROBE_STEPS, FINETUNE_STEPS, PROBE_BATCH = 20, 5, 64
+# The SVM on the card against the same solver on the CPU (both float64, both
+# at their optimum to a gradient 1e-10 of its start): decision values.
+SVM_REL_TOL = 1e-6
+# VOC07 at its real size: 5,011 trainval images of the flagship's 2,048-d
+# pooled features, so each 3-fold fit trains on 3,340 of them; positive
+# shares across VOC's range of classes, and costs of the CLI's sweep.
+VOC07_SVM = dict(n=5011, d=2048, shares=(0.03, 0.1, 0.4),
+                 costs=(0.1, 1.0, 10.0))
+
+
+def svm_card_vs_cpu(svm, fit, x_train: np.ndarray, labels: np.ndarray,
+                    x_test: np.ndarray, cost: float) -> dict:
+    """One SVM of the VOC07 eval's class weights fitted on the card and on
+    the CPU, float64: its Newton steps, seconds, gradient norms and
+    convergence on each, and the largest difference of their decision
+    values on ``x_test``, relative to the CPU's largest."""
+    from clip_lite_torch.voc_clf import CLASS_WEIGHT
+
+    out = {"steps": {}, "seconds": {}, "grad_norm": {}, "converged": True}
+    scores = {}
+    for device in ("cuda", "cpu"):
+        x = torch.as_tensor(x_train, dtype=torch.float64, device=device)
+        t0 = time.perf_counter()
+        clf = fit(svm.LinearSVC(cost, CLASS_WEIGHT), x, labels)
+        scores[device] = clf.decision_function(torch.as_tensor(
+            x_test, dtype=torch.float64, device=device)).cpu().numpy()
+        out["seconds"][device] = time.perf_counter() - t0
+        out["steps"][device] = clf.n_iter_
+        out["grad_norm"][device] = clf.grad_norm_
+        out["converged"] &= clf.converged_
+    out["rel"] = float(np.abs(scores["cuda"] - scores["cpu"]).max()
+                       / np.abs(scores["cpu"]).max())
+    return out
+
+
+def write_jpeg_trees(root: str, rng: np.random.Generator) -> dict:
+    """The downstream datasets' layouts under ``root``, every image a
+    480 x 640 or 640 x 480 JPEG (quality 90, PIL) of seeded smooth
+    patterns: COCO retrieval (EVAL_COCO images, five captions each),
+    ImageNet (EVAL_IMAGENET), VOC07 (20 classes, EVAL_VOC trainval and
+    EVAL_VOC test images, labels absent, difficult or present) and the
+    gender-labelled COCO subset (EVAL_GENDER images with person boxes).
+    Returns each dataset's root."""
+    import os
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    bases = []
+    for _ in range(8):
+        f, p = rng.uniform(0.005, 0.05, 6), rng.uniform(0, 6, 3)
+        img = np.stack([np.sin(xx * f[c] + p[c]) * np.cos(yy * f[3 + c])
+                        for c in range(3)], axis=-1)
+        bases.append(((img + 1) * 127.5).astype(np.uint8))
+    jobs = []
+
+    def add(path):
+        jobs.append((path, int(rng.integers(8)), int(rng.integers(480)),
+                     int(rng.integers(640)), bool(rng.integers(2))))
+
+    def save(job):
+        path, base, dy, dx, portrait = job
+        arr = np.roll(bases[base], (dy, dx), axis=(0, 1))
+        if portrait:
+            arr = arr.transpose(1, 0, 2)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(np.ascontiguousarray(arr)).save(path, "JPEG",
+                                                        quality=90)
+
+    def dump_json(path, obj):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(obj, f)
+
+    trees = {k: os.path.join(root, k) for k in ("coco", "imagenet", "VOC2007",
+                                                "coco_gender")}
+    anns = []
+    for i in range(EVAL_COCO):
+        add(os.path.join(trees["coco"], "val2017", f"{i + 1:012d}.jpg"))
+        anns += [{"image_id": i + 1, "caption": c} for c in captions(rng, 5)]
+    dump_json(os.path.join(trees["coco"], "annotations",
+                           "captions_val2017.json"), {"annotations": anns})
+    n_classes, n_train, n_val = EVAL_IMAGENET
+    for c in range(n_classes):
+        for split, n in (("train", n_train), ("val", n_val)):
+            for i in range(n):
+                add(os.path.join(trees["imagenet"], split, f"n{c:08d}",
+                                 f"n{c:08d}_{i}.JPEG"))
+    voc = trees["VOC2007"]
+    for split, start in (("trainval", 0), ("test", EVAL_VOC)):
+        names = [f"{start + i:06d}" for i in range(EVAL_VOC)]
+        for name in names:
+            add(os.path.join(voc, "JPEGImages", f"{name}.jpg"))
+        for cls in VOC_CLASSES:
+            labels = rng.choice([-1, 0, 1], EVAL_VOC, p=[0.6, 0.1, 0.3])
+            labels[:2] = (1, -1)
+            path = os.path.join(voc, "ImageSets", "Main", f"{cls}_{split}.txt")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                f.writelines(f"{n} {lab:2d}\n" for n, lab in zip(names, labels))
+    gender = []
+    for i in range(EVAL_GENDER):
+        name = f"val2014/COCO_val2014_{i:012d}.jpg"
+        add(os.path.join(trees["coco_gender"], name))
+        x0, y0 = (int(v) for v in rng.integers(0, 300, 2))
+        gender.append({"image_id": 5000 + i, "filename": name,
+                       "gender": "man" if i % 2 else "woman",
+                       "boxes": [[x0, y0, x0 + int(rng.integers(5, 200)),
+                                  y0 + int(rng.integers(5, 200))]]})
+    path = os.path.join(trees["coco_gender"], "gender_annotations", "val.pkl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(gender, f)
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        list(pool.map(save, jobs))
+    trees["n_images"] = len(jobs)
+    return trees
+
+
+def phase_eval_cli() -> dict:
+    """The downstream eval CLIs (each ``main`` as ``python -m
+    clip_lite_torch.<cli>`` calls it) on the card, over synthetic JPEG trees,
+    from the flagship's seeded weights written as the JAX package's
+    model-only checkpoint: retrieval, zero-shot, the linear probe
+    (``--frozen``) and a fine-tune, the VOC07 SVMs, the bias analysis's
+    ``--prompt`` and the Detectron2 export.  Each run with K1's count set
+    to 0 just before and read just after."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import clip_lite_torch.bias_eda as bias_eda
+    import clip_lite_torch.linear_clf as linear_clf
+    import clip_lite_torch.retrieval as retrieval
+    import clip_lite_torch.voc_clf as voc_clf
+    import clip_lite_torch.voc_det as voc_det
+    import clip_lite_torch.zero_shot as zero_shot
+    from clip_lite_torch import bridge
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.pipeline import DataLoader
+    from clip_lite_torch.data.readers import read_image
+    from clip_lite_torch.eval_utils import EncoderBundle
+    from clip_lite_torch.factories import (
+        DownstreamDatasetFactory, TokenizerFactory)
+    from clip_lite_torch.ops.attention import fused_short_attention
+    from clip_lite_torch.utils import msgpack_io, svm
+    from clip_lite_torch.utils.checkpointing import load_model_variables
+
+    cfg = Config(str(FLAGSHIP))
+    n_layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+    workers = os.cpu_count() or 1
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    logger = logging.getLogger("clip_lite_torch")
+    real_encode_texts = EncoderBundle.encode_texts
+    real_fit = svm.LinearSVC.fit
+    real_extract = voc_clf.extract_features
+    real_make_step = linear_clf.make_train_step
+    phase_t0 = time.perf_counter()
+    out = {"launches": {}, "seconds": {}}
+    try:
+        t0 = time.perf_counter()
+        seeded = EncoderBundle(cfg, batch_size=BATCH, device="cuda")
+        ckpt = os.path.join(root, "climax_model_1.msgpack")
+        n_bytes = msgpack_io.write(ckpt, bridge.to_jax_variables(
+            seeded.model.state_dict(), seeded.model))
+        stem = bridge.to_numpy(seeded.model.image_encoder.backbone.stem.conv.weight)
+        del seeded
+        trees = write_jpeg_trees(root, np.random.default_rng(31))
+        log(f"eval: the seeded flagship written as the JAX package's model-only "
+            f"checkpoint ({n_bytes} bytes) and {trees['n_images']} JPEGs of 480 "
+            f"x 640 written in {time.perf_counter() - t0} s")
+
+        # The host side of an eval: decode alone, decode + transforms, one
+        # thread, then the loader over the COCO tree.
+        dataset = DownstreamDatasetFactory.from_config(
+            Config(None, ["DATA.ROOT", trees["coco"]]), split="val")
+        n = min(64, len(dataset))
+        t0 = time.perf_counter()
+        for path in dataset.image[:n]:
+            read_image(path)
+        decode_s = (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for i in range(n):
+            dataset[i]
+        item_s = (time.perf_counter() - t0) / n
+        loader = DataLoader(dataset, BATCH, shuffle=False, drop_last=False,
+                            num_workers=workers, background=False)
+        t0 = time.perf_counter()
+        n_loaded = sum(len(b["image"]) for b in loader)
+        loader_ips = n_loaded / (time.perf_counter() - t0)
+        out.update(decode_ips=1 / decode_s, item_ips=1 / item_s,
+                   loader_ips=loader_ips, decode_share=decode_s / item_s)
+        log(f"eval: one thread decodes {1 / decode_s} images/s (480 x 640 JPEG, "
+            f"PIL) and decodes + transforms (smallest edge 224, centre crop, "
+            f"normalize) {1 / item_s} images/s: decode {decode_s / item_s} of "
+            f"an item; the loader with {workers} threads {loader_ips} images/s "
+            f"over {n_loaded}")
+        del dataset, loader
+
+        recorded = {"cli": None, "texts": {}, "fits": [], "features": [],
+                    "losses": []}
+
+        def encode_texts(self, texts, tokenizer):
+            emb = real_encode_texts(self, texts, tokenizer)
+            recorded["texts"].setdefault(recorded["cli"], []).append(
+                (list(texts), self.batch_size, emb))
+            return emb
+
+        def fit(self, x, labels):
+            recorded["fits"].append(real_fit(self, x, labels))
+            return self
+
+        def extract_features(*a, **kw):
+            recorded["features"].append(real_extract(*a, **kw))
+            return recorded["features"][-1]
+
+        def make_train_step():
+            step = real_make_step()
+
+            def recorded_step(state, batch):
+                state, loss = step(state, batch)
+                recorded["losses"][-1].append(loss)
+                return state, loss
+            return recorded_step
+
+        EncoderBundle.encode_texts = encode_texts
+        svm.LinearSVC.fit = fit
+        voc_clf.extract_features = extract_features
+        linear_clf.make_train_step = make_train_step
+
+        def run(name, module, data_root, text_batches, flags=(), overrides=()):
+            """``module.main`` on the card with K1's counts set to 0 just
+            before and read just after."""
+            recorded["cli"] = name
+            argv = [str(a) for a in (
+                "--serialization-dir", os.path.join(root, "out", name),
+                "--cpu-workers", workers, "--pretrain-config", FLAGSHIP,
+                *flags, "--config-override", "DATA.ROOT", data_root,
+                *overrides)]
+            args = module.parser.parse_args(argv)
+            fused_short_attention.launches = 0
+            fused_short_attention.tc_launches = 0
+            t0 = time.perf_counter()
+            result = module.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"attention_fwd": fused_short_attention.launches,
+                        "attention_fwd_tc": fused_short_attention.tc_launches}
+            out["launches"][name], out["seconds"][name] = \
+                launches["attention_fwd"], wall
+            log(f"eval ({name}): {json.dumps(result)} in {wall} s; launches "
+                f"{launches}")
+            if launches["attention_fwd"] != n_layers * text_batches:
+                raise AssertionError(f"({name}) K1 launched "
+                                     f"{launches['attention_fwd']} times, "
+                                     f"expected {n_layers * text_batches}")
+            check_routes(cfg, cfg.DATA.MAX_CAPTION_LENGTH, launches)
+            return args, result
+
+        def in_range(name, value):
+            if not (math.isfinite(value) and 0.0 <= value <= 100.0):
+                raise AssertionError(f"({name}) {value} is no percentage")
+
+        ckpt_flag = ("--checkpoint-path", ckpt)
+        n_caps = 5 * EVAL_COCO
+        _, recalls = run("retrieval", retrieval, trees["coco"],
+                         math.ceil(n_caps / BATCH),
+                         ckpt_flag + ("--batch-size", BATCH))
+        for v in recalls.values():
+            in_range("retrieval", v)
+        n_classes = EVAL_IMAGENET[0]
+        _, top1 = run("zero_shot", zero_shot, trees["imagenet"],
+                      math.ceil(n_classes / BATCH),
+                      ckpt_flag + ("--batch-size", BATCH))
+        in_range("zero_shot", top1)
+        # bias_eda: the definitional pairs in one batch of 64, the prompt in
+        # another.
+        _, bias = run("bias_eda", bias_eda, trees["coco_gender"], 2,
+                      ckpt_flag + ("--prompt", "a photo of a doctor"))
+        if not all(math.isfinite(v) for v in bias.values()
+                   if isinstance(v, float)):
+            raise AssertionError(f"(bias_eda) {bias}")
+        texts = recorded["texts"]
+        shapes = {k: [e.shape for _, _, e in v] for k, v in texts.items()}
+        if shapes != {"retrieval": [(n_caps, 2048)],
+                      "zero_shot": [(n_classes, 2048)],
+                      "bias_eda": [(12, 2048), (1, 2048)]}:
+            raise AssertionError(f"text embeddings of shapes {shapes}")
+        for name, batches in texts.items():
+            for _, _, emb in batches:
+                norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1).max())
+                if not np.isfinite(emb).all() or norm_err > 1e-4:
+                    raise AssertionError(f"({name}) text embeddings: finite "
+                                         f"{np.isfinite(emb).all()}, norms "
+                                         f"off 1 by {norm_err}")
+
+        # Each CLI's text embeddings against the plain attention on the card,
+        # same checkpoint, same batch size.
+        plain_cfg = Config(str(FLAGSHIP), ["MODEL.TEXTUAL.FUSED_ATTENTION",
+                                           "false"])
+        tok = TokenizerFactory.from_config(plain_cfg)
+        plain = EncoderBundle(plain_cfg, ckpt, device="cuda")
+        agree = {}
+        for name, batches in texts.items():
+            for captions_, batch_size, emb in batches:
+                plain.batch_size = batch_size
+                got = text_agreement(emb, real_encode_texts(plain, captions_,
+                                                            tok))
+                agree[name] = {k: (min if k == "min_cos" else max)(
+                    v, agree.get(name, got)[k]) for k, v in got.items()}
+        del plain
+        tol = TEXT_TOL["bfloat16"]
+        log(f"eval: text embeddings, K1 vs plain attention, bfloat16: {agree} "
+            f"(tol {tol})")
+        for name, got in agree.items():
+            if got["max_abs"] > tol["max_abs"] or got["min_cos"] < tol["min_cos"]:
+                raise AssertionError(f"({name}) text embeddings disagree: {got}")
+
+        # The linear probe and a fine-tune on the ImageNet tree.
+        sizes = ["OPTIM.BATCH_SIZE", PROBE_BATCH, "OPTIM.WARMUP_STEPS", 2]
+        for name, flags, steps in (("linear_probe", ("--frozen",), PROBE_STEPS),
+                                   ("fine_tune", (), FINETUNE_STEPS)):
+            recorded["losses"].append([])
+            args, top1 = run(name, linear_clf, trees["imagenet"], 0,
+                             ckpt_flag + flags + ("--log-every", 5),
+                             sizes + ["OPTIM.NUM_ITERATIONS", steps])
+            in_range(name, top1)
+            losses = [float(v) for v in recorded["losses"][-1]]
+            files = sorted(os.listdir(os.path.join(args.serialization_dir,
+                                                   "linear_clf")))
+            tree = load_model_variables(os.path.join(
+                args.serialization_dir, "linear_clf",
+                f"checkpoint_{steps}.msgpack"))
+            log(f"eval ({name}): {steps} steps of {PROBE_BATCH}, CE {losses}; "
+                f"checkpoints {files}, params {sorted(tree['params'])}")
+            if len(losses) != steps or not all(map(math.isfinite, losses)) \
+                    or "checkpoint_best.msgpack" not in files \
+                    or sorted(tree["params"]) != ["backbone", "fc"]:
+                raise AssertionError(f"({name}) did not train as expected")
+
+        # The VOC07 SVMs, then the same solver on the card and on the CPU.
+        _, maps = run("voc_clf", voc_clf, trees["VOC2007"], 0, ckpt_flag)
+        in_range("voc_clf", maps[ckpt])
+        fits = recorded["fits"]
+        grad = max(f.grad_norm_ for f in fits)
+        steps = [f.n_iter_ for f in fits]
+        log(f"eval (voc_clf): {len(fits)} SVM fits in float64 on the card, "
+            f"Newton steps {min(steps)}-{max(steps)}, largest gradient norm at "
+            f"a solution {grad}")
+        if not all(f.converged_ for f in fits):
+            raise AssertionError("an SVM stopped before its gradient tolerance")
+        (tr_f, tr_l), (te_f, _) = recorded["features"][:2]
+        if tr_f.shape != (EVAL_VOC, 2048) or te_f.shape != (EVAL_VOC, 2048):
+            raise AssertionError(f"VOC features {tr_f.shape} {te_f.shape}")
+        keep = tr_l[:, 0] != -1
+        got = svm_card_vs_cpu(svm, real_fit, tr_f[keep], tr_l[keep, 0], te_f,
+                              1.0)
+        rel = got["rel"]
+        out["svm"] = dict(fits=len(fits), max_grad_norm=grad, card_vs_cpu=rel)
+        log(f"eval (voc_clf): class 0 at cost 1, card against CPU: {got}; "
+            f"decision values within {rel} (tol {SVM_REL_TOL})")
+        if rel > SVM_REL_TOL or not got["converged"]:
+            raise AssertionError(f"the SVM on the card and on the CPU: {got}")
+
+        # The solver alone at VOC07's real fold shape: 3,340 training
+        # samples over 2,048 features, seeded unit-norm (non-negative, as
+        # pooled ReLU features are) with labels from a noisy linear score.
+        rng = np.random.default_rng(37)
+        n, d = VOC07_SVM["n"], VOC07_SVM["d"]
+        x = np.abs(rng.standard_normal((n, d)))
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        score = (x - x.mean(0)) @ rng.standard_normal(d)
+        score /= score.std()
+        tr_idx, va_idx = next(svm.kfold(n, 3, seed=0))
+        voc07 = []
+        for share in VOC07_SVM["shares"]:
+            noisy = score + rng.standard_normal(n)
+            y = (noisy > np.quantile(noisy, 1 - share)).astype(np.int64)
+            for cost in VOC07_SVM["costs"]:
+                voc07.append(svm_card_vs_cpu(svm, real_fit, x[tr_idx],
+                                             y[tr_idx], x[va_idx], cost))
+                log(f"eval (SVM at VOC07's fold shape {len(tr_idx)} x {d}): "
+                    f"positives {share}, cost {cost}: {voc07[-1]}")
+        steps = [f["steps"]["cuda"] for f in voc07]
+        out["svm"]["voc07_shape"] = dict(
+            fits=len(voc07), newton_steps=steps,
+            card_vs_cpu=max(f["rel"] for f in voc07),
+            card_s=sum(f["seconds"]["cuda"] for f in voc07),
+            cpu_s=sum(f["seconds"]["cpu"] for f in voc07))
+        log(f"eval (SVM at VOC07's fold shape): {out['svm']['voc07_shape']}")
+        if not all(f["converged"] for f in voc07) or max(steps) < 2 \
+                or out["svm"]["voc07_shape"]["card_vs_cpu"] > SVM_REL_TOL:
+            raise AssertionError("the SVM at VOC07's fold shape: every fit "
+                                 "converged, some in more than one Newton "
+                                 "step, card and CPU within SVM_REL_TOL")
+
+        # The Detectron2 export.
+        output = os.path.join(root, "backbone_d2.pkl")
+        run("voc_det", voc_det, "unused", 0, ckpt_flag + ("--output", output))
+        with open(output, "rb") as f:
+            d2 = pickle.load(f)["model"]
+        # ResNet-50: the stem, 16 bottlenecks of three cells and 4
+        # projections, five tensors a cell.
+        if len(d2) != 5 * (1 + 16 * 3 + 4) or not all(
+                v.dtype == np.float32 and np.isfinite(v).all()
+                for v in d2.values()) or not np.array_equal(
+                    d2["stem.conv1.weight"], stem):
+            raise AssertionError("the Detectron2 export does not hold the "
+                                 "checkpoint's tower")
+        out["wall_s"] = time.perf_counter() - phase_t0
+        log(f"eval: phase in {out['wall_s']} s; CLI seconds {out['seconds']}")
+    finally:
+        EncoderBundle.encode_texts = real_encode_texts
+        svm.LinearSVC.fit = real_fit
+        voc_clf.extract_features = real_extract
+        linear_clf.make_train_step = real_make_step
+        for handler in logger.handlers:  # the CLIs', into the directory
+            handler.close()
+        logger.handlers.clear()
+        logger.propagate = True
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def state_tensors(state) -> dict:
     """Copies of every tensor of a train state: parameters, BatchNorm
     statistics, the optimizer's trace and slow weights."""
@@ -2011,6 +2474,7 @@ def main() -> int:
     norm = phase_normalize()
     uint8 = phase_uint8_training(training)
     data = phase_data_cli(training)
+    evals = phase_eval_cli()
     cli = {"cli_host_loader": data["a"]["launches"],
            "cli_resumed": data["c"]["launches"],
            "cli_device_cache": data["b"]["launches"]}
@@ -2024,7 +2488,9 @@ def main() -> int:
                    "uint8_training": uint8["launches"]["attention_fwd"],
                    **{k: n["attention_fwd"] for k, n in by_run.items()},
                    **{k: n["attention_fwd"] for k, n in cli.items()},
-                   "cli_bundle": data["bundle_launches"]}
+                   "cli_bundle": data["bundle_launches"],
+                   **{f"eval_{k}": n for k, n in evals["launches"].items()
+                      if n}}
     k2_launches = {"training": training["launches"]["attention_bwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"],

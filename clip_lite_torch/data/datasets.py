@@ -4,27 +4,34 @@ padded to ``max_caption_length`` (and trimmed per batch to
 ``DATA.SEQ_BUCKETS``), and randomness from a generator per (seed, epoch,
 index), so that the port's items are the JAX package's for the same seed.
 
-Here: ``RandomDataset`` and ``CocoCaptionsDataset`` (CLRec records, the
-Python path) in the ``train_sbert`` mode.  Like the JAX package's Python
-path, an item's image is float32 whatever the transforms: without
+Here: the pretraining datasets ``RandomDataset``, ``CocoCaptionsDataset``
+(CLRec records, the Python path) and ``JsonDataset`` (ALBEF-style json
+over image files) in the ``train_sbert`` mode, and the downstream eval
+datasets (VOC07, iNaturalist 2018, ImageNet, COCO and Flickr30k
+retrieval, the gender-labelled COCO subset).  Image files are decoded by
+:func:`~clip_lite_torch.data.readers.read_image`.  Like the JAX package's
+Python path, an item's image is float32 whatever the transforms: without
 ``normalize`` in the list the model trains on 0-255 floats (ROADMAP
 Queue 3 keeps this quirk, as the JAX package has it).
 
 Not here yet, each raising with its item of ROADMAP Queue 1: the ``glove``
 and ``sbert`` modes, the self-supervised views and the clustered hard
-negatives (item 7); JPEG images, ``JsonDataset`` and the native batch
-path (item 4); the downstream eval datasets (item 6).
+negatives (item 7); the native batch path (item 4).
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import os
+import pickle
+from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from clip_lite_torch.data import transforms as T
-from clip_lite_torch.data.readers import JPEG_PENDING, CocoCaptionsRecordReader
+from clip_lite_torch.data.readers import CocoCaptionsRecordReader, read_image
 from clip_lite_torch.data.tokenizers import get_hf_tokenizer
 
 NATIVE_PENDING = ("DATA.NATIVE_PIPELINE (the native JPEG batch path) is not "
@@ -180,6 +187,44 @@ class RandomDataset(CaptionDatasetBase):
         return np.full(self.length, bound, np.int32)
 
 
+class JsonDataset(CaptionDatasetBase):
+    """ALBEF-style json caption files, ``[{"image": path, "caption": str or
+    list}]``, their entries shuffled once by ``default_rng(0)``; with
+    ``percentage`` below 100 the first part of the shuffled list is
+    dropped."""
+
+    def __init__(self, json_files: List[str], data_root: str = "",
+                 split: str = "train", percentage: float = 100.0, **kw):
+        super().__init__(**kw)
+        self.ann: List[dict] = []
+        for f in json_files:
+            with open(f) as fh:
+                self.ann += json.load(fh)
+        np.random.default_rng(0).shuffle(self.ann)
+        if percentage < 100.0:
+            drop = int((100.0 - percentage) / 100.0 * len(self.ann))
+            self.ann = self.ann[drop:]
+
+    def __len__(self):
+        return len(self.ann)
+
+    def __getitem__(self, idx: int):
+        rng = self._rng(idx)
+        ann = self.ann[idx]
+        captions = ann["caption"]
+        if not isinstance(captions, list):
+            captions = [captions]
+        return self._prepare(idx, read_image(ann["image"]), captions, rng)
+
+    def caption_max_token_lengths(self) -> Optional[np.ndarray]:
+        out = np.empty(len(self.ann), np.int32)
+        for i, ann in enumerate(self.ann):
+            caps = ann["caption"]
+            caps = caps if isinstance(caps, list) else [caps]
+            out[i] = max(self._caption_token_length(c) for c in caps)
+        return out
+
+
 class CocoCaptionsDataset(CaptionDatasetBase):
     """The pretraining dataset over a CLRec split,
     ``{data_root}/coco_{split}_{mode}2017.clrec``."""
@@ -225,17 +270,225 @@ def _pending(name: str, why: str) -> type:
                                    "__doc__": f"Not ported yet: {why}."})
 
 
-JsonDataset = _pending("JsonDataset", "it reads JPEG files; " + JPEG_PENDING)
 CocoCaptionsClusteredDataset = _pending(
     "CocoCaptionsClusteredDataset",
     "the clustered hard negatives land with ROADMAP Queue 1, item 7")
-_DOWNSTREAM = "the downstream evals land with ROADMAP Queue 1, item 6"
-VOC07ClassificationDataset = _pending("VOC07ClassificationDataset", _DOWNSTREAM)
-INaturalist2018Dataset = _pending("INaturalist2018Dataset", _DOWNSTREAM)
-ImageNetDataset = _pending("ImageNetDataset", _DOWNSTREAM)
-ReEvalDataset = _pending("ReEvalDataset", _DOWNSTREAM)
-FlickrReEvalDataset = _pending("FlickrReEvalDataset", _DOWNSTREAM)
-CocoObjectGender = _pending("CocoObjectGender", _DOWNSTREAM)
+
+
+# ---------------------------------------------------------------------------
+# Downstream eval datasets: an image file per item through the transforms
+# (drawing from the item's generator), float32 out.
+# ---------------------------------------------------------------------------
+
+class _ImageFileDataset(Dataset):
+    image_transform: Callable
+
+    def _image(self, path: str, idx: int) -> np.ndarray:
+        """The image file at ``path``, transformed with item ``idx``'s
+        generator."""
+        out = self.image_transform(image=read_image(path), rng=self._rng(idx))
+        return np.asarray(out["image"], np.float32)
+
+    @staticmethod
+    def collate_fn(items):
+        return {k: np.stack([d[k] for d in items]) for k in items[0]}
+
+
+class VOC07ClassificationDataset(_ImageFileDataset):
+    """PASCAL VOC 2007 multi-label classification over
+    ``ImageSets/Main/<class>_<split>.txt`` and ``JPEGImages/``.  Labels per
+    class: 1 present, 0 absent, -1 ignore (VOC's "difficult")."""
+
+    def __init__(self, data_root: str, split: str = "trainval",
+                 image_transform: Optional[Callable] = None):
+        self.image_transform = image_transform or T.DEFAULT_IMAGE_TRANSFORM
+        ann_paths = sorted(glob.glob(
+            os.path.join(data_root, "ImageSets", "Main", f"*_{split}.txt")))
+        self.class_names = [os.path.basename(p).split("_")[0]
+                            for p in ann_paths]
+        labels: Dict[str, np.ndarray] = defaultdict(
+            lambda: -np.ones(len(self.class_names), np.int32))
+        for cls_num, ann_path in enumerate(ann_paths):
+            with open(ann_path) as f:
+                for line in f:
+                    name, orig = line.strip().split()
+                    orig = int(orig)
+                    # VOC -1 (absent) -> 0; VOC 0 (difficult) -> -1 (ignore)
+                    labels[name][cls_num] = 0 if orig == -1 else \
+                        -1 if orig == 0 else 1
+        self.instances = [
+            (os.path.join(data_root, "JPEGImages", f"{name}.jpg"), lab)
+            for name, lab in labels.items()]
+
+    def __len__(self):
+        return len(self.instances)
+
+    def __getitem__(self, idx: int):
+        path, label = self.instances[idx]
+        return {"image": self._image(path, idx),
+                "label": np.asarray(label, np.int64)}
+
+
+class INaturalist2018Dataset(_ImageFileDataset):
+    """iNaturalist 2018 from ``annotations/{split}2018.json``."""
+
+    def __init__(self, data_root: str, split: str = "train",
+                 image_transform: Optional[Callable] = None):
+        self.image_transform = image_transform or T.DEFAULT_IMAGE_TRANSFORM
+        with open(os.path.join(data_root, "annotations",
+                               f"{split}2018.json")) as f:
+            annotations = json.load(f)
+        self.image_id_to_file_path = {
+            ann["id"]: os.path.join(data_root, ann["file_name"])
+            for ann in annotations["images"]}
+        self.instances = [(a["image_id"], a["category_id"])
+                          for a in annotations["annotations"]]
+
+    def __len__(self):
+        return len(self.instances)
+
+    def __getitem__(self, idx: int):
+        image_id, label = self.instances[idx]
+        return {"image": self._image(self.image_id_to_file_path[image_id], idx),
+                "label": np.int64(label)}
+
+
+class ImageNetDataset(_ImageFileDataset):
+    """ImageNet in its directory-per-class layout, ``{split}/<class>/*``,
+    classes and files in sorted order; ``percentage`` below 100 keeps the
+    first part of each class's train files (the data-efficiency
+    ablations)."""
+
+    def __init__(self, data_root: str, split: str = "train",
+                 image_transform: Optional[Callable] = None,
+                 percentage: float = 100.0):
+        self.image_transform = image_transform or T.DEFAULT_IMAGE_TRANSFORM
+        split_dir = os.path.join(data_root, split)
+        classes = sorted(d for d in os.listdir(split_dir)
+                         if os.path.isdir(os.path.join(split_dir, d)))
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples: List[Tuple[str, int]] = []
+        for c in classes:
+            files = sorted(glob.glob(os.path.join(split_dir, c, "*")))
+            if percentage < 100.0 and split == "train":
+                keep = max(1, int(len(files) * percentage / 100.0))
+                files = files[:keep]
+            self.samples += [(f, self.class_to_idx[c]) for f in files]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx: int):
+        path, label = self.samples[idx]
+        return {"image": self._image(path, idx), "label": np.int64(label)}
+
+
+class _RetrievalDataset(_ImageFileDataset):
+    """Images with their captions: ``text`` (cleaned by ``pre_caption``),
+    ``txt2img`` (caption index -> image index) and ``img2txt`` (image
+    index -> its caption indices)."""
+
+    def _index(self, images: List[str], captions: List[List[str]],
+               max_words: int) -> None:
+        self.image, self.text = list(images), []
+        self.txt2img: Dict[int, int] = {}
+        self.img2txt: Dict[int, List[int]] = {}
+        for img_idx, caps in enumerate(captions):
+            self.img2txt[img_idx] = []
+            for caption in caps:
+                self.img2txt[img_idx].append(len(self.text))
+                self.txt2img[len(self.text)] = img_idx
+                self.text.append(T.pre_caption(caption, max_words))
+
+    def __len__(self):
+        return len(self.image)
+
+
+class ReEvalDataset(_RetrievalDataset):
+    """COCO retrieval: every image of ``{split}2017/*.jpg`` (sorted; the
+    id is the file name) with its captions from
+    ``annotations/captions_{split}2017.json``."""
+
+    def __init__(self, data_root: str, split: str = "val",
+                 image_transform: Optional[Callable] = None,
+                 max_words: int = 30):
+        self.image_transform = image_transform or T.DEFAULT_IMAGE_TRANSFORM
+        image_filenames = sorted(glob.glob(
+            os.path.join(data_root, f"{split}2017", "*.jpg")))
+        self.id_filename = [
+            (int(os.path.basename(p)[:-4]), p) for p in image_filenames]
+        with open(os.path.join(data_root, "annotations",
+                               f"captions_{split}2017.json")) as f:
+            captions = json.load(f)
+        id_to_captions = defaultdict(list)
+        for ann in captions["annotations"]:
+            id_to_captions[ann["image_id"]].append(ann["caption"])
+        self._index([p for _, p in self.id_filename],
+                    [id_to_captions[i] for i, _ in self.id_filename],
+                    max_words)
+
+    def __getitem__(self, idx: int):
+        return {"image": self._image(self.id_filename[idx][1], idx),
+                "index": np.int64(idx)}
+
+
+class FlickrReEvalDataset(_RetrievalDataset):
+    """Flickr30k retrieval from an ALBEF-style json annotation file,
+    ``[{"image": path under data_root, "caption": [str, ...]}]``."""
+
+    def __init__(self, data_root: str, ann_file: str, split: str = "val",
+                 image_transform: Optional[Callable] = None,
+                 max_words: int = 30):
+        self.image_transform = image_transform or T.DEFAULT_IMAGE_TRANSFORM
+        with open(ann_file) as f:
+            self.ann = json.load(f)
+        self.image_root = data_root
+        self._index([a["image"] for a in self.ann],
+                    [a["caption"] for a in self.ann], max_words)
+
+    def __getitem__(self, idx: int):
+        path = os.path.join(self.image_root, self.ann[idx]["image"])
+        return {"image": self._image(path, idx), "index": np.int64(idx)}
+
+
+class CocoObjectGender(_ImageFileDataset):
+    """The gender-labelled COCO subset of the bias analysis: ``{split}.pkl``
+    under ``ann_dir`` (default ``data_root/gender_annotations``), a list of
+    ``{image_id, filename (under data_root), gender ("man" or "woman"),
+    boxes [[x0, y0, x1, y1], ...]}``; ``mask_mode`` none, blackout or blur
+    masks the person boxes before the transforms.  ``gender`` is 0 for
+    man, 1 for woman."""
+
+    def __init__(self, data_root: str, split: str = "val",
+                 ann_dir: Optional[str] = None,
+                 image_transform: Optional[Callable] = None,
+                 mask_mode: str = "none"):
+        self.image_transform = image_transform or T.DEFAULT_IMAGE_TRANSFORM
+        self.data_root = data_root
+        self.mask_mode = mask_mode
+        ann_dir = ann_dir or os.path.join(data_root, "gender_annotations")
+        with open(os.path.join(ann_dir, f"{split}.pkl"), "rb") as f:
+            self.ann = pickle.load(f)
+        self._masker = {"none": None, "blackout": T.BlackoutBox(),
+                        "blur": T.BlurBox()}[mask_mode]
+
+    def __len__(self):
+        return len(self.ann)
+
+    def __getitem__(self, idx: int):
+        rng = self._rng(idx)
+        ann = self.ann[idx]
+        image = read_image(os.path.join(self.data_root, ann["filename"]))
+        sample = {"image": image, "boxes": ann.get("boxes", [])}
+        if self._masker is not None:
+            sample = self._masker(sample, rng)
+        out = self.image_transform(image=sample["image"], rng=rng)
+        return {
+            "image": np.asarray(out["image"], np.float32),
+            "gender": np.int64(0 if ann["gender"] == "man" else 1),
+            "image_id": np.int64(ann["image_id"]),
+        }
+
 
 __all__ = ["CaptionDatasetBase", "CocoCaptionsClusteredDataset",
            "CocoCaptionsDataset", "CocoObjectGender", "Dataset",

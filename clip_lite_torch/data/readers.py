@@ -10,13 +10,21 @@ threads, reopened after pickling.  A record is a pickled dict
 ``{"image_id", "image", "captions", ...}`` or the
 ``(image_id, image, captions)`` tuple.
 
-The port decodes no JPEG yet (ROADMAP Queue 1, item 4: JPEG decode on the
-card): a record's image must be an HWC uint8 ndarray, and JPEG bytes
-raise.  Records hold pickles, so read only files this program wrote.
+A record's image is an HWC uint8 ndarray or the bytes of an encoded
+image (JPEG, what the JAX package's ``make_synth_data.py`` writes), which
+:func:`decode_image` decodes with PIL as the JAX package's
+``cv2.imdecode`` does: by content, not by name, EXIF orientation applied,
+greyscale and palette images expanded to RGB.  The two decoders give the
+same pixels for baseline and progressive JPEGs at every chroma
+subsampling and for greyscale ones; CMYK JPEGs may differ by one grey
+level (``tests/test_torch_jpeg.py``).  Records hold pickles, so read only
+files this program wrote.
 """
 
 from __future__ import annotations
 
+import io
+import json
 import logging
 import mmap
 import os
@@ -27,9 +35,6 @@ from typing import Any, Dict, List
 import numpy as np
 
 MAGIC = b"CLREC001"
-JPEG_PENDING = ("JPEG decode is not ported yet (ROADMAP Queue 1, item 4: JPEG "
-                "decode on the card); write the records with HWC uint8 "
-                "ndarray images")
 
 
 class ClRecWriter:
@@ -109,15 +114,43 @@ class ClRecReader:
         self.__init__(state["path"])
 
 
+def _to_rgb(image) -> np.ndarray:
+    """An opened PIL image as HWC uint8 RGB: the EXIF orientation applied
+    (as OpenCV's ``imread``/``imdecode`` apply it), then converted.  No
+    ``draft``: its reduced-size JPEG decode changes the pixels."""
+    from PIL import ImageOps
+
+    with image:
+        return np.asarray(ImageOps.exif_transpose(image).convert("RGB"),
+                          dtype=np.uint8)
+
+
 def decode_image(data) -> np.ndarray:
-    """An HWC uint8 ndarray passes as it is; JPEG bytes raise."""
+    """Encoded image bytes (JPEG, PNG, ...) or an HWC uint8 ndarray ->
+    RGB HWC uint8; an ndarray passes as it is."""
     if isinstance(data, np.ndarray) and data.ndim == 3 \
             and data.dtype == np.uint8:
         return data
     if isinstance(data, (bytes, bytearray, memoryview)):
-        raise NotImplementedError(JPEG_PENDING)
-    raise TypeError(f"a record image must be an HWC uint8 ndarray, got "
-                    f"{type(data).__name__} {getattr(data, 'shape', '')}")
+        from PIL import Image
+
+        return _to_rgb(Image.open(io.BytesIO(bytes(data))))
+    raise TypeError(f"a record image must be encoded bytes or an HWC uint8 "
+                    f"ndarray, got {type(data).__name__} "
+                    f"{getattr(data, 'shape', '')}")
+
+
+def read_image(path: str) -> np.ndarray:
+    """The image file at ``path`` as RGB HWC uint8, decoded by content
+    whatever its extension; a file that is missing or cannot be decoded
+    raises ``FileNotFoundError``, as the JAX package's ``_imread_rgb``
+    does where ``cv2.imread`` returns None."""
+    from PIL import Image
+
+    try:  # PIL's UnidentifiedImageError is an OSError
+        return _to_rgb(Image.open(path))
+    except (OSError, ValueError) as e:
+        raise FileNotFoundError(path) from e
 
 
 def _as_dict(rec) -> Dict[str, Any]:
@@ -154,12 +187,33 @@ class CocoCaptionsRecordReader:
 
 
 class CocoCaptionsDirReader:
-    """COCO's own directory of JPEG files: waits for JPEG decode."""
+    """COCO's own directory: ``images/{split}2017/*.jpg`` and
+    ``annotations/captions_{split}2017.json``; the images that have
+    captions, in the annotation file's order."""
 
     def __init__(self, data_root: str, split: str):
-        raise NotImplementedError(
-            "CocoCaptionsDirReader reads JPEG files; " + JPEG_PENDING)
+        ann = os.path.join(data_root,
+                           f"annotations/captions_{split}2017.json")
+        with open(ann) as f:
+            data = json.load(f)
+        cap_by_img: Dict[int, List[str]] = {}
+        for a in data["annotations"]:
+            cap_by_img.setdefault(a["image_id"], []).append(a["caption"])
+        self.items = [
+            (img["id"],
+             os.path.join(data_root, f"images/{split}2017", img["file_name"]),
+             cap_by_img.get(img["id"], []))
+            for img in data["images"] if img["id"] in cap_by_img
+        ]
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        image_id, path, captions = self.items[i]
+        return {"image_id": image_id, "image": read_image(path),
+                "captions": captions}
 
 
 __all__ = ["ClRecReader", "ClRecWriter", "CocoCaptionsDirReader",
-           "CocoCaptionsRecordReader", "JPEG_PENDING", "MAGIC", "decode_image"]
+           "CocoCaptionsRecordReader", "MAGIC", "decode_image", "read_image"]

@@ -8,10 +8,8 @@ package's order, and the image operations are
 :mod:`clip_lite_torch.data.imgproc`'s (OpenCV's 8-bit rules, without
 OpenCV), so for the same generator state a transform gives the JAX
 package's output and leaves the generator in the same state.  Images stay
-HWC uint8 until ``Normalize``, which gives float32.
-
-Not here yet: ``BlackoutBox`` and ``BlurBox``, the bias analysis's masks
-(ROADMAP Queue 1, item 6).
+HWC uint8 until ``Normalize``, which gives float32.  ``BlackoutBox`` and
+``BlurBox`` mask the person boxes of the bias analysis's dataset.
 """
 
 from __future__ import annotations
@@ -278,6 +276,31 @@ class Normalize(Transform):
         return {**sample, "image": (img - self.mean) / self.std}
 
 
+class BlackoutBox(Transform):
+    """Zero every ``[x0, y0, x1, y1]`` box of ``sample["boxes"]``."""
+
+    def apply(self, sample, rng):
+        img = sample["image"].copy()
+        for (x0, y0, x1, y1) in sample.get("boxes", []):
+            img[int(y0):int(y1), int(x0):int(x1)] = 0
+        return {**sample, "image": img}
+
+
+class BlurBox(Transform):
+    """Blur every box of ``sample["boxes"]`` with a 31-tap Gaussian of
+    sigma 15, the box alone: its border reflects about the box's own edge
+    pixels (OpenCV's rule for an array view), however narrow the box."""
+
+    def apply(self, sample, rng):
+        img = sample["image"].copy()
+        for (x0, y0, x1, y1) in sample.get("boxes", []):
+            region = img[int(y0):int(y1), int(x0):int(x1)]
+            if region.size:
+                img[int(y0):int(y1), int(x0):int(x1)] = imgproc.gaussian_blur(
+                    region, 31, 15)
+        return {**sample, "image": img}
+
+
 # The names ImageTransformsFactory creates (the JAX package's registry).
 TRANSFORM_PRODUCTS: Dict[str, Callable] = {
     "random_resized_crop": lambda size, **kw: RandomResizedSquareCrop(
@@ -305,8 +328,8 @@ DEFAULT_IMAGE_TRANSFORM = Compose([
     Normalize(),
 ])
 
-__all__ = ["CenterSquareCrop", "ColorJitter", "Compose",
-           "DEFAULT_IMAGE_TRANSFORM", "GaussianBlur", "HorizontalFlip",
+__all__ = ["BlackoutBox", "BlurBox", "CenterSquareCrop", "ColorJitter",
+           "Compose", "DEFAULT_IMAGE_TRANSFORM", "GaussianBlur", "HorizontalFlip",
            "IMAGENET_COLOR_MEAN", "IMAGENET_COLOR_STD", "Normalize",
            "NormalizeCaption", "RandomResizedSquareCrop", "SmallestMaxSize",
            "SquareResize", "TRANSFORM_PRODUCTS", "ToGray", "TokenizeCaption",

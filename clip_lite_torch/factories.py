@@ -180,9 +180,9 @@ def _build_transform_pipeline(config: Config, split: str):
 
 
 class PretrainingDatasetFactory:
-    """The pretraining dataset of MODEL.NAME: ``captions`` (CLRec records)
-    or ``random``; ``json`` reads JPEG files and waits for JPEG decode
-    (ROADMAP Queue 1, item 4)."""
+    """The pretraining dataset of MODEL.NAME: ``captions`` (CLRec records),
+    ``random``, or ``json`` (DATA.JSON_FILES_TRAIN or _VAL, the val split
+    at half its entries, as in the JAX package)."""
 
     @classmethod
     def from_config(cls, config: Config, split: str = "train"):
@@ -211,6 +211,12 @@ class PretrainingDatasetFactory:
         )
         if name == "captions":
             kwargs["native_pipeline"] = _C.DATA.NATIVE_PIPELINE
+        if name == "json":
+            json_files = list(_C.DATA.JSON_FILES_TRAIN if split == "train"
+                              else _C.DATA.JSON_FILES_VAL)
+            if split == "val":
+                kwargs["percentage"] = 50.0
+            return products[name](json_files, **kwargs)
         return products[name](**kwargs)
 
 
@@ -221,3 +227,45 @@ class NegativeSamplingDatasetFactory:
     def from_config(cls, config: Config, split: str = "train"):
         raise NotImplementedError(
             "cluster negative sampling lands with ROADMAP Queue 1, item 7")
+
+
+class DownstreamDatasetFactory:
+    """The downstream eval dataset of DATA.ROOT, keyed on its trailing
+    directory name (``VOC2007``, ``imagenet``, ``imagenet2012``,
+    ``inaturalist``, ``coco``, ``flickr30k``, ``coco_gender``), with
+    DATA.IMAGE_TRANSFORM_TRAIN for a split whose name holds ``train``
+    (VOC's ``trainval`` too) and _VAL otherwise."""
+
+    @classmethod
+    def products(cls) -> dict:
+        from clip_lite_torch.data import datasets
+
+        return {
+            "VOC2007": datasets.VOC07ClassificationDataset,
+            "imagenet": datasets.ImageNetDataset,
+            "imagenet2012": datasets.ImageNetDataset,
+            "inaturalist": datasets.INaturalist2018Dataset,
+            "coco": datasets.ReEvalDataset,
+            "flickr30k": datasets.FlickrReEvalDataset,
+            "coco_gender": datasets.CocoObjectGender,
+        }
+
+    @classmethod
+    def from_config(cls, config: Config, split: str = "train"):
+        import os
+
+        _C = config
+        key = os.path.basename(os.path.normpath(_C.DATA.ROOT))
+        products = cls.products()
+        if key not in products:
+            raise KeyError(
+                f"DownstreamDatasetFactory: no dataset registered for path "
+                f"{_C.DATA.ROOT!r} (key {key!r}). Choices: {sorted(products)}")
+        kwargs = dict(
+            data_root=_C.DATA.ROOT, split=split,
+            image_transform=_build_transform_pipeline(
+                _C, "train" if "train" in split else "val"))
+        if key == "flickr30k":
+            kwargs["ann_file"] = os.path.join(_C.DATA.ROOT,
+                                              "data/flickr30k_test.json")
+        return products[key](**kwargs)

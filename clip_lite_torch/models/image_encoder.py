@@ -3,16 +3,22 @@
 chopped.  ``frozen`` keeps the backbone in eval mode with no gradients.
 Only the ResNets are registered yet; VGG and the model zoo are queued in
 ROADMAP.md (Queue 1).
+
+:func:`detectron2_backbone_state_dict` exports a ResNet tower for
+Detectron2, as the JAX package's function of that name does: the
+torchvision layout (:func:`torchvision_resnet_state_dict`), renamed to
+Detectron2's stem/res2..res5 convention.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 from torch import nn
 
-from clip_lite_torch.models.resnet import RESNETS
+from clip_lite_torch.models.resnet import RESNETS, ResNet
 
 BACKBONES: Dict[str, Any] = dict(RESNETS)
 
@@ -46,3 +52,59 @@ class ImageEncoder(nn.Module):
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         return self.backbone(image)
+
+
+def torchvision_resnet_state_dict(backbone: ResNet) -> Dict[str, np.ndarray]:
+    """The tower's weights and BatchNorm statistics in torchvision's layout
+    and names (``conv1``, ``bn1``, ``layer{s}.{b}.conv{i}``, ``.bn{i}``,
+    ``.downsample.0``/``.1``), as C-order float32 numpy arrays."""
+    sd = {k: v.detach().contiguous().cpu().numpy()
+          for k, v in backbone.state_dict().items()}
+    out: Dict[str, np.ndarray] = {}
+
+    def conv_bn(dst_conv: str, dst_bn: str, src: str) -> None:
+        out[f"{dst_conv}.weight"] = sd[f"{src}.conv.weight"]
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{dst_bn}.{leaf}"] = sd[f"{src}.bn.{leaf}"]
+
+    conv_bn("conv1", "bn1", "stem")
+    for name in backbone.block_names:  # layer{stage}_{block}
+        stage, block = name[len("layer"):].split("_")
+        dst = f"layer{stage}.{block}"
+        i = 1
+        while f"{name}.block{i}.conv.weight" in sd:
+            conv_bn(f"{dst}.conv{i}", f"{dst}.bn{i}", f"{name}.block{i}")
+            i += 1
+        if f"{name}.shortcut.conv.weight" in sd:
+            conv_bn(f"{dst}.downsample.0", f"{dst}.downsample.1",
+                    f"{name}.shortcut")
+    return out
+
+
+_DETECTRON2_RENAME = {
+    "layer1": "res2",
+    "layer2": "res3",
+    "layer3": "res4",
+    "layer4": "res5",
+    "bn1": "conv1.norm",
+    "bn2": "conv2.norm",
+    "bn3": "conv3.norm",
+    "downsample.0": "shortcut",
+    "downsample.1": "shortcut.norm",
+}
+
+
+def detectron2_backbone_state_dict(backbone: ResNet) -> dict:
+    """A Detectron2-loadable checkpoint dict of a ResNet tower:
+    ``{"model": {name: array}, "__author__", "matching_heuristics": True}``
+    with the stages renamed res2..res5, the norms ``convN.norm``, the
+    projections ``shortcut``, and the stem's names under ``stem.``."""
+    d2: Dict[str, np.ndarray] = {}
+    for name, value in torchvision_resnet_state_dict(backbone).items():
+        for old, new in _DETECTRON2_RENAME.items():
+            name = name.replace(old, new)
+        if not name.startswith("res"):
+            name = f"stem.{name}"
+        d2[name] = value
+    return {"model": d2, "__author__": "clip_lite_torch",
+            "matching_heuristics": True}

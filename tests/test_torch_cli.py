@@ -11,6 +11,7 @@ corpus written by the port's ClRecWriter.
   the uninterrupted run: through the host loader and through
   DATA.DEVICE_CACHE.  On the CPU every draw and every batch is a function
   of (seed, step).
+* MODEL.NAME json trains from ALBEF-style json files over JPEG images.
 * Each refusal raises and names its item of ROADMAP Queue 1; without
   ``--device cpu`` and with no CUDA the CLI raises."""
 
@@ -25,6 +26,7 @@ from clip_lite_torch import bridge
 from clip_lite_torch.config import Config
 from clip_lite_torch.train import main, parser
 from test_torch_data_pipeline import write_corpus
+from test_torch_downstream_data import write_json_pretraining
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")
@@ -129,7 +131,6 @@ REFUSALS = {
     "profile_dir": ([], ("--profile-dir", "trace"), r"item 8\(b\)"),
     "steps_per_call": (["PARALLEL.STEPS_PER_CALL", 2], (), r"item 8\(c\)"),
     "native_pipeline": (["DATA.NATIVE_PIPELINE", True], (), "item 4"),
-    "json": (["MODEL.NAME", "json"], (), "item 4"),
     "glove": (["DATA.NAME", "glove"], (), "item 7"),
     "ssl": (["MODEL.VISUAL.SELF_SUPERVISED", True], (), "item 7"),
     "num_devices": ([], ("--num-devices", "2"), "item 5"),
@@ -143,6 +144,19 @@ def test_refusals_name_their_item(corpus, tmp_path, case):
     extra, flags, item = REFUSALS[case]
     with pytest.raises(NotImplementedError, match=item):
         main(_args(corpus, tmp_path, extra=extra, flags=flags))
+
+
+def test_cli_trains_from_json_files(corpus, tmp_path):
+    path = write_json_pretraining(str(tmp_path), n=8)
+    args = _args(corpus, tmp_path / "a", extra=[
+        "MODEL.NAME", "json", "DATA.JSON_FILES_TRAIN", [path],
+        "DATA.JSON_FILES_VAL", [path], "OPTIM.NUM_ITERATIONS", 2])
+    state = main(args)
+    assert state.step == 2
+    log = (tmp_path / "a" / "log_pretrain.txt").read_text()
+    assert "VAL @ 2" in log and "Done: 2" in log
+    assert os.path.exists(os.path.join(_ckpt_dir(args),
+                                       "checkpoint_2.msgpack"))
 
 
 JAX_REFUSALS = {

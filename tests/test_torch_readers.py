@@ -2,7 +2,9 @@
 against the JAX package's (clip_lite_tpu/data/readers.py): the same
 records give the same bytes, each package reads the other's file, the
 index rescan, ``percentage``, the tuple form and pickling behave alike,
-and JPEG bytes raise, naming the JPEG step of ROADMAP Queue 1, item 4."""
+and JPEG bytes decode as the JAX package decodes them (in a record, and
+as COCO's directory of files; tests/test_torch_jpeg.py holds the decode
+itself against OpenCV)."""
 
 import os
 import pickle
@@ -128,19 +130,39 @@ def test_not_a_clrec_file_raises(tmp_path):
         readers.ClRecReader(str(path))
 
 
-def test_jpeg_bytes_raise_naming_the_jpeg_step(tmp_path):
-    jpeg = jreaders.encode_image(np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 4: JPEG decode"):
-        readers.decode_image(jpeg)
-    path = str(tmp_path / "x.clrec")
-    _write(jreaders, path, [{"image_id": 1, "image": jpeg,
-                             "captions": ["a"]}])
-    reader = readers.CocoCaptionsRecordReader(path)
-    assert reader.captions(0) == ["a"]  # captions need no decode
-    with pytest.raises(NotImplementedError, match="item 4: JPEG decode"):
-        reader[0]
-    with pytest.raises(NotImplementedError, match="item 4: JPEG decode"):
-        readers.CocoCaptionsDirReader(str(tmp_path), "train")
+@pytest.mark.parametrize("where", ["decode_image", "record_reader",
+                                   "dir_reader"])
+def test_jpeg_bytes_raise_naming_the_jpeg_step(tmp_path, where):
+    """JPEG bytes, which the port once refused, now decode to the JAX
+    package's arrays: given to ``decode_image``, in a record, and as a
+    file of COCO's own directory.  (The name is that of the refusal this
+    test held before the decode existed.)"""
+    image = np.random.default_rng(1).integers(0, 256, (8, 12, 3), np.uint8)
+    jpeg = jreaders.encode_image(image)
+    want = jreaders.decode_image(jpeg)
+    if where == "decode_image":
+        got = readers.decode_image(jpeg)
+    elif where == "record_reader":
+        path = str(tmp_path / "x.clrec")
+        _write(jreaders, path, [{"image_id": 1, "image": jpeg,
+                                 "captions": ["a"]}])
+        reader = readers.CocoCaptionsRecordReader(path)
+        assert reader.captions(0) == ["a"]  # captions need no decode
+        got = reader[0]["image"]
+    else:
+        os.makedirs(tmp_path / "images" / "train2017")
+        os.makedirs(tmp_path / "annotations")
+        with open(tmp_path / "images" / "train2017" / "1.jpg", "wb") as f:
+            f.write(jpeg)
+        with open(tmp_path / "annotations" / "captions_train2017.json",
+                  "w") as f:
+            f.write('{"images": [{"id": 1, "file_name": "1.jpg"}], '
+                    '"annotations": [{"image_id": 1, "caption": "a"}]}')
+        item = readers.CocoCaptionsDirReader(str(tmp_path), "train")[0]
+        assert item["captions"] == ["a"]
+        got = item["image"]
+    assert got.dtype == np.uint8 and got.shape == (8, 12, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_decode_image_passes_hwc_uint8_only():

@@ -160,7 +160,7 @@ def test_config_copy_matches_jax(path):
 
 
 _FORBIDDEN = {"jax", "flax", "optax", "clip_lite_tpu", "jaxlib", "msgpack",
-              "cv2", "lmdb"}
+              "cv2", "lmdb", "sklearn"}
 
 
 def _port_sources():
