@@ -12,8 +12,8 @@ caught:
    TF32 and reduced-precision bf16 reductions off, so fp32 references are
    fp32.
 2. Build: every kernel of the port from clip_lite_torch/ops/csrc, one
-   nvcc per source, all started together; each kernel's registers from
-   ptxas, and no variant may spill.
+   nvcc per source, all started together (decode_crop.cu links nvJPEG);
+   each kernel's registers from ptxas, and no variant may spill.
 3. K1 (attention forward) against its plain PyTorch version at the
    flagship text batch, in fp32 and bf16; the kernel's, the plain
    version's and the library call's times; the least time the card could
@@ -169,8 +169,41 @@ caught:
    features, for three positive shares x three costs, each fit on the card
    and on the CPU: every fit converged, some in more than one Newton step,
    decision values within SVM_REL_TOL.
-11. One JSON line listing every ported kernel (K3's standalone and fused
-   entry points each with their own launches); then the device line last.
+10d. The native JPEG batch path (DATA.NATIVE_PIPELINE): a COCO-layout
+   tree of 512 train and 256 val JPEGs (PIL, quality 90, 480 x 640 and
+   640 x 480, every 16th 640 x 640, textured to COCO train2017's bytes a
+   file) made into CLRec records by
+   ``python -m clip_lite_torch.scripts.coco_preprocess``; the mean and
+   largest bytes a JPEG of the tree and of the records.  First
+   crop_resize_flip_u8 alone, on the twin's own PIL decode of 128 records
+   in one arena on the card, against its plain twin bit for bit: train
+   boxes, whole images, 1 x 1 and edge-clamped crops, flips on and off, at
+   224 and the cache's 256; its times at (128, 224) beside its byte bound
+   (tiles plus crop regions).  Then nvJPEG + the kernel per JPEG kind
+   (baseline 4:2:0, 4:2:2, 4:4:4, progressive, greyscale, 640 x 480,
+   640 x 640; train and whole boxes): within DECODE_BARS of the twin at
+   full resolution per tile, within SCALED_BARS of the JAX core's scaled
+   decode where it takes one, and the JAX core's failures (CMYK, bytes
+   that are no JPEG, a JPEG cut inside a header; a truncated JPEG decodes
+   in both), but for a scan of restart markers only, which nvJPEG refuses
+   and libjpeg decodes.  nvJPEG's time a batch of 128 records.  The
+   loader alone, native against the Python path on the same records
+   (batches/s).  Then the CLI, each run with the counts set to 0 just
+   before and read just after: (A) configs/fs_native_input.yaml, 20 steps
+   of 128, val sweeps at 10 and 20; the same with the decode replaced by
+   a fixed tile tensor (A0: what the decode costs the step) and with
+   every batch the first one again (A1: what reading the records and
+   tokenizing cost it); (B) configs/fs_tpu_tuned.yaml + DATA.DEVICE_CACHE, the
+   cache built through the native decode (its build seconds against the
+   Python path's); (C) configs/fs_tpu_tuned.yaml as written, 10 steps.
+   Checks: finite losses; K1, K2, K3's fused pass (one a step), the
+   standalone K3 (one a val batch) exactly, crop_resize_flip_u8 and
+   nvJPEG once a decoded batch; each run's median step start to start and
+   the host's enqueue beside phase 6's and phase 10b's.
+11. One JSON line listing every kernel (K3's standalone and fused entry
+   points each with their own launches, and crop_resize_flip_u8, which
+   replaces the JAX core's host C++ and no TPU kernel); then the device
+   line last.
 """
 
 import functools
@@ -344,7 +377,8 @@ def phase_build() -> None:
     from clip_lite_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["attention_fwd", "attention_bwd", "normalize"])
+    logs = _build.build_all(["attention_fwd", "attention_bwd", "normalize",
+                             "decode_crop"])
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'none (cached)'}")
     spills = []
     for name, text in logs.items():
@@ -1628,6 +1662,8 @@ def phase_data_cli(float_step: dict) -> dict:
 
         device_cache.DeviceDataCache.from_dataset = classmethod(from_dataset)
         device_cache.load_host = load_host
+        # These records hold ndarray images: the Python path (phase 10d
+        # runs fs_tpu_tuned's native path over JPEG records).
         b_extra = ["DATA.DEVICE_CACHE", True, "DATA.NATIVE_PIPELINE", False]
         cfg_b = Config(str(TUNED), sizes + b_extra)
         state_b, rec_b = run("b", args("b", TUNED, b_extra))
@@ -2105,6 +2141,590 @@ def phase_eval_cli() -> dict:
     return out
 
 
+# The native phase: a COCO-layout tree of JPEGs made into CLRec records by
+# the port's coco_preprocess; the decode's bars against the twin per JPEG
+# kind; CLI steps a run.
+NATIVE_STEPS = 20
+# nvJPEG's tiles against the twin's at the same (full) resolution, per
+# image: the decoders' IDCT and chroma upsampling differ.
+DECODE_BARS = dict(mean_abs=1.0, psnr_db=40.0)
+# Against the JAX core's tiles where it takes a DCT-domain scaled decode
+# (the deliberate difference: nvJPEG's full decode averaged over blocks of
+# the same scale).  A sanity bar: an H100 read mean 1.26, 43.7 dB for
+# smooth 640 x 640 whole images at 224 without the block average; the
+# block average alone reads 0.6, 48 dB on textured ones (the CPU test).
+SCALED_BARS = dict(mean_abs=2.0, psnr_db=35.0)
+# A JPEG whose scan holds restart markers only: libjpeg (the JAX core, the
+# twin) decodes it, nvJPEG refuses it; counted as a failure on the card.
+RESTART_MARKERS = "restart markers only"
+
+
+# COCO train2017's JPEGs hold about 152 kB a file on average (18 GB for
+# 118K images, cocodataset.org's download page).  The luminance texture of
+# photo_jpeg is sized to that: 157 kB a 480 x 640 JPEG at quality 90.
+PHOTO_TEXTURE = 30.0
+
+
+def photo_jpeg(rng: np.random.Generator, h: int, w: int, grey=False,
+               **kw) -> bytes:
+    """A seeded h x w image as PIL's JPEG: smooth colour waves, a 1/f-like
+    luminance texture (noise fields at 1 to 1/32 of the resolution, each
+    repeated up to full size; PHOTO_TEXTURE levels in all) and mild noise
+    per channel.  Like a photo, its detail lies in the luminance and its
+    chroma is smooth; its bytes are COCO's."""
+    import io
+
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    f, p = rng.uniform(0.005, 0.05, 6), rng.uniform(0, 6, 3)
+    img = np.stack([np.sin(xx * f[c] + p[c]) * np.cos(yy * f[3 + c])
+                    for c in range(3)], axis=-1)
+    texture = np.zeros((h, w), np.float32)
+    for k in range(6):
+        field = rng.normal(0, 1, (-(-h >> k), -(-w >> k))).astype(np.float32)
+        texture += field.repeat(1 << k, 0).repeat(1 << k, 1)[:h, :w]
+    texture *= PHOTO_TEXTURE / np.sqrt(6)
+    img = np.clip((img + 1) * 127.5 + texture[..., None]
+                  + rng.normal(0, 4, img.shape), 0, 255)
+    img = img.astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img[..., 1] if grey else img).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def write_coco_tree(root: str, rng: np.random.Generator) -> None:
+    """COCO's own layout under ``root`` (``images/{split}2017/*.jpg``,
+    ``annotations/captions_{split}2017.json``): DATA_TRAIN train and DATA_VAL
+    val JPEGs (photo_jpeg, quality 90, 4:2:0) of 480 x 640 and 640 x 480 in
+    turn, every 16th 640 x 640, five captions each."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = []
+    for split, n in (("train", DATA_TRAIN), ("val", DATA_VAL)):
+        os.makedirs(os.path.join(root, "images", f"{split}2017"))
+        os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            image_id = 100_000 * (split == "val") + i + 1
+            name = f"{image_id:012d}.jpg"
+            shape = (640, 640) if i % 16 == 15 else (
+                (480, 640) if i % 2 == 0 else (640, 480))
+            jobs.append((os.path.join(root, "images", f"{split}2017", name),
+                         shape, int(rng.integers(1 << 31))))
+            images.append({"id": image_id, "file_name": name})
+            anns += [{"image_id": image_id, "caption": c}
+                     for c in captions(rng, 5)]
+        with open(os.path.join(root, "annotations",
+                               f"captions_{split}2017.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns}, f)
+
+    def save(job):
+        path, (h, w), seed = job
+        with open(path, "wb") as f:
+            f.write(photo_jpeg(np.random.default_rng(seed), h, w, quality=90))
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        list(pool.map(save, jobs))
+
+
+def crop_bytes(boxes: np.ndarray, sizes: np.ndarray, out_size: int) -> int:
+    """What crop_resize_flip_u8 must move: each tile written once and each
+    crop region of the source read once."""
+    h, w = sizes[:, 0].astype(np.float64), sizes[:, 1].astype(np.float64)
+    full = boxes[:, 0] < 0
+    frac_h = np.where(full, 1.0, boxes[:, 2] - boxes[:, 0])
+    frac_w = np.where(full, 1.0, boxes[:, 3] - boxes[:, 1])
+    region = np.ceil(frac_h * h) * np.ceil(frac_w * w) * 3
+    return int(len(boxes) * out_size * out_size * 3 + region.sum())
+
+
+def native_kernel_alone(jpegs: list) -> dict:
+    """crop_resize_flip_u8 on the twin's own decode (PIL at the JAX core's
+    scale) of ``jpegs`` in one arena on the card, against the twin on the
+    same arena, bit for bit: train boxes, whole images, 1 x 1 and
+    edge-clamped crops, flips on and off, at 224 and the cache's 256, and
+    whole images at full resolution averaged over blocks of the JAX core's
+    scale; then its times at the main path's shapes (nvJPEG's full
+    resolution, train boxes, their blocks, no flip, 224)."""
+    from clip_lite_torch.data import native
+
+    n = len(jpegs)
+    rng = np.random.default_rng(41)
+    train = native.random_resized_crop_boxes(rng, n)
+    edges = train.copy()
+    edges[0::4] = (0.999, 0.0, 1.0, 0.001)   # 1 x 1 at the bottom-left
+    edges[1::4] = (0.0, 0.999, 0.001, 1.0)   # 1 x 1 at the top-right
+    edges[2::4] = (0.6, 0.7, 1.0, 1.0)       # against two borders
+    alternate = (np.arange(n) % 2).astype(np.uint8)
+    zeros, ones = np.zeros(n, np.uint8), np.ones(n, np.uint8)
+    cases = {"train 224, flips alternate": (train, alternate, 224),
+             "whole 224": (native.full_image_boxes(n), zeros, 224),
+             "edges 224, flipped": (edges, ones, 224),
+             "whole 256 (cache tiles)": (native.full_image_boxes(n), zeros, 256),
+             "train 256, flipped": (train, ones, 256)}
+    cases["whole 224, full resolution, blocks"] = (
+        native.full_image_boxes(n), alternate, 224)
+    for name, (boxes, flips, size) in cases.items():
+        blocks = name.endswith("blocks")
+        images = [native.decode_rgb(j, b, size, scaled=not blocks)
+                  for j, b in zip(jpegs, boxes)]
+        arena, offsets, sizes = native.pack_arena(images)
+        denoms = native.scale_denoms(boxes, sizes, size) if blocks else None
+        if blocks and not (denoms > 1).any():
+            raise AssertionError(f"crop_resize_flip_u8 {name}: no block")
+        arena = torch.from_numpy(arena).cuda()
+        got = native.crop_resize_flip_u8(arena, offsets, sizes, boxes, flips,
+                                         size, denoms=denoms)
+        want = native.crop_resize_flip_reference(arena, offsets, sizes, boxes,
+                                                 flips, size, denoms)
+        torch.cuda.synchronize()
+        diff = int((got.int() - want.int()).abs().max())
+        log(f"crop_resize_flip_u8 {name} at B {n}: max|kernel-plain| {diff}")
+        if got.shape != (n, size, size, 3) or not torch.equal(got, want):
+            raise AssertionError(f"crop_resize_flip_u8 {name}: not bit for bit "
+                                 f"its plain version (max {diff})")
+    # Times at the main path's shapes: nvJPEG's full-resolution arena.
+    images = [native.decode_rgb(j, b, 224, scaled=False)
+              for j, b in zip(jpegs, train)]
+    arena, offsets, sizes = native.pack_arena(images)
+    denoms = native.scale_denoms(train, sizes, 224)
+    copies = l2_spilling_copies(torch.from_numpy(arena).cuda())
+
+    def kernel(a):
+        return native.crop_resize_flip_u8(a, offsets, sizes, train, zeros, 224,
+                                          denoms=denoms)
+
+    def plain(a):
+        return native.crop_resize_flip_reference(a, offsets, sizes, train,
+                                                 zeros, 224, denoms)
+
+    err = int((kernel(copies[0][0]).int() - plain(copies[0][0]).int())
+              .abs().max())
+    n_bytes = crop_bytes(train, sizes, 224)
+    row = dict(max_abs_err=err, ms=time_ms(kernel, copies),
+               ms_device=device_ms(kernel, copies),
+               host_ms=enqueue_ms(kernel, copies),
+               plain_ms=time_ms(plain, copies, iters=3, warmup=1),
+               library_ms=None, **bound(n_bytes, 0, torch.float32))
+    log(f"crop_resize_flip_u8 at B {n}, 224, train boxes: kernel {row['ms']} "
+        f"ms ({row['ms_device']} on the device, {row['host_ms']} host), plain "
+        f"{row['plain_ms']} ms, bound {row['bound_ms']} ms ({row['bound_by']}: "
+        f"{n_bytes} bytes); no library call crops per-image boxes")
+    return row
+
+
+def native_decode_kinds() -> dict:
+    """Four JPEGs of each kind (PIL, seeded): baseline 4:2:0, 4:2:2 and
+    4:4:4 at 480 x 640, progressive, greyscale, 640 x 480 and 640 x 640
+    sources; then what the JAX core cannot decode (CMYK, bytes that are no
+    JPEG) and a truncated baseline one."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(43)
+    kinds = {
+        "baseline 4:2:0": lambda: photo_jpeg(rng, 480, 640, quality=90),
+        "baseline 4:2:2": lambda: photo_jpeg(rng, 480, 640, quality=90,
+                                              subsampling=1),
+        "baseline 4:4:4": lambda: photo_jpeg(rng, 480, 640, quality=90,
+                                              subsampling=0),
+        "progressive": lambda: photo_jpeg(rng, 480, 640, quality=90,
+                                           progressive=True),
+        "greyscale": lambda: photo_jpeg(rng, 480, 640, grey=True, quality=90),
+        "640 x 480": lambda: photo_jpeg(rng, 640, 480, quality=90),
+        "640 x 640": lambda: photo_jpeg(rng, 640, 640, quality=90),
+    }
+    out = {k: [make() for _ in range(4)] for k, make in kinds.items()}
+    buf = io.BytesIO()
+    Image.open(io.BytesIO(out["baseline 4:2:0"][0])).convert("CMYK").save(
+        buf, "JPEG")
+    out["cmyk"] = [buf.getvalue()]
+    out["no jpeg"] = [b"\xff\xd8" + bytes(100)]
+    out["truncated"] = [out["baseline 4:2:0"][1][:20000]]
+    base = out["baseline 4:2:0"][2]
+    sos = base.index(b"\xff\xda")
+    out["cut in a header"] = [base[:sos + 5]]
+    out[RESTART_MARKERS] = [base[:sos + 14] + b"\xff\xd0\xff\xd3" * 200
+                            + b"\xff\xd9"]
+    return out
+
+
+def tile_distance(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Per image: mean |a - b| in levels and PSNR in dB (inf where equal)."""
+    d = (a.double() - b.double()).flatten(1)
+    mse = (d ** 2).mean(1)
+    psnr = torch.where(mse > 0, 10 * torch.log10(255.0 ** 2 / mse),
+                       torch.full_like(mse, float("inf")))
+    return d.abs().mean(1).tolist(), psnr.tolist()
+
+
+def native_decode(kinds: dict) -> dict:
+    """nvJPEG + the kernel against the twin, per JPEG kind, train and whole
+    boxes at 224: within DECODE_BARS of the twin at nvJPEG's (full)
+    resolution, per image; against the JAX core's own scaled decode where
+    it takes one, within SCALED_BARS; the same failures as the twin (which
+    equals the JAX core's, tests/test_torch_native.py)."""
+    from clip_lite_torch.data import native
+
+    result = {}
+    for kind, jpegs in kinds.items():
+        n = len(jpegs)
+        boxes = np.concatenate([native.full_image_boxes(n),
+                                native.random_resized_crop_boxes(
+                                    np.random.default_rng(n), n)])
+        jpegs = jpegs * 2
+        flips = np.zeros(2 * n, np.uint8)
+        card, card_fail = native.decode_crop_batch(jpegs, 224, boxes, flips)
+        card = card.cpu()
+        twin, twin_fail = native.decode_crop_batch_plain(jpegs, 224, boxes, flips)
+        images = [native.decode_rgb(j, b, 224, scaled=False)
+                  for j, b in zip(jpegs, boxes)]
+        arena, offsets, sizes = native.pack_arena(images)
+        full = native.crop_resize_flip_reference(
+            arena, offsets, sizes, boxes, flips, 224,
+            native.scale_denoms(boxes, sizes, 224))
+        mean, psnr = tile_distance(card, full)
+        scaled = [i for i, (j, b) in enumerate(zip(jpegs, boxes))
+                  if images[i] is not None and native.scale_denom(
+                      b, *images[i].shape[:2], 224) > 1]
+        s_mean, s_psnr = tile_distance(card[scaled], twin[scaled]) \
+            if scaled else ([], [])
+        result[kind] = dict(failures=card_fail, twin_failures=twin_fail,
+                            max_mean_abs=max(mean), min_psnr_db=min(psnr),
+                            scaled_images=len(scaled),
+                            scaled_max_mean_abs=max(s_mean, default=None),
+                            scaled_min_psnr_db=min(s_psnr, default=None))
+        log(f"nvJPEG {kind}: {2 * n} tiles, failures {card_fail} (twin "
+            f"{twin_fail}); against the twin at full resolution max mean|d| "
+            f"{max(mean)}, min PSNR {min(psnr)} dB; {len(scaled)} tiles where "
+            f"the JAX core decodes at a DCT scale: max mean|d| "
+            f"{result[kind]['scaled_max_mean_abs']}, min PSNR "
+            f"{result[kind]['scaled_min_psnr_db']} dB")
+        if kind == RESTART_MARKERS:  # the deliberate difference
+            if (card_fail, twin_fail) != (len(jpegs), 0):
+                raise AssertionError(f"nvJPEG {kind}: {card_fail} failures, "
+                                     f"the JAX core's {twin_fail}")
+            continue
+        if card_fail != twin_fail:
+            raise AssertionError(f"nvJPEG {kind}: {card_fail} failures, the "
+                                 f"JAX core's {twin_fail}")
+        if kind == "truncated":  # decoded as far as it goes: no bar
+            continue
+        if twin_fail == 0 and (max(mean) > DECODE_BARS["mean_abs"]
+                               or min(psnr) < DECODE_BARS["psnr_db"]):
+            raise AssertionError(f"nvJPEG {kind}: outside {DECODE_BARS}")
+        if scaled and (max(s_mean) > SCALED_BARS["mean_abs"]
+                       or min(s_psnr) < SCALED_BARS["psnr_db"]):
+            raise AssertionError(f"nvJPEG {kind} against the scaled decode: "
+                                 f"outside {SCALED_BARS}")
+    return result
+
+
+def native_decode_ms(jpegs: list) -> dict:
+    """nvJPEG's decode of one batch from an idle card, host clock: until
+    the call returns (``host_ms``) and until the card is done (``ms``),
+    medians of five after a warm-up."""
+    from clip_lite_torch.data import native
+
+    done, returned = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        native.nvjpeg_decode(jpegs, torch.device("cuda"))
+        returned.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        done.append(1e3 * (time.perf_counter() - t0))
+    out = {"ms": statistics.median(done[1:]),
+           "host_ms": statistics.median(returned[1:])}
+    log(f"nvJPEG (GPU_HYBRID), a batch of {len(jpegs)} of the records' "
+        f"JPEGs: {out['ms']} ms until done, the call returns after "
+        f"{out['host_ms']} ms (medians of 5)")
+    return out
+
+
+def phase_native(float_step: dict, host_step: float) -> dict:
+    """The native JPEG batch path (DATA.NATIVE_PIPELINE): records made by
+    the port's coco_preprocess from a COCO-layout tree; the kernel alone
+    and the decode per JPEG kind; the loader alone, native against the
+    Python path on the same records; then the CLI (each run with the
+    counts set to 0 just before and read just after): (A)
+    configs/fs_native_input.yaml, (B) configs/fs_tpu_tuned.yaml with
+    DATA.DEVICE_CACHE (the cache built through the native decode), (C)
+    configs/fs_tpu_tuned.yaml as written."""
+    import argparse
+    import os
+    import shutil
+    import tempfile
+
+    import clip_lite_torch.data.device_cache as device_cache
+    import clip_lite_torch.train as cli
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data import native
+    from clip_lite_torch.data.datasets import CocoCaptionsDataset
+    from clip_lite_torch.data.pipeline import infinite_batches
+    from clip_lite_torch.data.readers import ClRecReader
+    from clip_lite_torch.factories import PretrainingDatasetFactory
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+    from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
+    from clip_lite_torch.scripts import coco_preprocess
+
+    counters = {"attention_fwd": fused_short_attention,
+                "attention_bwd": attention_backward,
+                "normalize": normalize_u8,
+                "augment_normalize": augment_normalize_u8,
+                "crop_resize_flip": native.crop_resize_flip_u8,
+                "nvjpeg": native.nvjpeg_decode}
+    native_cfg = ROOT / "configs" / "fs_native_input.yaml"
+    workers = os.cpu_count() or 1
+    root = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    serialized = os.path.join(root, "serialized")
+    real_make_step = cli.make_train_step
+    real_from_dataset = device_cache.DeviceDataCache.from_dataset.__func__
+    logger = logging.getLogger("clip_lite_torch")
+    phase_t0 = time.perf_counter()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        write_coco_tree(os.path.join(root, "coco"), np.random.default_rng(31))
+        t1 = time.perf_counter()
+        for split in ("train", "val"):
+            coco_preprocess.main(argparse.Namespace(
+                data_root=os.path.join(root, "coco"), split=split,
+                mode="train_sbert", output_dir=serialized, short_edge=0,
+                jpeg_quality=95))
+        log(f"native: a COCO tree of {DATA_TRAIN} + {DATA_VAL} JPEGs written "
+            f"in {t1 - t0} s, made into CLRec records by coco_preprocess in "
+            f"{time.perf_counter() - t1} s")
+        tree = [os.path.getsize(os.path.join(d, f)) for d, _, files in
+                os.walk(os.path.join(root, "coco", "images")) for f in files]
+        reader = ClRecReader(os.path.join(
+            serialized, "coco_train_train_sbert2017.clrec"))
+        records = [len(reader[i]["image"]) for i in range(len(reader))]
+        jpegs = [reader[i]["image"] for i in range(BATCH)]
+        reader.close()
+        out["jpeg_bytes"] = {
+            "tree": {"mean": statistics.mean(tree), "max": max(tree)},
+            "records": {"mean": statistics.mean(records),
+                        "max": max(records)}}
+        log(f"native: bytes a JPEG, the tree (quality 90) mean "
+            f"{statistics.mean(tree)} max {max(tree)}; the train records "
+            f"(quality 95) mean {statistics.mean(records)} max "
+            f"{max(records)}; COCO train2017 about 152 kB a file")
+        out["kernel"] = native_kernel_alone(jpegs)
+        out["decode"] = native_decode(native_decode_kinds())
+        out["nvjpeg"] = native_decode_ms(jpegs)
+
+        sizes = ["DATA.ROOT", serialized, "OPTIM.BATCH_SIZE", BATCH,
+                 "OPTIM.NUM_ITERATIONS", NATIVE_STEPS,
+                 "OPTIM.WARMUP_STEPS", NATIVE_STEPS // 2]
+
+        def args(name, config, extra=(), steps=NATIVE_STEPS):
+            return cli.parser.parse_args([str(a) for a in (
+                "--config", config, "--serialization-dir",
+                os.path.join(root, name), "--checkpoint-every", 10,
+                "--log-every", 5, "--cpu-workers", workers,
+                "--config-override", *sizes, "OPTIM.NUM_ITERATIONS", steps,
+                "OPTIM.WARMUP_STEPS", steps // 2, *extra)])
+
+        # The loader alone, native and Python path on the same records.
+        loader_s = {}
+        for path in (True, False):
+            cfg = Config(str(native_cfg), sizes + ["DATA.NATIVE_PIPELINE", path])
+            loader, _ = cli.init_dataloaders(cfg, args("loader", native_cfg),
+                                             torch.device("cuda"))
+            stream = infinite_batches(loader)
+            first = next(stream)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DATA_LOADER_BATCHES):
+                batch = next(stream)
+            torch.cuda.synchronize()
+            loader_s[path] = (time.perf_counter() - t0) / DATA_LOADER_BATCHES
+            stream.close()
+            image = first["image"]
+            log(f"native: the loader alone, DATA.NATIVE_PIPELINE {path}, "
+                f"{workers} workers: {1 / loader_s[path]} batches/s of {BATCH}"
+                f" ({loader_s[path]} s a batch over {DATA_LOADER_BATCHES}); "
+                f"image {image.dtype} {tuple(image.shape)} on {image.device}")
+            want = (torch.uint8, "cuda") if path else (torch.float32, "cpu")
+            if (image.dtype, image.device.type) != want or tuple(
+                    image.shape) != (BATCH, 224, 224, 3):
+                raise AssertionError(f"the loader's batch: {image.dtype} on "
+                                     f"{image.device}, expected {want}")
+            del loader, stream, first, batch, image
+        out["loader_batches_per_s"] = {"native": 1 / loader_s[True],
+                                       "python": 1 / loader_s[False]}
+
+        def run(name, a):
+            """main(a) with the counts set to 0 just before and read just
+            after; each step's entry and return times."""
+            record = {"t": [], "t_out": []}
+
+            def make_step(cfg):
+                step = real_make_step(cfg)
+
+                def recorded(state, batch):
+                    record["t"].append(time.perf_counter())
+                    result = step(state, batch)
+                    record["t_out"].append(time.perf_counter())
+                    return result
+                return recorded
+
+            cli.make_train_step = make_step
+            for k in counters.values():
+                k.launches = 0
+            fused_short_attention.tc_launches = 0
+            attention_backward.tc_launches = 0
+            t0 = time.perf_counter()
+            cli.main(a)
+            torch.cuda.synchronize()
+            record["wall"] = time.perf_counter() - t0
+            record["launches"] = {n: k.launches for n, k in counters.items()}
+            record["launches"].update(
+                attention_fwd_tc=fused_short_attention.tc_launches,
+                attention_bwd_tc=attention_backward.tc_launches)
+            cli.make_train_step = real_make_step
+            metrics = [json.loads(line) for line in open(os.path.join(
+                root, name, "metrics.jsonl"))]
+            t, t_out = record["t"], record["t_out"]
+            record["step_s"] = statistics.median(
+                [b - a for a, b in zip(t[2:9], t[3:10])])
+            record["enqueue_s"] = statistics.median(
+                [b - a for a, b in zip(t[2:9], t_out[2:9])])
+            record["sweeps"] = len([m for m in metrics if m["split"] == "val"])
+            log(f"native ({name}): {len(t)} steps with sweeps and checkpoints "
+                f"in {record['wall']} s; median step {record['step_s']} s over "
+                f"steps 3-9 (start to start), the host's enqueue "
+                f"{record['enqueue_s']} s a step; launches "
+                f"{record['launches']}; metrics {json.dumps(metrics)}")
+            if not metrics or not all(math.isfinite(m["total_loss"])
+                                      for m in metrics):
+                raise AssertionError(f"({name}) loss not finite: {metrics}")
+            return record
+
+        def expect(name, cfg, record, steps, decodes_at_least):
+            """K1-K3's launches exactly, and at least ``decodes_at_least``
+            decoded batches (None: the decode was replaced)."""
+            n_layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+            val_batches = record["sweeps"] * (DATA_VAL // BATCH)
+            got = {k: record["launches"][k] for k in counters}
+            want = dict(attention_fwd=n_layers * (steps + val_batches),
+                        attention_bwd=n_layers * steps,
+                        normalize=val_batches, augment_normalize=steps)
+            if any(got[k] != v for k, v in want.items()) or not (
+                    got["crop_resize_flip"] == got["nvjpeg"]) or (
+                    decodes_at_least is not None
+                    and got["nvjpeg"] < decodes_at_least):
+                raise AssertionError(f"({name}) launches {got}, expected "
+                                     f"{want} and at least {decodes_at_least} "
+                                     "decodes")
+            check_routes(cfg, cfg.DATA.MAX_CAPTION_LENGTH, record["launches"])
+
+        # (A) fs_native_input.yaml through the loader.
+        cfg_a = Config(str(native_cfg), sizes)
+        rec_a = run("a", args("a", native_cfg))
+        expect("a", cfg_a, rec_a, NATIVE_STEPS,
+               NATIVE_STEPS + rec_a["sweeps"] * (DATA_VAL // BATCH))
+        # (A0) the same with the decode replaced by a fixed tile tensor on
+        # the card (a copy a batch), (A1) with every batch of a split the
+        # first one again: what the decode, then reading the records and
+        # tokenizing, cost the step.
+        fixed_tiles = native.decode_crop_batch(
+            jpegs, 224, native.full_image_boxes(BATCH),
+            np.zeros(BATCH, np.uint8))[0]
+        real_decode = native.decode_crop_batch
+        real_load_batch = CocoCaptionsDataset.load_batch
+
+        def fixed_decode(jpegs, out_size, crop_boxes, flips, device="cuda",
+                         out=None):
+            tiles = fixed_tiles[:len(jpegs)]
+            return (tiles.clone() if out is None else out.copy_(tiles)), 0
+
+        first_batches = {}
+
+        def first_batch(self, indices):
+            key = (self.split, len(indices))
+            if key not in first_batches:
+                first_batches[key] = real_load_batch(self, indices)
+            return dict(first_batches[key])
+
+        try:
+            native.decode_crop_batch = fixed_decode
+            rec_a0 = run("a0", args("a0", native_cfg))
+        finally:
+            native.decode_crop_batch = real_decode
+        expect("a0", cfg_a, rec_a0, NATIVE_STEPS, None)
+        try:
+            CocoCaptionsDataset.load_batch = first_batch
+            rec_a1 = run("a1", args("a1", native_cfg))
+        finally:
+            CocoCaptionsDataset.load_batch = real_load_batch
+        expect("a1", cfg_a, rec_a1, NATIVE_STEPS, None)
+        del fixed_tiles, first_batches
+        # (B) fs_tpu_tuned.yaml + DATA.DEVICE_CACHE, built natively.
+        built = {}
+
+        def from_dataset(klass, *a, **kw):
+            built["cache"] = real_from_dataset(klass, *a, **kw)
+            return built["cache"]
+
+        device_cache.DeviceDataCache.from_dataset = classmethod(from_dataset)
+        cfg_b = Config(str(TUNED), sizes + ["DATA.DEVICE_CACHE", True])
+        rec_b = run("b", args("b", TUNED, ["DATA.DEVICE_CACHE", True]))
+        cache = built.pop("cache")
+        chunks = -(-DATA_TRAIN // device_cache.NATIVE_CHUNK)
+        expect("b", cfg_b, rec_b, NATIVE_STEPS,
+               chunks + rec_b["sweeps"] * (DATA_VAL // BATCH))
+        if tuple(cache._images.shape) != (DATA_TRAIN, 256, 256, 3):
+            raise AssertionError(f"(b) tiles {tuple(cache._images.shape)}")
+        build_native = cache.build_seconds
+        del cache
+        # The same cache through the Python path, for its build time.
+        py_ds = PretrainingDatasetFactory.from_config(
+            Config(str(TUNED), sizes + ["DATA.NATIVE_PIPELINE", False]),
+            "train")
+        t0 = time.perf_counter()
+        device_cache.load_host(py_ds, 256, np.arange(len(py_ds)))
+        build_python = time.perf_counter() - t0
+        log(f"native (b): the cache of {DATA_TRAIN} tiles of 256 built in "
+            f"{build_native} s through the native decode, {build_python} s "
+            "through the Python path (load_host alone)")
+        # (C) fs_tpu_tuned.yaml as written, through the loader.
+        cfg_c = Config(str(TUNED), sizes + ["OPTIM.NUM_ITERATIONS", 10])
+        rec_c = run("c", args("c", TUNED, steps=10))
+        expect("c", cfg_c, rec_c, 10, 10 + rec_c["sweeps"] * (DATA_VAL // BATCH))
+        log(f"native: the CLI at batch {BATCH}, median step start to start: "
+            f"(a) fs_native_input {rec_a['step_s']} s, (a0) its decode "
+            f"replaced by fixed tiles {rec_a0['step_s']} s, (a1) every "
+            f"batch the first {rec_a1['step_s']} s, (b) fs_tpu_tuned + "
+            f"cache {rec_b['step_s']} s, (c) fs_tpu_tuned {rec_c['step_s']} s;"
+            f" beside phase 6's fixed batches {float_step['step_s']} s and "
+            f"phase 10b's host loader {host_step} s; nvJPEG "
+            f"{out['nvjpeg']['ms']} ms a batch, "
+            f"{out['nvjpeg']['ms'] / 1e3 / rec_a['step_s']} of (a)'s step")
+        out.update(a=rec_a, a0=rec_a0, a1=rec_a1, b=rec_b, c=rec_c, build_s={
+            "native": build_native, "python": build_python})
+        for r in (rec_a, rec_a0, rec_a1, rec_b, rec_c):
+            del r["t"], r["t_out"]
+        out["seconds"] = time.perf_counter() - phase_t0
+        log(f"native: phase 10d in {out['seconds']} s")
+    finally:
+        cli.make_train_step = real_make_step
+        device_cache.DeviceDataCache.from_dataset = classmethod(real_from_dataset)
+        for handler in logger.handlers:  # the CLI's, into the directory
+            handler.close()
+        logger.handlers.clear()
+        logger.propagate = True
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def state_tensors(state) -> dict:
     """Copies of every tensor of a train state: parameters, BatchNorm
     statistics, the optimizer's trace and slow weights."""
@@ -2474,10 +3094,14 @@ def main() -> int:
     norm = phase_normalize()
     uint8 = phase_uint8_training(training)
     data = phase_data_cli(training)
+    nat = phase_native(training, data["a"]["step_s"])
     evals = phase_eval_cli()
     cli = {"cli_host_loader": data["a"]["launches"],
            "cli_resumed": data["c"]["launches"],
-           "cli_device_cache": data["b"]["launches"]}
+           "cli_device_cache": data["b"]["launches"],
+           "cli_native_input": nat["a"]["launches"],
+           "cli_native_tuned_cache": nat["b"]["launches"],
+           "cli_native_tuned": nat["c"]["launches"]}
     # phase_checkpoint's runs: (a) train with checkpoints, (b) resumed, (c)
     # again without, (d) the two bundles' encodes, (e) uint8 and resumed.
     by_run = {f"checkpoint_{run}": n for run, n in ckpt["launches"].items()}
@@ -2501,7 +3125,13 @@ def main() -> int:
         "uint8_training": uint8["launches"]["augment_normalize"],
         **{k: n["augment_normalize"] for k, n in by_run.items()
            if n["augment_normalize"]},
-        "cli_device_cache": data["b"]["launches"]["augment_normalize"]}
+        **{k: n["augment_normalize"] for k, n in cli.items()
+           if n["augment_normalize"]}}
+    k3_launches = {"uint8_eval": uint8["launches"]["normalize"],
+                   **{k: n["normalize"] for k, n in cli.items()
+                      if n["normalize"]}}
+    crop_launches = {k: n["crop_resize_flip"] for k, n in cli.items()
+                     if n.get("crop_resize_flip")}
     s20 = uint8["attention_s20"]
     timed = ("ms", "ms_device", "ms_cuda_core", "ms_cuda_core_device",
              "library_ms", "library_ms_device")
@@ -2538,8 +3168,8 @@ def main() -> int:
         dict(name="normalize_u8 (K3)", route="cuda",
              source="clip_lite_torch/ops/csrc/normalize.cu",
              replaces="clip_lite_tpu/ops/pallas_kernels.py:30",
-             launches=uint8["launches"]["normalize"],
-             launches_by_path={"uint8_eval": uint8["launches"]["normalize"]},
+             launches=sum(k3_launches.values()),
+             launches_by_path=k3_launches,
              **norm["uint8->float32"],
              variants={k: v for k, v in norm.items()
                        if k not in ("fused", "device_preprocess_ms")}),
@@ -2552,6 +3182,16 @@ def main() -> int:
              launches_by_path=k3_fused_launches,
              **norm["fused"],
              device_preprocess_ms=norm["device_preprocess_ms"]),
+        # Not a TPU kernel: the JAX core's host C++ sample_crop, after the
+        # decode (nvJPEG here, libjpeg there).
+        dict(name="crop_resize_flip_u8 (native batch path)", route="cuda",
+             source="clip_lite_torch/ops/csrc/crop_resize.cuh",
+             replaces="native/clrec_core.cpp:163",
+             replaces_a_tpu_kernel=False,
+             launches=sum(crop_launches.values()),
+             launches_by_path=crop_launches, **nat["kernel"],
+             nvjpeg_ms_batch=nat["nvjpeg"]["ms"],
+             nvjpeg_host_ms_batch=nat["nvjpeg"]["host_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

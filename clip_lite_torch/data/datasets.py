@@ -5,8 +5,10 @@ padded to ``max_caption_length`` (and trimmed per batch to
 index), so that the port's items are the JAX package's for the same seed.
 
 Here: the pretraining datasets ``RandomDataset``, ``CocoCaptionsDataset``
-(CLRec records, the Python path) and ``JsonDataset`` (ALBEF-style json
-over image files) in the ``train_sbert`` mode, and the downstream eval
+(CLRec records, through the Python path or, with ``native_pipeline``, the
+native JPEG batch path of ``data/native.py``) and ``JsonDataset``
+(ALBEF-style json over image files) in the ``train_sbert`` mode, and the
+downstream eval
 datasets (VOC07, iNaturalist 2018, ImageNet, COCO and Flickr30k
 retrieval, the gender-labelled COCO subset).  Image files are decoded by
 :func:`~clip_lite_torch.data.readers.read_image`.  Like the JAX package's
@@ -16,7 +18,7 @@ Queue 3 keeps this quirk, as the JAX package has it).
 
 Not here yet, each raising with its item of ROADMAP Queue 1: the ``glove``
 and ``sbert`` modes, the self-supervised views and the clustered hard
-negatives (item 7); the native batch path (item 4).
+negatives (item 7).
 """
 
 from __future__ import annotations
@@ -33,9 +35,6 @@ import numpy as np
 from clip_lite_torch.data import transforms as T
 from clip_lite_torch.data.readers import CocoCaptionsRecordReader, read_image
 from clip_lite_torch.data.tokenizers import get_hf_tokenizer
-
-NATIVE_PENDING = ("DATA.NATIVE_PIPELINE (the native JPEG batch path) is not "
-                  "ported yet (ROADMAP Queue 1, item 4); set it false")
 
 
 class Dataset:
@@ -227,20 +226,64 @@ class JsonDataset(CaptionDatasetBase):
 
 class CocoCaptionsDataset(CaptionDatasetBase):
     """The pretraining dataset over a CLRec split,
-    ``{data_root}/coco_{split}_{mode}2017.clrec``."""
+    ``{data_root}/coco_{split}_{mode}2017.clrec``.
+
+    With ``native_pipeline`` (DATA.NATIVE_PIPELINE) the loader takes whole
+    batches from :meth:`load_batch`: the JPEG records decoded, cropped (a
+    random resized crop in train, the whole image in val) and resized to
+    ``crop_size`` on ``device`` in one pass (``data/native.py``), uint8,
+    flip, colour jitter and normalize left to the train step, as in the
+    JAX package.  The records' images must then be JPEG bytes.
+    """
 
     def __init__(self, data_root: str, split: str = "train",
                  percentage: float = 100.0, native_pipeline: bool = False,
-                 **kw):
-        if native_pipeline:
-            raise NotImplementedError(NATIVE_PENDING)
+                 crop_size: int = 224, device="cuda", **kw):
         super().__init__(**kw)
         self.root = os.path.join(data_root,
                                  f"coco_{split}_{self.mode}2017.clrec")
         self.reader = CocoCaptionsRecordReader(self.root, percentage=percentage)
+        self.split = split
+        self.crop_size = crop_size
+        self.native_pipeline = bool(native_pipeline)
+        self.device = None
+        if self.native_pipeline:
+            from clip_lite_torch.data import native
+            from clip_lite_torch.eval_utils import resolve_device
 
-    def load_batch(self, indices):
-        raise NotImplementedError(NATIVE_PENDING)
+            self.device = resolve_device(device)
+            if len(self.reader):  # the first record says what they hold
+                native.jpeg_bytes(self.reader.record(0)["image"])
+
+    def load_batch(self, indices) -> Dict[str, Any]:
+        """The native batch path (the JAX ``load_batch``): the records of
+        ``indices`` as ``image_id`` (B,) int64, ``image`` (B, crop, crop, 3)
+        uint8 on ``device`` (zero tiles where a JPEG does not decode),
+        ``input_ids`` and ``attention_mask`` (B, L) int32.  One generator
+        per batch, from its first index and the epoch, draws the crop boxes
+        and then one caption per record."""
+        from clip_lite_torch.data import native
+
+        rng = self._rng(int(indices[0]) + 1_000_003 * self.epoch)
+        recs = [self.reader.record(int(i)) for i in indices]
+        n = len(recs)
+        boxes = (native.random_resized_crop_boxes(rng, n)
+                 if self.split == "train" else native.full_image_boxes(n))
+        images, _ = native.decode_crop_batch(
+            [r["image"] for r in recs], self.crop_size, boxes,
+            np.zeros(n, np.uint8), device=self.device)  # flips: the step's
+        ids_list, mask_list = [], []
+        for rec in recs:
+            captions = rec["captions"]
+            cap = captions[0] if self.use_single_caption else \
+                captions[int(rng.integers(len(captions)))]
+            cap = self.caption_transform(caption=cap, rng=rng)["caption"]
+            ids, mask = self._tokenize(cap)
+            ids_list.append(ids)
+            mask_list.append(mask)
+        return {"image_id": np.asarray([r["image_id"] for r in recs], np.int64),
+                "image": images, "input_ids": np.stack(ids_list),
+                "attention_mask": np.stack(mask_list)}
 
     def __len__(self):
         return len(self.reader)
@@ -493,5 +536,5 @@ class CocoObjectGender(_ImageFileDataset):
 __all__ = ["CaptionDatasetBase", "CocoCaptionsClusteredDataset",
            "CocoCaptionsDataset", "CocoObjectGender", "Dataset",
            "FlickrReEvalDataset", "INaturalist2018Dataset", "ImageNetDataset",
-           "JsonDataset", "NATIVE_PENDING", "RandomDataset", "ReEvalDataset",
+           "JsonDataset", "RandomDataset", "ReEvalDataset",
            "VOC07ClassificationDataset"]

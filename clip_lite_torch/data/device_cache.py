@@ -10,12 +10,14 @@ the card (``engine._maybe_device_preprocess``).  Batches are a pure
 function of (seed, step), so a resume at step K replays the stream.
 
 The corpus comes from a dataset through :func:`load_host` (the JAX
-``_load_host``'s Python path: each record's centre square, resized to the
-tile by area, and every caption cleaned and tokenized), memoized on disk
-by :func:`load_host_cached` (``DATA.CACHE_HOST_DIR``);
-:meth:`DeviceDataCache.from_dataset` joins the two, as the training CLI
-calls it.  JPEG records and the native decode wait for ROADMAP Queue 1,
-item 4.
+``_load_host``: every caption cleaned and tokenized, and each record's
+image made a tile, by the Python path (its centre square, resized by
+area) or, for a dataset with ``native_pipeline``, by the native decode
+(the whole image resized to the square with ``sample_crop``'s bilinear,
+256 records a batch, the tiles made on the dataset's device and left
+there)), memoized on disk by :func:`load_host_cached`
+(``DATA.CACHE_HOST_DIR``); :meth:`DeviceDataCache.from_dataset` joins the
+two, as the training CLI calls it.
 
 Differences from the JAX cache, by design:
   * the host cache's key folds in the tokenizer, the caption length and
@@ -69,21 +71,56 @@ def _resize_square(img: np.ndarray, size: int) -> np.ndarray:
     return resize_area(img[y0:y0 + s, x0:x0 + s], size, size)
 
 
+# Records a native decode batch of the cache's build (the JAX chunk).
+NATIVE_CHUNK = 256
+
+
+def _captions_of(rec) -> dict:
+    """A record without its image (a corpus's images would not fit)."""
+    return {"image_id": rec["image_id"], "captions": rec["captions"]}
+
+
+def _native_tiles(dataset, cache_size: int, rows: np.ndarray):
+    """The native path's tiles of ``rows`` (a uint8 tensor on the dataset's
+    device) and their records' ids and captions."""
+    from clip_lite_torch.data import native
+
+    images = torch.empty((len(rows), cache_size, cache_size, 3),
+                         dtype=torch.uint8, device=dataset.device)
+    recs = []
+    for lo in range(0, len(rows), NATIVE_CHUNK):
+        chunk = [dataset.reader.record(int(i))
+                 for i in rows[lo:lo + NATIVE_CHUNK]]
+        native.decode_crop_batch(
+            [r["image"] for r in chunk], cache_size,
+            native.full_image_boxes(len(chunk)), np.zeros(len(chunk), np.uint8),
+            device=dataset.device, out=images[lo:lo + len(chunk)])
+        recs += [_captions_of(r) for r in chunk]
+    return images, recs
+
+
 def load_host(dataset, cache_size: int, rows: np.ndarray) -> DecodedCorpus:
     """Decode the dataset rows ``rows`` to (cache, cache, 3) uint8 tiles
     and tokenize all their captions (each through the dataset's
     ``caption_transform`` with ``default_rng(0)``): per-item unpadded
     token stacks, as the JAX ``DeviceDataCache._load_host`` gives them.
     ``dataset`` is a ``CocoCaptionsDataset`` (its ``reader``,
-    ``caption_transform`` and ``_tokenize``)."""
+    ``caption_transform`` and ``_tokenize``); with its ``native_pipeline``
+    the tiles are a tensor on its device, else a numpy array."""
     n = len(rows)
-    images = np.empty((n, cache_size, cache_size, 3), np.uint8)
+    if getattr(dataset, "native_pipeline", False):
+        images, recs = _native_tiles(dataset, cache_size, rows)
+    else:
+        images = np.empty((n, cache_size, cache_size, 3), np.uint8)
+        recs = []
+        for j, i in enumerate(rows):
+            rec = dataset.reader[int(i)]
+            images[j] = _resize_square(rec["image"], cache_size)
+            recs.append(_captions_of(rec))
     ids_per_item, mask_per_item = [], []
     n_caps = np.empty(n, np.int32)
     image_ids = np.empty(n, np.int64)
-    for j, i in enumerate(rows):
-        rec = dataset.reader[int(i)]
-        images[j] = _resize_square(rec["image"], cache_size)
+    for j, rec in enumerate(recs):
         image_ids[j] = rec["image_id"]
         caps = rec["captions"]
         caps = caps if isinstance(caps, list) else [caps]
@@ -103,20 +140,25 @@ def load_host(dataset, cache_size: int, rows: np.ndarray) -> DecodedCorpus:
 
 def host_cache_key(dataset, cache_size: int, rows: np.ndarray) -> str:
     """The key of :func:`load_host`'s result: the records' file (path,
-    size, mtime), the tile size, the rows, and what the tokens depend on:
-    the dataset's class, the tokenizer's name and vocabulary size and the
-    caption length.  A dataset without a file has no key (ValueError)."""
+    size, mtime), the tile size, the rows, the path that makes the tiles
+    (the Python path, or the native one and the device type that decodes
+    there: nvJPEG on a card, the JAX core's scaled libjpeg decode on the
+    CPU; all three differ), and what the tokens depend on: the dataset's
+    class, the tokenizer's name and vocabulary size and the caption
+    length.  A dataset without a file has no key (ValueError)."""
     root = getattr(dataset, "root", "")
     if not root:
         raise ValueError("the host cache needs a corpus read from a file "
                          f"({type(dataset).__name__} names none)")
     st = os.stat(root)
     tok = dataset.tokenizer
+    tile_maker = ("native", dataset.device.type) \
+        if getattr(dataset, "native_pipeline", False) else "python"
     fingerprint = (os.path.abspath(root), st.st_size, st.st_mtime_ns,
                    cache_size, len(dataset), rows.tobytes(),
                    type(dataset).__name__, dataset.tokenizer_name,
                    type(tok).__name__, tok.vocab_size,
-                   dataset.max_caption_length)
+                   dataset.max_caption_length, tile_maker)
     return hashlib.sha1(repr(fingerprint).encode()).hexdigest()[:16]
 
 
@@ -137,7 +179,7 @@ def load_host_cached(dataset, cache_size: int, rows: np.ndarray,
                              meta["mask"], meta["n_caps"], meta["image_ids"])
     out = load_host(dataset, cache_size, rows)
     tmp = img_path + ".tmp.npy"
-    np.save(tmp, out.images)
+    np.save(tmp, torch.as_tensor(out.images).cpu().numpy())
     os.replace(tmp, img_path)
     with open(meta_path + ".tmp", "wb") as f:
         pickle.dump({"ids": out.ids, "mask": out.mask, "n_caps": out.n_caps,

@@ -16,6 +16,15 @@ the producer thread, and the step's ``_to_device`` copies them to the
 card with ``non_blocking=True``.  A batch owns its buffers, so no later
 batch writes into memory that a copy may still be reading.
 
+A dataset with ``native_pipeline`` gives whole batches (``load_batch``,
+as the JAX loader takes them), their images already uint8 on its device.
+On a card the producer decodes on a CUDA stream of its own, so that the
+decode overlaps the step; the batch is handed over with an event
+recorded after its kernel, which the consumer's stream waits on, and its
+tensors are marked as used on the consumer's stream (``record_stream``),
+so that the caching allocator does not give their memory to the next
+decode while the step still reads it.
+
 One rank only: more than one shard raises (ROADMAP Queue 1, item 5).
 """
 
@@ -45,9 +54,11 @@ class _ConsumerGone(Exception):
 def _background_batches(produce: Callable, prefetch: int) -> Iterator[Any]:
     """Run ``produce(emit)`` on a daemon thread and yield what it emits,
     through a queue of ``prefetch`` batches.  A producer's exception is
-    re-raised here; when the consumer leaves (break, or the generator is
-    collected), ``emit`` raises ``_ConsumerGone`` in the producer within
-    half a second, which ends it.  ``produce`` returning ends the stream."""
+    re-raised here; when the consumer leaves (break, ``close()``, or the
+    generator is collected), ``emit`` raises ``_ConsumerGone`` in the
+    producer within half a second, which ends it, and the consumer waits
+    for that: after ``close()`` the producer launches nothing more.
+    ``produce`` returning ends the stream."""
     q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
     stop = threading.Event()
     done = object()
@@ -91,6 +102,31 @@ def _background_batches(produce: Callable, prefetch: int) -> Iterator[Any]:
                 q.get_nowait()
             except queue.Empty:
                 break
+        thread.join()
+
+
+class _Batch(dict):
+    """A batch on its way from the producer, with the CUDA event after
+    which its device tensors are ready (``ready``; None for host ones)."""
+
+    ready: Optional[torch.cuda.Event] = None
+
+
+def _handed_over(batches: Iterator[_Batch]) -> Iterator[Dict[str, Any]]:
+    """``batches`` as plain dicts, each made safe to use on the consumer's
+    current stream: it waits for the batch's ``ready`` event, and the
+    batch's device tensors are recorded as used on it."""
+    try:
+        for batch in batches:
+            if batch.ready is not None:
+                stream = torch.cuda.current_stream(batch["image"].device)
+                stream.wait_event(batch.ready)
+                for v in batch.values():
+                    if v.is_cuda:
+                        v.record_stream(stream)
+            yield dict(batch)
+    finally:
+        batches.close()
 
 
 class DataLoader:
@@ -127,6 +163,7 @@ class DataLoader:
                 self._item_lengths = np.asarray(lengths)
         self.background = background
         self.epoch = 0
+        self._decode_streams = threading.local()
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -172,17 +209,49 @@ class DataLoader:
         for b in range(start_batch, -(-end // self.batch_size)):
             yield order[b * self.batch_size: (b + 1) * self.batch_size]
 
+    def _native_device(self) -> Optional[torch.device]:
+        """The card that a native-path dataset decodes on, else None."""
+        device = getattr(self.dataset, "device", None)
+        if getattr(self.dataset, "native_pipeline", False) and \
+                device is not None and device.type == "cuda":
+            return device
+        return None
+
+    def _decode_stream(self, device: torch.device) -> torch.cuda.Stream:
+        """This thread's CUDA stream for the native decode."""
+        stream = getattr(self._decode_streams, "stream", None)
+        if stream is None:
+            stream = self._decode_streams.stream = torch.cuda.Stream(device)
+        return stream
+
     def _load_batch(self, idxs: np.ndarray,
                     pool: ThreadPoolExecutor) -> Dict[str, torch.Tensor]:
-        items = list(pool.map(self.dataset.__getitem__, idxs))
-        batch = self.dataset.collate_fn(items)
+        """The batch of ``idxs``: a native-path dataset's ``load_batch``
+        (on a card, on this thread's decode stream, with the event that
+        ends it as ``ready``), else the items through ``pool``, collated;
+        trimmed, as tensors, host ones pinned with ``pin_memory``."""
+        device = self._native_device()
+        ready = None
+        if getattr(self.dataset, "native_pipeline", False):
+            with torch.cuda.stream(self._decode_stream(device) if device
+                                   else None):
+                batch = self.dataset.load_batch(idxs)
+                if device is not None:
+                    ready = torch.cuda.Event()
+                    ready.record()
+        else:
+            items = list(pool.map(self.dataset.__getitem__, idxs))
+            batch = self.dataset.collate_fn(items)
         trim = getattr(self.dataset, "trim_batch", None)
         if trim is not None:
             batch = trim(batch)
-        out = {k: torch.from_numpy(np.ascontiguousarray(v))
-               for k, v in batch.items()}
+        out = _Batch((k, torch.from_numpy(np.ascontiguousarray(v))
+                      if isinstance(v, np.ndarray) else v)
+                     for k, v in batch.items())
         if self.pin_memory:
-            out = {k: v.pin_memory() for k, v in out.items()}
+            out = _Batch((k, v.pin_memory() if v.device.type == "cpu" else v)
+                         for k, v in out.items())
+        out.ready = ready
         return out
 
     def __iter__(self):
@@ -214,13 +283,13 @@ def _stream(loader: DataLoader, background: bool, endless: bool,
                     return
 
     if not background:
-        return batches()
+        return _handed_over(batches())
 
     def produce(emit):
         for batch in batches():
             emit(batch)
 
-    return _background_batches(produce, loader.prefetch)
+    return _handed_over(_background_batches(produce, loader.prefetch))
 
 
 def infinite_batches(loader: DataLoader,

@@ -140,6 +140,19 @@ def decode_image(data) -> np.ndarray:
                     f"{getattr(data, 'shape', '')}")
 
 
+def encode_image(image_rgb: np.ndarray, quality: int = 95) -> bytes:
+    """RGB HWC uint8 -> the bytes of a JPEG at ``quality``, encoded by PIL
+    with its defaults (4:2:0, baseline), as the JAX package's
+    ``encode_image`` encodes with OpenCV's; the two decode to the same
+    pixels (``tests/test_torch_coco_preprocess.py``)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(image_rgb, np.uint8)).save(
+        buf, "JPEG", quality=int(quality))
+    return buf.getvalue()
+
+
 def read_image(path: str) -> np.ndarray:
     """The image file at ``path`` as RGB HWC uint8, decoded by content
     whatever its extension; a file that is missing or cannot be decoded
@@ -175,15 +188,20 @@ class CocoCaptionsRecordReader:
     def __len__(self) -> int:
         return len(self._indices)
 
+    def record(self, i: int) -> Dict[str, Any]:
+        """Record ``i`` as stored: its image not decoded (JPEG bytes for
+        the native batch path)."""
+        return _as_dict(self.reader[int(self._indices[i])])
+
     def __getitem__(self, i: int) -> Dict[str, Any]:
-        rec = _as_dict(self.reader[int(self._indices[i])])
+        rec = self.record(i)
         rec["image"] = decode_image(rec["image"])
         return rec
 
     def captions(self, i: int):
         """Captions of record ``i`` without its image: the sequence-length
         bucketing scans lengths with this."""
-        return _as_dict(self.reader[int(self._indices[i])])["captions"]
+        return self.record(i)["captions"]
 
 
 class CocoCaptionsDirReader:
@@ -216,4 +234,5 @@ class CocoCaptionsDirReader:
 
 
 __all__ = ["ClRecReader", "ClRecWriter", "CocoCaptionsDirReader",
-           "CocoCaptionsRecordReader", "MAGIC", "decode_image", "read_image"]
+           "CocoCaptionsRecordReader", "MAGIC", "decode_image", "encode_image",
+           "read_image"]

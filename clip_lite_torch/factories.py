@@ -180,12 +180,14 @@ def _build_transform_pipeline(config: Config, split: str):
 
 
 class PretrainingDatasetFactory:
-    """The pretraining dataset of MODEL.NAME: ``captions`` (CLRec records),
+    """The pretraining dataset of MODEL.NAME: ``captions`` (CLRec records;
+    with DATA.NATIVE_PIPELINE its batches are decoded on ``device``),
     ``random``, or ``json`` (DATA.JSON_FILES_TRAIN or _VAL, the val split
     at half its entries, as in the JAX package)."""
 
     @classmethod
-    def from_config(cls, config: Config, split: str = "train"):
+    def from_config(cls, config: Config, split: str = "train",
+                    device="cuda"):
         from clip_lite_torch.data import datasets
 
         _C = config
@@ -211,6 +213,8 @@ class PretrainingDatasetFactory:
         )
         if name == "captions":
             kwargs["native_pipeline"] = _C.DATA.NATIVE_PIPELINE
+            kwargs["crop_size"] = _C.DATA.IMAGE_CROP_SIZE
+            kwargs["device"] = device
         if name == "json":
             json_files = list(_C.DATA.JSON_FILES_TRAIN if split == "train"
                               else _C.DATA.JSON_FILES_VAL)

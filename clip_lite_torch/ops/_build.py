@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/lib<name>-<hash>.so`` at the root of the checkout, for
-``sm_90a`` (Hopper).  The hash covers the source, the shared headers
-(``csrc/*.cuh``) and the flags, so an edited source or header never loads
-a stale library.  Builds happen at first use,
+``sm_90a`` (Hopper), linked against the libraries that ``LIBS`` names for
+it (``decode_crop``: nvJPEG, found through the toolkit's ``lib64``).  The
+hash covers the source, the shared headers (``csrc/*.cuh``) and the flags
+and libraries, so an edited source or header never loads a stale
+library.  Builds happen at first use,
 never at import; :func:`build_all` starts one nvcc per source at once.
 """
 
@@ -17,12 +19,15 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Libraries a source links against, beside the CUDA runtime.
+LIBS = {"decode_crop": ["-lnvjpeg"]}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -39,11 +44,20 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def _link_flags(name: str, nvcc: str) -> List[str]:
+    """``LIBS[name]``, with the toolkit's ``lib64`` to find them in at
+    build and at load time."""
+    if name not in LIBS:
+        return []
+    lib64 = str(Path(nvcc).resolve().parents[1] / "lib64")
+    return ["-L", lib64, "-Xlinker", f"-rpath={lib64}", *LIBS[name]]
+
+
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LIBS.get(name, [])).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -51,7 +65,9 @@ def _start(name: str) -> Tuple[Path, Path, subprocess.Popen]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    nvcc = _nvcc()
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu"),
+           *_link_flags(name, nvcc)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return _target(name), Path(tmp), proc

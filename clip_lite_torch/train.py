@@ -1,8 +1,9 @@
 """The pretraining CLI, the counterpart of the JAX package's
 ``train.py``: ``python -m clip_lite_torch.train --config <yaml> ...``
 trains on one card (``--device cpu`` for the CPU) from CLRec records
-through the host loader or, with ``DATA.DEVICE_CACHE``, through the
-device-resident cache, with val sweeps, checkpoints and
+through the host loader (with ``DATA.NATIVE_PIPELINE``, JPEG records
+decoded on the card a batch at a time) or, with ``DATA.DEVICE_CACHE``,
+through the device-resident cache, with val sweeps, checkpoints and
 ``--resume-from``, as ``python -m clip_lite_tpu.train`` does.
 
 ``train_loop`` is the loop (lines 282-371 of the JAX ``train.py``) over
@@ -209,9 +210,12 @@ def _check_supported(_C: Config, _A) -> None:
 
 def init_dataloaders(_C: Config, _A, device) -> tuple:
     """The train and val loaders (the train one length-grouped under
-    DATA.SEQ_BUCKETS), pinning their batches for a CUDA ``device``."""
-    train_ds = PretrainingDatasetFactory.from_config(_C, split="train")
-    val_ds = PretrainingDatasetFactory.from_config(_C, split="val")
+    DATA.SEQ_BUCKETS), pinning their host batches for a CUDA ``device``;
+    under DATA.NATIVE_PIPELINE their images are decoded on ``device``."""
+    train_ds = PretrainingDatasetFactory.from_config(_C, split="train",
+                                                     device=device)
+    val_ds = PretrainingDatasetFactory.from_config(_C, split="val",
+                                                   device=device)
     common = dict(num_workers=_A.cpu_workers, seed=_C.RANDOM_SEED,
                   prefetch=_C.DATA.PREFETCH, drop_last=True,
                   pin_memory=device.type == "cuda")

@@ -9,7 +9,8 @@ shuffles warp collectives; each block has its own shared memory, which
 ``cooperative_groups``' ``map_shared_rank`` maps across the cluster, and
 ``cluster.sync()`` is a barrier over the cluster's threads.  The
 ``__*_rn`` intrinsics are the host's IEEE operations, which g++ does not
-contract at ``-std=c++20`` on x86-64.
+contract at ``-std=c++20`` on x86-64 (``__fmaf_rn`` is ``std::fma``, one
+rounding).
 
 A test rewrites a source in three ways before it compiles it:
 
@@ -36,6 +37,7 @@ CUDA_RUNTIME_H = r"""
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <math.h>
@@ -74,6 +76,7 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

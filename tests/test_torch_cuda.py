@@ -14,6 +14,9 @@ Checkpoints of a state on the card: an asynchronous save taken while the
 next step runs equals a synchronous save of the same step, bit for bit,
 and a checkpoint written from channels_last CUDA tensors loads in a CPU
 process.
+The native JPEG batch path: crop_resize_flip_u8 against its plain twin
+bit for bit, nvJPEG's tiles within the decode bars of the twin's, and the
+background loader's first losses equal to the foreground loader's.
 
 These tests need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  The
 file imports no JAX, so it also runs where JAX is absent:
@@ -751,3 +754,189 @@ print("loaded on the CPU")
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr
     assert "loaded on the CPU" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# The native JPEG batch path: crop_resize_flip_u8, nvJPEG, the loader
+# ---------------------------------------------------------------------------
+
+def _photo(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    f, p = rng.uniform(0.005, 0.08, 6), rng.uniform(0, 6, 3)
+    img = np.stack([np.sin(xx * f[c] + p[c]) * np.cos(yy * f[3 + c])
+                    for c in range(3)], axis=-1)
+    return np.clip((img + 1) * 127.5 + rng.normal(0, 4, img.shape),
+                   0, 255).astype(np.uint8)
+
+
+def _jpeg(image, **kw) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _crop_boxes(n, seed):
+    from clip_lite_torch.data import native
+
+    boxes = native.random_resized_crop_boxes(np.random.default_rng(seed), n)
+    boxes[0::5] = -1.0                       # the whole image
+    boxes[1::5] = (0.999, 0.0, 1.0, 0.001)   # 1 x 1 at a corner
+    boxes[2::5] = (0.6, 0.7, 1.0, 1.0)       # against two borders
+    return boxes
+
+
+@pytest.mark.parametrize("n,size", [(1, 1), (7, 17), (128, 224), (16, 256),
+                                    (600, 3)])  # 600: a staging buffer grows
+def test_crop_resize_flip_matches_twin_bit_for_bit(device, n, size):
+    from clip_lite_torch.data import native
+
+    rng = np.random.default_rng(n * size)
+    shapes = [(1, 1), (5, 9), (64, 80), (120, 90)]
+    images = [None if i % 11 == 10 else rng.integers(
+        0, 256, (*shapes[i % len(shapes)], 3), dtype=np.uint8)
+        for i in range(n)]
+    arena, offsets, sizes = native.pack_arena(images)
+    arena = torch.from_numpy(arena).to(device)
+    boxes = _crop_boxes(n, n)
+    blocks = np.array([1, 2, 4, 8], np.int32)[np.arange(n) % 4]
+    for flips, denoms in ((np.zeros(n, np.uint8), None),
+                          ((np.arange(n) % 2).astype(np.uint8), blocks),
+                          ((np.arange(n) % 2).astype(np.uint8), None)):
+        before = native.crop_resize_flip_u8.launches
+        got = native.crop_resize_flip_u8(arena, offsets, sizes, boxes, flips,
+                                         size, denoms=denoms)
+        want = native.crop_resize_flip_reference(arena, offsets, sizes, boxes,
+                                                 flips, size, denoms)
+        torch.cuda.synchronize()
+        assert native.crop_resize_flip_u8.launches == before + 1
+        assert got.shape == (n, size, size, 3) and torch.equal(got, want)
+    out = torch.empty((2 * n, size, size, 3), dtype=torch.uint8, device=device)
+    native.crop_resize_flip_u8(arena, offsets, sizes, boxes, flips, size,
+                               out=out[n:])
+    assert torch.equal(out[n:], want)
+
+
+def test_nvjpeg_tiles_within_the_decode_bars(device):
+    """nvJPEG + the kernel against the twin at nvJPEG's full resolution,
+    averaged over blocks of the JAX core's scale where it takes one (the
+    256 x 192 source's whole image at 64):
+    mean |d| <= 1 level and PSNR >= 40 dB per tile, per JPEG kind; CMYK,
+    bytes that are no JPEG and a JPEG cut inside a header fail, as in the
+    JAX core, and leave the batch's other tiles whole."""
+    import io
+
+    from PIL import Image
+
+    from clip_lite_torch.data import native
+
+    kinds = {
+        "420": [_jpeg(_photo(96, 128, s), quality=90) for s in range(3)],
+        "422": [_jpeg(_photo(128, 96, s), quality=90, subsampling=1)
+                for s in range(3)],
+        "444": [_jpeg(_photo(96, 96, s), quality=90, subsampling=0)
+                for s in range(3)],
+        "progressive": [_jpeg(_photo(96, 128, s), quality=90,
+                              progressive=True) for s in range(3)],
+        "greyscale": [_jpeg(_photo(96, 128, s)[..., 0], quality=90)
+                      for s in range(3)],
+        "scaled": [_jpeg(_photo(192, 256, s), quality=90) for s in range(3)],
+    }
+    buf = io.BytesIO()
+    Image.fromarray(_photo(40, 48, 0)).convert("CMYK").save(buf, "JPEG")
+    cut = _jpeg(_photo(40, 48, 1), quality=90)
+    # CMYK and no JPEG fail at the header; the one cut inside its scan
+    # header fails the batch's decode, and alone.
+    failing = [buf.getvalue(), b"\xff\xd8" + bytes(64),
+               cut[:cut.index(b"\xff\xda") + 5]]
+    for kind, jpegs in kinds.items():
+        n = len(jpegs)
+        boxes, flips = _crop_boxes(n, 5), (np.arange(n) % 2).astype(np.uint8)
+        before = native.nvjpeg_decode.launches
+        tiles, failures = native.decode_crop_batch(jpegs + failing, 64,
+                                                   np.concatenate(
+                                                       [boxes, boxes[:3]]),
+                                                   np.concatenate(
+                                                       [flips, flips[:3]]))
+        assert native.nvjpeg_decode.launches == before + 1
+        assert failures == 3 and not tiles[n:].any()
+        images = [native.decode_rgb(j, b, 64, scaled=False)
+                  for j, b in zip(jpegs, boxes)]
+        arena, offsets, sizes = native.pack_arena(images)
+        denoms = native.scale_denoms(boxes, sizes, 64)
+        assert (denoms[0] > 1) == (kind == "scaled")  # boxes[0]: whole
+        twin = native.crop_resize_flip_reference(arena, offsets, sizes, boxes,
+                                                 flips, 64, denoms)
+        d = (tiles[:n].double().cpu() - twin.double()).flatten(1)
+        mse = (d ** 2).mean(1)
+        psnr = 10 * torch.log10(255.0 ** 2 / mse.clamp_min(1e-12))
+        assert d.abs().mean(1).max() <= 1.0 and psnr.min() >= 40.0, kind
+
+
+def _jpeg_corpus(root, n_train=48, n_val=8):
+    from clip_lite_torch.data.readers import ClRecWriter
+
+    rng = np.random.default_rng(0)
+    words = "a the man dog cat bus red blue small two on in with".split()
+    for split, n in (("train", n_train), ("val", n_val)):
+        path = os.path.join(str(root), f"coco_{split}_train_sbert2017.clrec")
+        with ClRecWriter(path) as w:
+            for i in range(n):
+                w.append({"image_id": i, "image": _jpeg(
+                    _photo(96 + 8 * (i % 3), 128, i), quality=90),
+                    "captions": [" ".join(rng.choice(words, 5))
+                                 for _ in range(3)]})
+    return str(root)
+
+
+def test_background_native_loader_losses_equal_foreground(device, tmp_path):
+    """The native batches decoded on the producer's own stream, handed to
+    the step's stream through an event: the first 5 losses equal those of
+    the same run with the decode in the consumer's thread, bit for bit
+    (deterministic algorithms), so no step reads a tile before its decode
+    has finished or after its memory went to another decode."""
+    from clip_lite_torch.data import native
+    from clip_lite_torch.data.pipeline import DataLoader, infinite_batches
+    from clip_lite_torch.factories import PretrainingDatasetFactory
+
+    root = _jpeg_corpus(tmp_path)
+    cfg = Config(FLAGSHIP, TINY + [
+        "MODEL.NAME", "captions", "DATA.ROOT", root,
+        "DATA.NATIVE_PIPELINE", True])
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    losses = {}
+    try:
+        for background in (False, True):
+            ds = PretrainingDatasetFactory.from_config(cfg, "train",
+                                                       device=device)
+            loader = DataLoader(ds, 8, shuffle=True, seed=3, prefetch=3,
+                                background=background, pin_memory=True)
+            state = create_train_state(cfg, device=device)
+            step = make_train_step(cfg)
+            stream = infinite_batches(loader)
+            before = native.crop_resize_flip_u8.launches
+            run = []
+            for _ in range(5):
+                batch = next(stream)
+                assert batch["image"].is_cuda and \
+                    batch["image"].dtype == torch.uint8
+                state, metrics = step(state, batch)
+                run.append(metrics["total_loss"].item())
+            stream.close()
+            assert native.crop_resize_flip_u8.launches >= before + 5
+            losses[background] = run
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags[2:]
+    assert all(np.isfinite(losses[True]))
+    assert losses[True] == losses[False]

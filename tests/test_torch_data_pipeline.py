@@ -16,12 +16,12 @@ the host cache's key follows the tokenizer and the caption length, and
 a corpus with no file is not cached."""
 
 import os
-import re
 import threading
 import time
 
 import numpy as np
 import pytest
+import torch
 
 import jax  # noqa: F401  (the JAX package's modules expect it loaded)
 
@@ -31,7 +31,6 @@ from clip_lite_tpu.data.device_cache import DeviceDataCache as JDeviceDataCache
 from clip_lite_tpu.factories import PretrainingDatasetFactory as JFactory
 from clip_lite_torch.config import Config
 from clip_lite_torch.data import pipeline
-from clip_lite_torch.data.datasets import NATIVE_PENDING
 from clip_lite_torch.data.device_cache import (
     host_cache_key,
     load_host,
@@ -253,8 +252,15 @@ def test_more_than_one_shard_raises(corpus):
 
 
 def test_native_pipeline_raises(corpus):
-    with pytest.raises(NotImplementedError, match=re.escape(NATIVE_PENDING)):
-        _datasets(overrides(corpus, "DATA.NATIVE_PIPELINE", True))
+    """The native path (tests/test_torch_native.py) refuses what it cannot
+    run: ndarray records (it decodes JPEG bytes), and its default device,
+    CUDA, where there is none."""
+    cfg = Config(FLAGSHIP, overrides(corpus, "DATA.NATIVE_PIPELINE", True))
+    with pytest.raises(TypeError, match="JPEG records"):
+        PretrainingDatasetFactory.from_config(cfg, "train", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PretrainingDatasetFactory.from_config(cfg, "train")
 
 
 @pytest.mark.parametrize("rows", [None, [5, 0, 3, 11]])

@@ -132,11 +132,10 @@ def test_not_a_clrec_file_raises(tmp_path):
 
 @pytest.mark.parametrize("where", ["decode_image", "record_reader",
                                    "dir_reader"])
-def test_jpeg_bytes_raise_naming_the_jpeg_step(tmp_path, where):
-    """JPEG bytes, which the port once refused, now decode to the JAX
-    package's arrays: given to ``decode_image``, in a record, and as a
-    file of COCO's own directory.  (The name is that of the refusal this
-    test held before the decode existed.)"""
+def test_jpeg_bytes_decode_as_jax(tmp_path, where):
+    """JPEG bytes decode to the JAX package's arrays: given to
+    ``decode_image``, in a record, and as a file of COCO's own
+    directory."""
     image = np.random.default_rng(1).integers(0, 256, (8, 12, 3), np.uint8)
     jpeg = jreaders.encode_image(image)
     want = jreaders.decode_image(jpeg)
