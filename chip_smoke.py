@@ -5,6 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``--crop-kernel`` runs phases 1, 2 and 10d's crop kernel alone, and
+prints its row.)
+
 Phases; any failure raises and exits non-zero, and no phase's error is
 caught:
 
@@ -178,8 +181,10 @@ caught:
    crop_resize_flip_u8 alone, on the twin's own PIL decode of 128 records
    in one arena on the card, against its plain twin bit for bit: train
    boxes, whole images, 1 x 1 and edge-clamped crops, flips on and off, at
-   224 and the cache's 256; its times at (128, 224) beside its byte bound
-   (tiles plus crop regions).  Then nvJPEG + the kernel per JPEG kind
+   224 and the cache's 256, images cut to odd widths in an arena and
+   tiles at odd addresses, and a batch of 1024; its times at (128, 224),
+   at the configs' (1024, 224) and at the cache build's (256, 256) beside
+   its byte bound (tiles plus crop regions).  Then nvJPEG + the kernel per JPEG kind
    (baseline 4:2:0, 4:2:2, 4:4:4, progressive, greyscale, 640 x 480,
    640 x 640; train and whole boxes): within DECODE_BARS of the twin at
    full resolution per tile, within SCALED_BARS of the JAX core's scaled
@@ -373,12 +378,12 @@ def phase_environment() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def phase_build() -> None:
+def phase_build(sources=("attention_fwd", "attention_bwd", "normalize",
+                         "decode_crop")) -> None:
     from clip_lite_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["attention_fwd", "attention_bwd", "normalize",
-                             "decode_crop"])
+    logs = _build.build_all(list(sources))
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'none (cached)'}")
     spills = []
     for name, text in logs.items():
@@ -2244,10 +2249,15 @@ def native_kernel_alone(jpegs: list) -> dict:
     """crop_resize_flip_u8 on the twin's own decode (PIL at the JAX core's
     scale) of ``jpegs`` in one arena on the card, against the twin on the
     same arena, bit for bit: train boxes, whole images, 1 x 1 and
-    edge-clamped crops, flips on and off, at 224 and the cache's 256, and
-    whole images at full resolution averaged over blocks of the JAX core's
-    scale; then its times at the main path's shapes (nvJPEG's full
-    resolution, train boxes, their blocks, no flip, 224)."""
+    edge-clamped crops, flips on and off, at 224 and the cache's 256; whole
+    images at full resolution averaged over blocks of the JAX core's scale;
+    images cut to odd widths, so that every row and image starts at an odd
+    byte, in an arena and tiles at odd addresses; and the configs' batch
+    of 1024 (two launches).  Then its times at the main path's shapes:
+    nvJPEG's full resolution, no flip, train boxes and their blocks at
+    (128, 224) (the loader's batch) and at (1024, 224) (the configs'
+    batch), and whole images at (256, 256) (a chunk of the device cache's
+    build)."""
     from clip_lite_torch.data import native
 
     n = len(jpegs)
@@ -2259,59 +2269,99 @@ def native_kernel_alone(jpegs: list) -> dict:
     edges[2::4] = (0.6, 0.7, 1.0, 1.0)       # against two borders
     alternate = (np.arange(n) % 2).astype(np.uint8)
     zeros, ones = np.zeros(n, np.uint8), np.ones(n, np.uint8)
+    # nvJPEG's arena: every image at full resolution.
+    full = [native.decode_rgb(j, None, 224, scaled=False) for j in jpegs]
+
+    def check(name, images, boxes, flips, size, denoms=None, lead=0):
+        packed, offsets, sizes = native.pack_arena(images)
+        m = len(images)
+        arena = torch.empty(len(packed) + lead, dtype=torch.uint8,
+                            device="cuda")[lead:]
+        arena.copy_(torch.from_numpy(packed))
+        out = torch.full((lead + m * size * size * 3,), 7, dtype=torch.uint8,
+                         device="cuda")[lead:].view(m, size, size, 3)
+        got = native.crop_resize_flip_u8(arena, offsets, sizes, boxes, flips,
+                                         size, out=out, denoms=denoms)
+        want = native.crop_resize_flip_reference(arena, offsets, sizes, boxes,
+                                                 flips, size, denoms)
+        torch.cuda.synchronize()
+        diff = int((got.int() - want.int()).abs().max())
+        log(f"crop_resize_flip_u8 {name} at B {m}: max|kernel-plain| {diff}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"crop_resize_flip_u8 {name}: not bit for bit "
+                                 f"its plain version (max {diff})")
+
     cases = {"train 224, flips alternate": (train, alternate, 224),
              "whole 224": (native.full_image_boxes(n), zeros, 224),
              "edges 224, flipped": (edges, ones, 224),
              "whole 256 (cache tiles)": (native.full_image_boxes(n), zeros, 256),
              "train 256, flipped": (train, ones, 256)}
-    cases["whole 224, full resolution, blocks"] = (
-        native.full_image_boxes(n), alternate, 224)
     for name, (boxes, flips, size) in cases.items():
-        blocks = name.endswith("blocks")
-        images = [native.decode_rgb(j, b, size, scaled=not blocks)
-                  for j, b in zip(jpegs, boxes)]
-        arena, offsets, sizes = native.pack_arena(images)
-        denoms = native.scale_denoms(boxes, sizes, size) if blocks else None
-        if blocks and not (denoms > 1).any():
-            raise AssertionError(f"crop_resize_flip_u8 {name}: no block")
-        arena = torch.from_numpy(arena).cuda()
-        got = native.crop_resize_flip_u8(arena, offsets, sizes, boxes, flips,
-                                         size, denoms=denoms)
-        want = native.crop_resize_flip_reference(arena, offsets, sizes, boxes,
-                                                 flips, size, denoms)
-        torch.cuda.synchronize()
-        diff = int((got.int() - want.int()).abs().max())
-        log(f"crop_resize_flip_u8 {name} at B {n}: max|kernel-plain| {diff}")
-        if got.shape != (n, size, size, 3) or not torch.equal(got, want):
-            raise AssertionError(f"crop_resize_flip_u8 {name}: not bit for bit "
-                                 f"its plain version (max {diff})")
-    # Times at the main path's shapes: nvJPEG's full-resolution arena.
-    images = [native.decode_rgb(j, b, 224, scaled=False)
-              for j, b in zip(jpegs, train)]
-    arena, offsets, sizes = native.pack_arena(images)
-    denoms = native.scale_denoms(train, sizes, 224)
-    copies = l2_spilling_copies(torch.from_numpy(arena).cuda())
+        check(name, [native.decode_rgb(j, b, size) for j, b in
+                     zip(jpegs, boxes)], boxes, flips, size)
+    whole = native.full_image_boxes(n)
+    denoms = native.scale_denoms(whole, np.array([im.shape[:2] for im in full]),
+                                 224)
+    if not (denoms > 1).any():
+        raise AssertionError("crop_resize_flip_u8: no block in the whole images")
+    check("whole 224, full resolution, blocks", full, whole, alternate, 224,
+          denoms)
+    odd = [im[:im.shape[0] - i % 3, :im.shape[1] - 1 - 2 * (i % 5)]
+           for i, im in enumerate(full)]
+    check("train 224, odd widths at odd offsets, full resolution", odd, train,
+          alternate, 224,
+          native.scale_denoms(train, np.array([im.shape[:2] for im in odd]),
+                              224), lead=1)
+    big = full * (1024 // n)
+    boxes = native.random_resized_crop_boxes(rng, len(big))
+    check("batch 1024, train 224, full resolution", big, boxes,
+          (np.arange(len(big)) % 2).astype(np.uint8), 224,
+          native.scale_denoms(boxes, np.array([im.shape[:2] for im in big]),
+                              224))
 
-    def kernel(a):
-        return native.crop_resize_flip_u8(a, offsets, sizes, train, zeros, 224,
-                                          denoms=denoms)
+    def times(images, boxes, size) -> dict:
+        packed, offsets, sizes = native.pack_arena(images)
+        denoms = native.scale_denoms(boxes, sizes, size)
+        flips = np.zeros(len(images), np.uint8)
+        copies = l2_spilling_copies(torch.from_numpy(packed).cuda())
 
-    def plain(a):
-        return native.crop_resize_flip_reference(a, offsets, sizes, train,
-                                                 zeros, 224, denoms)
+        def kernel(a):
+            return native.crop_resize_flip_u8(a, offsets, sizes, boxes, flips,
+                                              size, denoms=denoms)
 
-    err = int((kernel(copies[0][0]).int() - plain(copies[0][0]).int())
-              .abs().max())
-    n_bytes = crop_bytes(train, sizes, 224)
-    row = dict(max_abs_err=err, ms=time_ms(kernel, copies),
-               ms_device=device_ms(kernel, copies),
-               host_ms=enqueue_ms(kernel, copies),
-               plain_ms=time_ms(plain, copies, iters=3, warmup=1),
-               library_ms=None, **bound(n_bytes, 0, torch.float32))
-    log(f"crop_resize_flip_u8 at B {n}, 224, train boxes: kernel {row['ms']} "
-        f"ms ({row['ms_device']} on the device, {row['host_ms']} host), plain "
-        f"{row['plain_ms']} ms, bound {row['bound_ms']} ms ({row['bound_by']}: "
-        f"{n_bytes} bytes); no library call crops per-image boxes")
+        def plain(a):
+            return native.crop_resize_flip_reference(a, offsets, sizes, boxes,
+                                                     flips, size, denoms)
+
+        err = int((kernel(copies[0][0]).int() - plain(copies[0][0]).int())
+                  .abs().max())
+        # Half a second of calls first: a fresh process (--crop-kernel)
+        # finds the clocks down.
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 0.5:
+            for a in copies:
+                kernel(*a)
+            torch.cuda.synchronize()
+        n_bytes = crop_bytes(boxes, sizes, size)
+        row = dict(max_abs_err=err, ms=time_ms(kernel, copies),
+                   ms_device=device_ms(kernel, copies),
+                   host_ms=enqueue_ms(kernel, copies),
+                   plain_ms=time_ms(plain, copies, iters=3, warmup=1),
+                   library_ms=None, **bound(n_bytes, 0, torch.float32))
+        log(f"crop_resize_flip_u8 at B {len(images)}, {size}: kernel "
+            f"{row['ms']} ms ({row['ms_device']} on the device, "
+            f"{row['host_ms']} host), plain {row['plain_ms']} ms, bound "
+            f"{row['bound_ms']} ms ({row['bound_by']}: {n_bytes} bytes); no "
+            f"library call crops per-image boxes")
+        return row
+
+    row = times(full, train, 224)
+    row["cache_256"] = times(full * (256 // n), native.full_image_boxes(256),
+                             256)
+    # The configs' batch: the same images and boxes eight times over, in
+    # launches of crop_images_per_launch() images.
+    row["batch_1024"] = times(full * (1024 // n),
+                              np.tile(train, (1024 // n, 1)), 224)
     return row
 
 
@@ -2445,6 +2495,45 @@ def native_decode_ms(jpegs: list) -> dict:
     return out
 
 
+def native_records(root: str) -> tuple:
+    """Phase 10d's records under ``root``: a COCO tree (write_coco_tree)
+    made into CLRec records by coco_preprocess.  Returns their directory,
+    the first BATCH train JPEGs and the bytes a JPEG of the tree and of
+    the records."""
+    import argparse
+    import os
+
+    from clip_lite_torch.data.readers import ClRecReader
+    from clip_lite_torch.scripts import coco_preprocess
+
+    serialized = os.path.join(root, "serialized")
+    t0 = time.perf_counter()
+    write_coco_tree(os.path.join(root, "coco"), np.random.default_rng(31))
+    t1 = time.perf_counter()
+    for split in ("train", "val"):
+        coco_preprocess.main(argparse.Namespace(
+            data_root=os.path.join(root, "coco"), split=split,
+            mode="train_sbert", output_dir=serialized, short_edge=0,
+            jpeg_quality=95))
+    log(f"native: a COCO tree of {DATA_TRAIN} + {DATA_VAL} JPEGs written "
+        f"in {t1 - t0} s, made into CLRec records by coco_preprocess in "
+        f"{time.perf_counter() - t1} s")
+    tree = [os.path.getsize(os.path.join(d, f)) for d, _, files in
+            os.walk(os.path.join(root, "coco", "images")) for f in files]
+    reader = ClRecReader(os.path.join(
+        serialized, "coco_train_train_sbert2017.clrec"))
+    records = [len(reader[i]["image"]) for i in range(len(reader))]
+    jpegs = [reader[i]["image"] for i in range(BATCH)]
+    reader.close()
+    log(f"native: bytes a JPEG, the tree (quality 90) mean "
+        f"{statistics.mean(tree)} max {max(tree)}; the train records "
+        f"(quality 95) mean {statistics.mean(records)} max "
+        f"{max(records)}; COCO train2017 about 152 kB a file")
+    return serialized, jpegs, {
+        "tree": {"mean": statistics.mean(tree), "max": max(tree)},
+        "records": {"mean": statistics.mean(records), "max": max(records)}}
+
+
 def phase_native(float_step: dict, host_step: float) -> dict:
     """The native JPEG batch path (DATA.NATIVE_PIPELINE): records made by
     the port's coco_preprocess from a COCO-layout tree; the kernel alone
@@ -2454,7 +2543,6 @@ def phase_native(float_step: dict, host_step: float) -> dict:
     configs/fs_native_input.yaml, (B) configs/fs_tpu_tuned.yaml with
     DATA.DEVICE_CACHE (the cache built through the native decode), (C)
     configs/fs_tpu_tuned.yaml as written."""
-    import argparse
     import os
     import shutil
     import tempfile
@@ -2465,12 +2553,10 @@ def phase_native(float_step: dict, host_step: float) -> dict:
     from clip_lite_torch.data import native
     from clip_lite_torch.data.datasets import CocoCaptionsDataset
     from clip_lite_torch.data.pipeline import infinite_batches
-    from clip_lite_torch.data.readers import ClRecReader
     from clip_lite_torch.factories import PretrainingDatasetFactory
     from clip_lite_torch.ops.attention import (
         attention_backward, fused_short_attention)
     from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
-    from clip_lite_torch.scripts import coco_preprocess
 
     counters = {"attention_fwd": fused_short_attention,
                 "attention_bwd": attention_backward,
@@ -2481,39 +2567,13 @@ def phase_native(float_step: dict, host_step: float) -> dict:
     native_cfg = ROOT / "configs" / "fs_native_input.yaml"
     workers = os.cpu_count() or 1
     root = tempfile.mkdtemp(prefix="chip_smoke_native_")
-    serialized = os.path.join(root, "serialized")
     real_make_step = cli.make_train_step
     real_from_dataset = device_cache.DeviceDataCache.from_dataset.__func__
     logger = logging.getLogger("clip_lite_torch")
     phase_t0 = time.perf_counter()
     out = {}
     try:
-        t0 = time.perf_counter()
-        write_coco_tree(os.path.join(root, "coco"), np.random.default_rng(31))
-        t1 = time.perf_counter()
-        for split in ("train", "val"):
-            coco_preprocess.main(argparse.Namespace(
-                data_root=os.path.join(root, "coco"), split=split,
-                mode="train_sbert", output_dir=serialized, short_edge=0,
-                jpeg_quality=95))
-        log(f"native: a COCO tree of {DATA_TRAIN} + {DATA_VAL} JPEGs written "
-            f"in {t1 - t0} s, made into CLRec records by coco_preprocess in "
-            f"{time.perf_counter() - t1} s")
-        tree = [os.path.getsize(os.path.join(d, f)) for d, _, files in
-                os.walk(os.path.join(root, "coco", "images")) for f in files]
-        reader = ClRecReader(os.path.join(
-            serialized, "coco_train_train_sbert2017.clrec"))
-        records = [len(reader[i]["image"]) for i in range(len(reader))]
-        jpegs = [reader[i]["image"] for i in range(BATCH)]
-        reader.close()
-        out["jpeg_bytes"] = {
-            "tree": {"mean": statistics.mean(tree), "max": max(tree)},
-            "records": {"mean": statistics.mean(records),
-                        "max": max(records)}}
-        log(f"native: bytes a JPEG, the tree (quality 90) mean "
-            f"{statistics.mean(tree)} max {max(tree)}; the train records "
-            f"(quality 95) mean {statistics.mean(records)} max "
-            f"{max(records)}; COCO train2017 about 152 kB a file")
+        serialized, jpegs, out["jpeg_bytes"] = native_records(root)
         out["kernel"] = native_kernel_alone(jpegs)
         out["decode"] = native_decode(native_decode_kinds())
         out["nvjpeg"] = native_decode_ms(jpegs)
@@ -3063,7 +3123,33 @@ def phase_checkpoint() -> dict:
                 bundle_s=bundle_s, distances=(d_ab, d_ac))
 
 
+def crop_kernel_only() -> int:
+    """``--crop-kernel``: phase 10d's records, then crop_resize_flip_u8
+    alone (native_kernel_alone), its row printed as one JSON line."""
+    import shutil
+    import tempfile
+
+    phase_build(["decode_crop"])
+    root = tempfile.mkdtemp(prefix="chip_smoke_crop_")
+    try:
+        _, jpegs, _ = native_records(root)
+        row = native_kernel_alone(jpegs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"crop_resize_flip_u8": row}))
+    return 0
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--crop-kernel", action="store_true",
+        help="build decode_crop.cu, check and time crop_resize_flip_u8 alone "
+             "on phase 10d's records and print its row, nothing else (to "
+             "time the kernel of two checkouts in turns)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
@@ -3075,6 +3161,8 @@ def main() -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(name)s: %(message)s")
     phase_environment()
+    if args.crop_kernel:
+        return crop_kernel_only()
     phase_build()
     phase_attention()
     inference = phase_main_path()

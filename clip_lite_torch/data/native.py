@@ -44,7 +44,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import io
-import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -119,10 +118,19 @@ def scale_denoms(boxes: np.ndarray, sizes: np.ndarray, out_size: int
                  ) -> np.ndarray:
     """:func:`scale_denom` of each image of (H, W) ``sizes`` for its box (1
     for a failed decode, 0 x 0): the block a full-resolution decode is
-    averaged over to stand in for the JAX core's scaled decode."""
+    averaged over to stand in for the JAX core's scaled decode.  The same
+    float32 operations over the batch at once."""
     boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
-    return np.array([scale_denom(b, int(h), int(w), out_size) if h and w
-                     else 1 for b, (h, w) in zip(boxes, sizes)], np.int32)
+    sizes = np.asarray(sizes).reshape(-1, 2)
+    frac = np.minimum(boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1])
+    frac = np.where((boxes[:, 0] < 0) | ~(frac > 0), f32(1), frac)
+    crop_px = frac * sizes.min(1).astype(np.float32)
+    threshold = f32(out_size) * f32(1.3)
+    denoms = np.ones(len(boxes), np.int32)
+    for denom in (1, 2, 4):
+        denoms[(denoms == denom) & (crop_px * f32(0.5 / denom) >= threshold)] *= 2
+    denoms[(sizes == 0).any(1)] = 1
+    return denoms
 
 
 def decode_rgb(jpeg: bytes, box: np.ndarray, out_size: int,
@@ -291,13 +299,29 @@ def jpeg_bytes(data) -> bytes:
 # The card: nvJPEG and crop_resize_flip_u8
 # ---------------------------------------------------------------------------
 
+def declare_crop(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the ctypes signatures of ``csrc/crop_resize.cuh``'s entry point,
+    (arena, arena bytes, offsets, sizes, boxes, flips, denoms or NULL, n,
+    size, out, device, stream) with the per-image arrays on the host, and
+    of its limits: ``crop_max_size()``, the largest tile side;
+    ``crop_images_per_launch()``; ``crop_bad_params()``, the entry's error
+    for images it refuses."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.crop_resize_flip_u8.argtypes = [p, ctypes.c_longlong, p, p, p, p, p,
+                                        i, i, p, i, p]
+    for fn in (lib.crop_resize_flip_u8, lib.crop_max_size,
+               lib.crop_images_per_launch, lib.crop_bad_params):
+        fn.restype = i
+    return lib
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the ctypes signatures of ``csrc/decode_crop.cu``'s entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.crop_resize_flip_u8.argtypes = [p, p, i, i, p, p]
+    declare_crop(lib)
     lib.nvjpeg_info.argtypes = [p, p, i, p]
     lib.nvjpeg_decode.argtypes = [p, p, i, p, p, p, p]
-    for fn in (lib.crop_resize_flip_u8, lib.nvjpeg_info, lib.nvjpeg_decode):
+    for fn in (lib.nvjpeg_info, lib.nvjpeg_decode):
         fn.restype = i
     lib.decode_crop_error_string.argtypes = [i]
     lib.decode_crop_error_string.restype = ctypes.c_char_p
@@ -317,60 +341,23 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
                            + lib.decode_crop_error_string(err).decode())
 
 
-# One image's parameters as the kernel reads them (crop_resize.cuh's
-# CropParams): arena offset, height, width, flip, block average, box.
-_PARAMS = np.dtype([("offset", np.int64), ("height", np.int32),
-                    ("width", np.int32), ("flip", np.int32),
-                    ("denom", np.int32), ("box", np.float32, (4,))])
-
-
-def crop_params(offsets, sizes, boxes, flips, denoms=None) -> torch.Tensor:
-    """The kernel's per-image parameters as a uint8 CPU tensor (n x 40
-    bytes)."""
+def crop_arrays(offsets, sizes, boxes, flips, denoms=None) -> list:
+    """The per-image arrays as ``crop_resize_flip_u8``'s C entry reads them
+    (int64 offsets, (n, 2) int32 sizes, (n, 4) float32 boxes, uint8 flips,
+    int32 denoms or None), contiguous on the host; raises unless each holds
+    one entry an image."""
     n = len(offsets)
-    params = np.zeros(n, _PARAMS)
-    params["offset"], params["flip"] = offsets, flips
-    params["denom"] = 1 if denoms is None else denoms
-    sizes = np.asarray(sizes, np.int32).reshape(n, 2)
-    params["height"], params["width"] = sizes[:, 0], sizes[:, 1]
-    params["box"] = np.asarray(boxes, np.float32).reshape(n, 4)
-    return torch.from_numpy(params.view(np.uint8))
-
-
-class _Staging(threading.local):
-    """This thread's pinned staging buffers for the kernel's parameters,
-    used in turn; a buffer is written again only once the copy out of it
-    has run (its event), so a copy holds the host only when the card is
-    that many batches behind."""
-
-    slots = 4
-
-    def __init__(self):
-        self.buffers = [None] * self.slots
-        self.copied = [None] * self.slots
-        self.turn = 0
-
-    def to_device(self, params: torch.Tensor, device) -> torch.Tensor:
-        """``params`` (a uint8 CPU tensor) on ``device``, copied on the
-        current stream from pinned memory."""
-        i, self.turn = self.turn, (self.turn + 1) % self.slots
-        if self.copied[i] is not None:
-            self.copied[i].synchronize()
-        n = params.numel()
-        if self.buffers[i] is None or self.buffers[i].numel() < n:
-            self.buffers[i] = torch.empty(max(n, 1 << 14), dtype=torch.uint8,
-                                          pin_memory=True)
-        staged = self.buffers[i][:n]
-        staged.copy_(params)
-        out = torch.empty(n, dtype=torch.uint8, device=device)
-        out.copy_(staged, non_blocking=True)
-        if self.copied[i] is None:
-            self.copied[i] = torch.cuda.Event()
-        self.copied[i].record()
-        return out
-
-
-_staging = _Staging()
+    arrays = []
+    for a, dtype, per in ((offsets, np.int64, 1), (sizes, np.int32, 2),
+                          (boxes, np.float32, 4), (flips, np.uint8, 1),
+                          (denoms, np.int32, 1)):
+        if a is not None:
+            a = np.ascontiguousarray(a, dtype)
+            if a.size != per * n:
+                raise ValueError(f"{a.size} values where {n} images take "
+                                 f"{per * n}")
+        arrays.append(a)
+    return arrays
 
 
 def crop_resize_flip_u8(arena: torch.Tensor, offsets, sizes, boxes, flips,
@@ -388,8 +375,11 @@ def crop_resize_flip_u8(arena: torch.Tensor, offsets, sizes, boxes, flips,
     else to a new tensor.
 
     A CPU arena takes :func:`crop_resize_flip_reference`.  A CUDA arena
-    launches the kernel on the current stream or raises; every launch adds
-    one to ``crop_resize_flip_u8.launches``.
+    launches the kernel on the current stream, ``crop_images_per_launch()``
+    images a launch, for tiles of up to ``crop_max_size()`` (1024) a side,
+    or raises (ValueError for parameters the kernel refuses: a denom other
+    than 1, 2, 4 or 8, an image outside the arena); every launch adds one
+    to ``crop_resize_flip_u8.launches``.
     """
     n = len(offsets)
     if arena.dtype != torch.uint8 or arena.ndim != 1:
@@ -401,28 +391,34 @@ def crop_resize_flip_u8(arena: torch.Tensor, offsets, sizes, boxes, flips,
                             or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous ({n}, {out_size}, "
                          f"{out_size}, 3) uint8 tensor on {arena.device}")
-    if denoms is not None and not np.isin(denoms, (1, 2, 4, 8)).all():
-        raise ValueError(f"denoms are 1, 2, 4 or 8, got {denoms}")
     if arena.device.type == "cpu":
+        if denoms is not None and not np.isin(denoms, (1, 2, 4, 8)).all():
+            raise ValueError(f"denoms are 1, 2, 4 or 8, got {denoms}")
         tiles = crop_resize_flip_reference(arena, offsets, sizes, boxes, flips,
                                            out_size, denoms)
         return tiles if out is None else out.copy_(tiles)
     if arena.device.type != "cuda" or not arena.is_contiguous():
         raise ValueError(f"no crop_resize_flip_u8 for a {arena.device} arena")
+    lib = _library()
+    if not 0 < out_size <= lib.crop_max_size():
+        raise ValueError(f"crop_resize_flip_u8 makes tiles of 1 to "
+                         f"{lib.crop_max_size()} pixels a side, not "
+                         f"{out_size}")
     if out is None:
         out = torch.empty((n, out_size, out_size, 3), dtype=torch.uint8,
                           device=arena.device)
     if n == 0:
         return out
-    with torch.cuda.device(arena.device):
-        params = _staging.to_device(
-            crop_params(offsets, sizes, boxes, flips, denoms), arena.device)
-        lib = _library()
-        _raise_on(lib, lib.crop_resize_flip_u8(
-            arena.data_ptr(), params.data_ptr(), n, out_size, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream),
-            "crop_resize_flip_u8 launch")
-    crop_resize_flip_u8.launches += 1
+    arrays = crop_arrays(offsets, sizes, boxes, flips, denoms)
+    err = lib.crop_resize_flip_u8(
+        arena.data_ptr(), arena.numel(),
+        *[None if a is None else a.ctypes.data for a in arrays], n, out_size,
+        out.data_ptr(), arena.device.index,
+        torch.cuda.current_stream(arena.device).cuda_stream)
+    if err == lib.crop_bad_params():
+        raise ValueError(lib.decode_crop_error_string(err).decode())
+    _raise_on(lib, err, "crop_resize_flip_u8 launch")
+    crop_resize_flip_u8.launches += -(-n // lib.crop_images_per_launch())
     return out
 
 
@@ -489,10 +485,9 @@ def decode_crop_batch(jpegs: Sequence[bytes], out_size: int,
     return tiles, int((sizes[:, 0] == 0).sum())
 
 
-__all__ = ["arena_offsets", "box_average", "crop_params",
-           "crop_resize_flip_reference",
-           "crop_resize_flip_u8", "decode_crop_batch",
-           "decode_crop_batch_plain", "decode_rgb", "fma", "full_image_boxes",
-           "jpeg_bytes",
+__all__ = ["arena_offsets", "box_average", "crop_arrays",
+           "crop_resize_flip_reference", "crop_resize_flip_u8",
+           "decode_crop_batch", "decode_crop_batch_plain", "decode_rgb",
+           "declare_crop", "fma", "full_image_boxes", "jpeg_bytes",
            "nvjpeg_decode", "pack_arena", "random_resized_crop_boxes",
            "scale_denom", "scale_denoms"]

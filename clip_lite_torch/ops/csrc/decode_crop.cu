@@ -20,7 +20,8 @@
 // there.  One handle per process, one batched and one single-image decode
 // state per thread (the loader's producer thread has its own), made at
 // first use.
-// Errors: a CUDA error code, or kNvjpegError + an nvjpegStatus_t.
+// Errors: a CUDA error code, kNvjpegError + an nvjpegStatus_t, or
+// crop::kBadParams.
 
 #include <nvjpeg.h>
 
@@ -151,6 +152,9 @@ int nvjpeg_decode(const unsigned char* const* data, const size_t* lens, int n,
 }
 
 const char* decode_crop_error_string(int err) {
+  if (err == crop::kBadParams)
+    return "crop_resize_flip_u8: an image lies outside the arena, has a "
+           "negative size or a denom other than 1, 2, 4 or 8";
   if (err < kNvjpegError) return cudaGetErrorString((cudaError_t)err);
   switch (err - kNvjpegError) {
     case NVJPEG_STATUS_NOT_INITIALIZED: return "nvJPEG: not initialized";

@@ -7,7 +7,9 @@ at once (a cluster of one block where the launch names none), one cluster
 after another.  ``__syncthreads`` and ``__syncwarp`` are barriers, the
 shuffles warp collectives; each block has its own shared memory, which
 ``cooperative_groups``' ``map_shared_rank`` maps across the cluster, and
-``cluster.sync()`` is a barrier over the cluster's threads.  The
+``cluster.sync()`` is a barrier over the cluster's threads.  The host
+API that an entry point calls (pinned and device allocations, copies,
+events) works on host memory at once.  The
 ``__*_rn`` intrinsics are the host's IEEE operations, which g++ does not
 contract at ``-std=c++20`` on x86-64 (``__fmaf_rn`` is ``std::fma``, one
 rounding).
@@ -19,7 +21,9 @@ A test rewrites a source in three ways before it compiles it:
   (:func:`rewrite_launches`); ``cudaLaunchKernelEx`` is emulated as it is;
 - each shared-memory declaration becomes a reference into the block's
   emulated shared memory (the caller's own substitutions);
-- inline PTX helpers become emulated collectives (the caller's).
+- inline PTX helpers become emulated collectives (the caller's), and the
+  cp.async copies queued copies done at the thread's wait
+  (:func:`emulate_cp_async`).
 
 This says nothing of the PTX's syntax, the card's memory model or speed.
 """
@@ -39,6 +43,7 @@ CUDA_RUNTIME_H = r"""
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <math.h>
 #include <memory>
@@ -56,6 +61,7 @@ using std::min;
 #define __shared__
 #define __align__(n)
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -77,15 +83,74 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+// Round toward minus infinity: the nearest sum, one step down where the
+// exact sum (its error by Knuth's two-sum) lies below it.
+inline float __fadd_rd(float a, float b) {
+  volatile float s = a + b;
+  const float bb = s - a, err = (a - (s - bb)) + (b - bb);
+  return err < 0.f ? std::nextafter((float)s, -INFINITY) : (float)s;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// Bytes of the 8 bytes (y:x) picked by the selector's nibbles (0-7).
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long xy = ((unsigned long long)y << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (unsigned)((xy >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  return (unsigned)((((unsigned long long)hi << 32) | lo) >> (shift & 31));
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
+typedef void* cudaEvent_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorMisalignedAddress = 716 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+                         cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
+enum { cudaSharedmemCarveoutMaxShared = 100 };
 template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+
+// The host's memory stands in for pinned and device memory, the running
+// thread for a stream: copies happen at once, events are always reached.
+enum { cudaHostAllocDefault = 0, cudaEventDisableTiming = 2 };
+enum cudaMemcpyKind { cudaMemcpyHostToDevice = 1 };
+inline cudaError_t cudaMalloc(void** p, size_t n) {
+  *p = std::malloc(n);
+  return *p ? 0 : 2;
+}
+inline cudaError_t cudaHostAlloc(void** p, size_t n, unsigned) {
+  return cudaMalloc(p, n);
+}
+inline cudaError_t cudaFree(void* p) { std::free(p); return 0; }
+inline cudaError_t cudaFreeHost(void* p) { std::free(p); return 0; }
+inline cudaError_t cudaMemcpyAsync(void* d, const void* s, size_t n,
+                                   cudaMemcpyKind, cudaStream_t) {
+  std::memcpy(d, s, n);
+  return 0;
+}
+inline cudaError_t cudaEventCreateWithFlags(cudaEvent_t* e, unsigned) {
+  *e = (void*)1;
+  return 0;
+}
+inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) { return 0; }
+inline cudaError_t cudaEventSynchronize(cudaEvent_t) { return 0; }
+inline cudaError_t cudaEventDestroy(cudaEvent_t) { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaSetDevice(int d) { return d == 0 ? 0 : 1; }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e ? "emulated error" : "no error";
 }
@@ -139,6 +204,31 @@ inline T __shfl_xor_sync(unsigned, T v, int o) {
 }
 
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
+
+// cp.async: a copy the thread queues in its open group, done at a wait
+// that the group's commit falls under, so that shared memory read before
+// the wait holds what it held before.
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  size_t n;
+  unsigned group;
+};
+inline thread_local std::vector<EmuCopy> emu_copies;
+inline thread_local unsigned emu_groups = 0;  // groups committed
+inline void emu_cp_async(void* dst, const void* src, size_t n) {
+  emu_copies.push_back({dst, src, n, emu_groups});
+}
+inline void emu_cp_async_commit() { ++emu_groups; }
+// Every committed group but the newest `pending` done.
+inline void emu_cp_async_wait(unsigned pending) {
+  std::vector<EmuCopy> rest;
+  for (const EmuCopy& c : emu_copies) {
+    if (c.group + pending < emu_groups) std::memcpy(c.dst, c.src, c.n);
+    else rest.push_back(c);
+  }
+  emu_copies.swap(rest);
+}
 
 // Runs fn() on a pthread with a small stack (thousands run at once).
 struct EmuThread {
@@ -291,6 +381,42 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
 }
 """
+
+
+# The bodies of the inline-PTX copy helpers (mma.cuh's and
+# crop_resize.cuh's), emulated: a copy queued in the thread's open group, a
+# commit, and waits that do the copies of the groups they cover; the
+# barrier after a wait is the source's.
+CP_ASYNC_BODIES = {
+    "cp_async16": "{ emu_cp_async(smem, gmem, 16); }",
+    "cp_async_commit": "{ emu_cp_async_commit(); }",
+    "cp_async_wait": "{ emu_cp_async_wait(N); }",  # template <int N>
+    "cp_async_wait_all": "{ emu_cp_async_commit(); emu_cp_async_wait(0); }",
+}
+
+
+def emulate_cp_async(src: str) -> str:
+    """``src`` with the body of each copy helper of CP_ASYNC_BODIES that it
+    defines emulated; it must define ``cp_async16``."""
+    assert "void cp_async16(" in src, "no cp_async16 in the source"
+    for name, body in CP_ASYNC_BODIES.items():
+        if f"void {name}(" in src:
+            src = replace_body(src, name, body)
+    return src
+
+
+def replace_body(src: str, name: str, body: str) -> str:
+    """``src`` with the body of the function ``name`` (``void name(``)
+    replaced by ``body``."""
+    m = re.search(r"void " + name + r"\(", src)
+    assert m, f"{name} not found in the source"
+    start = src.index("{", m.end())
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[:start] + body + src[i + 1:]
+    raise AssertionError(f"unbalanced braces after {name}")
 
 
 def rewrite_launches(src: str, name: str) -> str:

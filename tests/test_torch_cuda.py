@@ -790,18 +790,34 @@ def _crop_boxes(n, seed):
     return boxes
 
 
+# Sizes at full scale and at the emulated tests' (test_torch_native.py):
+# COCO's 375 x 500 (1,500-byte rows), odd widths and heights (rows and
+# images at odd bytes), 640 x 640 (d = 2 for a whole image at 224), sources
+# smaller than the tile (up-sampling) and over twice it (down-sampling).
+CROP_SHAPES = [(1, 1), (5, 9), (64, 80), (120, 90), (375, 500), (333, 499),
+               (640, 640), (427, 640), (480, 640), (17, 3), (1281, 961)]
+
+
 @pytest.mark.parametrize("n,size", [(1, 1), (7, 17), (128, 224), (16, 256),
-                                    (600, 3)])  # 600: a staging buffer grows
+                                    (600, 3),
+                                    (1024, 224),  # two launches of 800, 224
+                                    (256, 256),  # a chunk of the cache
+                                    (1601, 3)])  # three launches
 def test_crop_resize_flip_matches_twin_bit_for_bit(device, n, size):
+    """The kernel against its twin bit for bit on seeded images of
+    CROP_SHAPES (every 11th a failed decode) under train, whole, 1 x 1 and
+    border boxes; flips off, alternate and with blocks of 1, 2, 4 and 8 in
+    turn (ragged at the far edges); the arena at an odd address and the
+    tiles at an odd offset in a larger tensor, whose other bytes stay."""
     from clip_lite_torch.data import native
 
-    rng = np.random.default_rng(n * size)
-    shapes = [(1, 1), (5, 9), (64, 80), (120, 90)]
-    images = [None if i % 11 == 10 else rng.integers(
-        0, 256, (*shapes[i % len(shapes)], 3), dtype=np.uint8)
-        for i in range(n)]
-    arena, offsets, sizes = native.pack_arena(images)
-    arena = torch.from_numpy(arena).to(device)
+    sizes = np.array([(0, 0) if i % 11 == 10 else
+                      CROP_SHAPES[i % len(CROP_SHAPES)] for i in range(n)],
+                     np.int32)
+    offsets, nbytes = native.arena_offsets(sizes)
+    g = torch.Generator(device=device).manual_seed(n * size)
+    arena = torch.randint(0, 256, (nbytes + 1,), dtype=torch.uint8,
+                          device=device, generator=g)[1:]
     boxes = _crop_boxes(n, n)
     blocks = np.array([1, 2, 4, 8], np.int32)[np.arange(n) % 4]
     for flips, denoms in ((np.zeros(n, np.uint8), None),
@@ -813,12 +829,36 @@ def test_crop_resize_flip_matches_twin_bit_for_bit(device, n, size):
         want = native.crop_resize_flip_reference(arena, offsets, sizes, boxes,
                                                  flips, size, denoms)
         torch.cuda.synchronize()
-        assert native.crop_resize_flip_u8.launches == before + 1
+        assert native.crop_resize_flip_u8.launches == before + -(-n // 800)
         assert got.shape == (n, size, size, 3) and torch.equal(got, want)
-    out = torch.empty((2 * n, size, size, 3), dtype=torch.uint8, device=device)
+    out = torch.full((2 * n * size * size * 3 + 1,), 7, dtype=torch.uint8,
+                     device=device)
+    tiles = out[1 + n * size * size * 3:].view(n, size, size, 3)
     native.crop_resize_flip_u8(arena, offsets, sizes, boxes, flips, size,
-                               out=out[n:])
-    assert torch.equal(out[n:], want)
+                               out=tiles)
+    assert torch.equal(tiles, want)
+    assert (out[:1 + n * size * size * 3] == 7).all()
+
+
+def test_crop_resize_flip_refuses_what_it_does_not_take(device):
+    """A denom other than 1, 2, 4 or 8, an image past the arena's end and a
+    tile over the kernel's largest raise before a launch."""
+    from clip_lite_torch.data import native
+
+    sizes = np.array([(4, 5), (6, 7)], np.int32)
+    offsets, nbytes = native.arena_offsets(sizes)
+    arena = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+    boxes, flips = native.full_image_boxes(2), np.zeros(2, np.uint8)
+    before = native.crop_resize_flip_u8.launches
+    with pytest.raises(ValueError, match="denom"):
+        native.crop_resize_flip_u8(arena, offsets, sizes, boxes, flips, 8,
+                                   denoms=np.array([1, 3], np.int32))
+    with pytest.raises(ValueError, match="arena"):
+        native.crop_resize_flip_u8(arena[:-1], offsets, sizes, boxes, flips, 8)
+    with pytest.raises(ValueError, match="pixels a side"):
+        native.crop_resize_flip_u8(arena, offsets, sizes, boxes, flips,
+                                   native._library().crop_max_size() + 1)
+    assert native.crop_resize_flip_u8.launches == before
 
 
 def test_nvjpeg_tiles_within_the_decode_bars(device):

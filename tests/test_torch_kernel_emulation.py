@@ -22,7 +22,6 @@ g++ with C++20's ``<barrier>`` is missing.
 """
 
 import ctypes
-import re
 import shutil
 from pathlib import Path
 
@@ -30,8 +29,10 @@ import pytest
 import torch
 from cuda_emulation import (
     CSRC,
+    emulate_cp_async,
     emulation_dir,
     gxx,
+    replace_body,
     rewrite_launches,
 )
 
@@ -50,15 +51,14 @@ TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5),
         torch.bfloat16: dict(rtol=1.6e-2, atol=1e-2)}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The inline-PTX helpers of mma.cuh, emulated.  ldmatrix: lanes 8m..8m+7
+# The inline-PTX helpers of mma.cuh, emulated (its cp.async ones by
+# cuda_emulation.emulate_cp_async).  ldmatrix: lanes 8m..8m+7
 # give the rows of matrix m; lane (g, t) = (lane / 4, lane % 4) receives
 # row g, columns 2t, 2t+1 (transposed: rows 2t, 2t+1, column g).  mma: A
 # register r of lane (g, t) holds A[g + 8 (r % 2)][2t + 8 (r / 2) + {0, 1}],
 # B register r holds B[2t + 8r + {0, 1}][g], C element e holds
 # C[g + 8 (e / 2)][2t + e % 2].
 PTX_BODIES = {
-    "cp_async16": "{ std::memcpy(smem, gmem, 16); }",
-    "cp_async_wait_all": "{}",
     "ldmatrix_x4": r"""{
   Warp& w = my_warp();
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
@@ -107,22 +107,10 @@ PTX_BODIES = {
 }
 
 
-def _replace_body(src: str, name: str, body: str) -> str:
-    m = re.search(r"void " + name + r"\(", src)
-    assert m, f"{name} not found in mma.cuh"
-    start = src.index("{", m.end())
-    depth = 0
-    for i in range(start, len(src)):
-        depth += {"{": 1, "}": -1}.get(src[i], 0)
-        if depth == 0:
-            return src[:start] + body + src[i + 1:]
-    raise AssertionError(f"unbalanced braces after {name}")
-
-
 def _emulated_sources(out: Path) -> None:
-    mma = (CSRC / "mma.cuh").read_text()
+    mma = emulate_cp_async((CSRC / "mma.cuh").read_text())
     for name, body in PTX_BODIES.items():
-        mma = _replace_body(mma, name, body)
+        mma = replace_body(mma, name, body)
     (out / "mma.cuh").write_text(mma)
     shutil.copy(CSRC / "attention_common.cuh", out)
     smem = {"extern __shared__ __align__(16) unsigned char smem_raw[];":

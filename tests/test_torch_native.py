@@ -31,9 +31,15 @@ C++ core, native/libclrec_core.so):
   through DATA.DEVICE_CACHE;
 * ``crop_resize_flip_u8``'s CUDA source (``csrc/crop_resize.cuh``) compiled
   by g++ against ``tests/cuda_emulation.py`` equals the twin bit for bit at
-  the tiling's edges (B = 1, S = 1, boxes against each border, a failed
-  decode, images of 1 x 1), also averaging over blocks of 1, 2, 4 and 8
-  with ragged blocks at the far edges.
+  the tiling's edges (B = 1, S = 1, boxes against each border, failed
+  decodes in the middle of a batch, images of 1 x 1), rows of widths that
+  are no multiple of 4 or 16 bytes in an arena and tiles at odd
+  addresses, tiles of several bands, up- and down-sampling, also averaging
+  over blocks of 1, 2, 4 and 8 with ragged blocks at the far edges; built
+  a second time with its shared memory squeezed, so that the same images
+  take its column tiles and runs of rows; its entry refuses what it does
+  not take;
+* ``scale_denoms`` over a batch equals ``scale_denom`` image by image.
 
 The JAX core's tests are skipped where its library is not built, as
 ``tests/test_native.py`` skips.
@@ -46,7 +52,14 @@ import os
 import numpy as np
 import pytest
 import torch
-from cuda_emulation import CSRC, emulation_dir, gxx, rewrite_launches
+from cuda_emulation import (
+    CSRC,
+    emulate_cp_async,
+    emulation_dir,
+    gxx,
+    rewrite_launches,
+    substitute,
+)
 from PIL import Image
 
 import jax  # noqa: F401  (the JAX package's modules expect it loaded)
@@ -508,19 +521,34 @@ def test_cli_trains_on_the_native_path(corpus, tmp_path, cache, monkeypatch):
 # crop_resize_flip_u8's CUDA source, emulated
 # ---------------------------------------------------------------------------
 
+# The emulated build's shared memory a block where it is squeezed: little
+# enough that the small images of EMU_CASES take column tiles and runs of
+# rows, enough for tiles of 40 (crop_resize.cuh's kMaxSize is then 41).
+SQUEEZED_SMEM = 1856
+
+
+def _emulated_lib(out, name: str, smem=None) -> ctypes.CDLL:
+    src = emulate_cp_async((CSRC / "crop_resize.cuh").read_text())
+    src = substitute(src, "extern __shared__ __align__(16) unsigned char "
+                     "crop_smem[];", "unsigned char* crop_smem = "
+                     "emu_block_smem();")
+    if smem is not None:
+        src = f"#define CROP_SMEM_BYTES {smem}\n" + src
+    (out / f"{name}.cu").write_text(rewrite_launches(src, "crop_resize.cuh"))
+    r = gxx(out, out / f"{name}.cu", out / f"lib{name}.so")
+    assert r.returncode == 0, r.stderr[-4000:]
+    return native.declare_crop(ctypes.CDLL(str(out / f"lib{name}.so")))
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    out = emulation_dir(tmp_path_factory)
-    src = (CSRC / "crop_resize.cuh").read_text()
-    (out / "crop_resize.cu").write_text(rewrite_launches(src, "crop_resize.cuh"))
-    r = gxx(out, out / "crop_resize.cu", out / "libcrop_resize.so")
-    assert r.returncode == 0, r.stderr[-4000:]
-    lib = ctypes.CDLL(str(out / "libcrop_resize.so"))
-    lib.crop_resize_flip_u8.argtypes = ([ctypes.c_void_p] * 2
-                                        + [ctypes.c_int] * 2
-                                        + [ctypes.c_void_p] * 2)
-    lib.crop_resize_flip_u8.restype = ctypes.c_int
-    return lib
+    return _emulated_lib(emulation_dir(tmp_path_factory), "crop_resize")
+
+
+@pytest.fixture(scope="module")
+def emulated_squeezed(tmp_path_factory):
+    return _emulated_lib(emulation_dir(tmp_path_factory), "crop_squeezed",
+                         SQUEEZED_SMEM)
 
 
 EMU_CASES = {  # (image sizes, a None for a failed decode), out sizes
@@ -529,19 +557,30 @@ EMU_CASES = {  # (image sizes, a None for a failed decode), out sizes
     "borders": ([(13, 17), (17, 13), (6, 6), None, (20, 31)], 17),
     "ragged_blocks": ([(40, 30), (3, 50)], 23),
     "blocks_past_the_edges": ([(19, 21), (7, 9), (33, 26), (17, 3)], 5),
+    # Rows of 15, 33, 21 and 39 bytes; the arena and the tiles at odd
+    # addresses (ODD_LEAD), so every image and row starts at an odd byte.
+    "odd_rows_odd_offsets": ([(9, 5), (7, 11), None, (13, 7), (5, 13)], 7),
+    "several_bands": ([(24, 30), (50, 45), (31, 17)], 40),
+    "upsampling": ([(4, 6), (6, 4), (3, 3)], 19),
+    "downsampling": ([(60, 50), (45, 70), None, (64, 64)], 9),
 }
+ODD_LEAD = {"odd_rows_odd_offsets": 3, "several_bands": 1}
 
 
-@pytest.mark.parametrize("case", sorted(EMU_CASES))
-def test_emulated_kernel_equals_twin(emulated, case):
+def _emulated_equals_twin(lib, case):
+    """Every image of the case as it is and averaged over blocks of 8, 1, 2
+    and 4 in turn (ragged blocks at the far edges), under four kinds of
+    box and three of flip, through ``lib`` against the twin, bit for bit;
+    the bytes around the tiles untouched."""
     shapes, size = EMU_CASES[case]
+    lead = ODD_LEAD.get(case, 0)
     rng = np.random.default_rng(len(shapes) * size)
     images = [None if s is None else
               rng.integers(0, 256, (*s, 3), dtype=np.uint8) for s in shapes]
-    arena, offsets, sizes = native.pack_arena(images)
+    packed, offsets, sizes = native.pack_arena(images)
+    arena = np.zeros(len(packed) + lead, np.uint8)
+    arena[lead:] = packed
     n = len(images)
-    # Every image as it is, then averaged over blocks of 8, 1, 2 and 4 in
-    # turn (ragged blocks at the far edges).
     blocks = np.array([8, 1, 2, 4], np.int32)[np.arange(n) % 4]
     for boxes in (edge_boxes(n), np.roll(edge_boxes(8), 3, axis=0)[:n],
                   native.full_image_boxes(n), BOXES["train"](n)):
@@ -549,13 +588,105 @@ def test_emulated_kernel_equals_twin(emulated, case):
                               (np.ones(n, np.uint8), None),
                               ((np.arange(n) % 2).astype(np.uint8), None),
                               ((np.arange(n) % 2).astype(np.uint8), blocks)):
-            params = native.crop_params(offsets, sizes, boxes, flips, denoms)
-            out = torch.full((n, size, size, 3), 77, dtype=torch.uint8)
-            assert emulated.crop_resize_flip_u8(
-                arena.ctypes.data, params.data_ptr(), n, size, out.data_ptr(),
-                None) == 0
+            arrays = native.crop_arrays(offsets, sizes, boxes, flips, denoms)
+            buf = torch.full((lead + n * size * size * 3 + 5,), 77,
+                             dtype=torch.uint8)
+            assert lib.crop_resize_flip_u8(
+                arena.ctypes.data + lead, len(packed),
+                *[None if a is None else a.ctypes.data for a in arrays], n,
+                size, buf.data_ptr() + lead, 0, None) == 0
             want = native.crop_resize_flip_reference(
-                torch.from_numpy(arena), offsets, sizes, boxes, flips, size,
+                torch.from_numpy(packed), offsets, sizes, boxes, flips, size,
                 denoms)
-            assert torch.equal(out, want), (boxes, flips, denoms)
-    assert emulated.crop_resize_flip_u8(None, None, 0, size, None, None) != 0
+            got = buf[lead:lead + want.numel()].view(want.shape)
+            assert torch.equal(got, want), (boxes, flips, denoms)
+            assert (buf[:lead] == 77).all() and (buf[-5:] == 77).all()
+
+
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_emulated_kernel_equals_twin(emulated, case):
+    _emulated_equals_twin(emulated, case)
+
+
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_emulated_kernel_in_passes_equals_twin(emulated_squeezed, case):
+    """The same with the shared memory squeezed: the source of a band no
+    longer fits at once, so the kernel cuts it into column tiles and runs
+    of rows."""
+    _emulated_equals_twin(emulated_squeezed, case)
+
+
+@pytest.mark.parametrize("n", [128, 129, 800, 801, 1601])
+def test_emulated_kernel_at_each_batch_size_equals_twin(emulated, n):
+    """Batches on either side of the entry's cut into launches of 800
+    images (their parameters by value): one launch up to 800, two past it,
+    three past 1600; tiny images (every 7th a failed decode) in 2 x 2
+    tiles, flips alternate."""
+    rng = np.random.default_rng(n)
+    images = [None if i % 7 == 3 else
+              rng.integers(0, 256, (1 + i % 3, 1 + i % 4, 3), dtype=np.uint8)
+              for i in range(n)]
+    arena, offsets, sizes = native.pack_arena(images)
+    boxes = BOXES["train"](n)
+    flips = (np.arange(n) % 2).astype(np.uint8)
+    arrays = native.crop_arrays(offsets, sizes, boxes, flips)
+    out = torch.full((n, 2, 2, 3), 77, dtype=torch.uint8)
+    assert emulated.crop_resize_flip_u8(
+        arena.ctypes.data, arena.size,
+        *[None if a is None else a.ctypes.data for a in arrays], n, 2,
+        out.data_ptr(), 0, None) == 0
+    want = native.crop_resize_flip_reference(torch.from_numpy(arena), offsets,
+                                             sizes, boxes, flips, 2)
+    assert torch.equal(out, want)
+
+
+def test_emulated_entry_refuses_what_it_does_not_take(emulated):
+    """No image, a tile too large, a denom of 3 and an image that runs past
+    the arena's end are refused before anything is launched."""
+    image = np.full((4, 4, 3), 9, np.uint8)
+    arena, offsets, sizes = native.pack_arena([image, image])
+    out = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
+
+    def call(n=2, size=8, arena_bytes=arena.size, denoms=None):
+        arrays = native.crop_arrays(offsets, sizes, native.full_image_boxes(2),
+                                    np.zeros(2, np.uint8), denoms)
+        return emulated.crop_resize_flip_u8(
+            arena.ctypes.data, arena_bytes,
+            *[None if a is None else a.ctypes.data for a in arrays], n, size,
+            out.data_ptr(), 0, None)
+
+    assert call() == 0 and out.any()
+    assert call(n=0) == call(size=emulated.crop_max_size() + 1) == 1
+    assert call(denoms=np.array([1, 3], np.int32)) == emulated.crop_bad_params()
+    assert call(arena_bytes=arena.size - 1) == emulated.crop_bad_params()
+
+
+def test_emulated_entry_states_its_limits(emulated, emulated_squeezed):
+    """The limits that the wrapper reads from the library: tiles of up to
+    1024 a side (41 with the budget squeezed), 800 images a launch."""
+    assert emulated.crop_max_size() == 1024
+    assert emulated_squeezed.crop_max_size() == 41
+    assert emulated.crop_images_per_launch() == 800
+    assert emulated.crop_bad_params() == emulated_squeezed.crop_bad_params() > 0
+
+
+def test_scale_denoms_equal_the_per_image_rule():
+    """The batch's denoms at once equal scale_denom image by image: seeded
+    train, whole, empty and inverted boxes over sizes up to 6000 (d
+    reaches 8), 640 x 640 and failed decodes, at four tile sizes."""
+    rng = np.random.default_rng(5)
+    n = 4000
+    boxes = native.random_resized_crop_boxes(rng, n)
+    boxes[::7] = -1.0
+    boxes[3::11] = (0.5, 0.5, 0.5, 0.6)   # no height
+    boxes[5::13] = (0.5, 0.5, 0.4, 0.9)   # inverted
+    sizes = rng.integers(1, 6000, (n, 2)).astype(np.int32)
+    sizes[::5] = (640, 640)
+    sizes[1::9] = (0, 0)
+    for size in (1, 32, 224, 256):
+        want = [native.scale_denom(b, h, w, size) if h and w else 1
+                for b, (h, w) in zip(boxes, sizes)]
+        got = native.scale_denoms(boxes, sizes, size)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        assert set(got) == {1, 2, 4, 8}
