@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 (``--crop-kernel`` runs phases 1, 2 and 10d's crop kernel alone, and
-prints its row.)
+prints its row; ``--native`` runs phases 1, 2 and 10d alone.)
 
 Phases; any failure raises and exits non-zero, and no phase's error is
 caught:
@@ -53,6 +53,19 @@ caught:
    memory; each step's line also holds the host time until the step was
    enqueued (``enqueue_seconds``), near the whole step when the host, not
    the card, sets the pace.
+6a. The step trace: phase 6's flagship step (AMP bf16, batch 128, S 30)
+   under torch.profiler (utils/trace.py), five steps after three, the
+   counts set to 0 just before and read just after.  Prints per step the
+   host's enqueue (the train_step range), the device's busy time (the
+   union of its kernels), the window (start to start) and the idle share,
+   and the idle share of phase 6's untraced step at the traced busy time;
+   ms a step by component and by category; the ten longest kernels with
+   their counts; the longest idle gaps with what the host was doing.
+   The last warm step runs in the profiler's warm-up.  Fails unless each
+   hand-written kernel's events in the trace equal its wrapper's launches
+   over the same steps, each inside its wrapper's range (the backward's
+   through the trace's forward-backward links), and unless every kernel
+   launch the trace records has its kernel event.
 6b. Checkpoints (the JAX package's msgpack format), the flagship as in
    phase 6 with dropout 0.1, cuDNN's deterministic algorithms on:
    (a) 10 steps through train_loop with a CheckpointManager
@@ -126,10 +139,26 @@ caught:
    host's enqueue time, each beside phase 6's float32 step, peak memory,
    the cache's bytes, and K1/K2 times at qkv (128, 20, 2304), key and
    full bias, both routes and the library call.
+10a. The self-supervised terms: configs/fs_tpu_tuned.yaml +
+   DATA.DEVICE_CACHE + MODEL.VISUAL.SELF_SUPERVISED at full width and
+   depth, a synthetic corpus of SSL_CORPUS tiles with the cache's ssl_aug
+   view, 10 steps of 128 through the loop (step s, pairs/s, peak memory;
+   K3's fused pass twice a step, K1/K2 12 a step, the visual loss
+   positive), then five more steps traced (as 6a) and set beside phase
+   6's trace; then one step with visual and textual SSL through the
+   kernels (K1/K2 24 launches, K3's fused pass 2), same state and cache
+   batch, dropout 0, at batch 32, fp32 and bf16: K3's fused pass held
+   against its composition on that step's images and draws within
+   FUSED_ATOL, and the step against one through the plain attention
+   given the same images at phase 7's bars (given the composition's
+   images instead, ResNet-50's gradients move past those bars).
 10b. Data and the training CLI: CLRec files of ndarray records at COCO's
    shapes (512 train and 256 val images of 480 x 640 and 640 x 480, five
    captions each) written with the port's ClRecWriter; the host loader
-   alone (batches/s of 128 with a worker a core, pinned); then
+   alone (batches/s of 128 with a worker a core, pinned), and its item
+   stage by stage (the record read, each image transform, the caption
+   transform and tokenizer, the float32 copy) on LOADER_SPLIT_ITEMS of its
+   items on one thread; then
    clip_lite_torch.train.main as ``python -m clip_lite_torch.train`` runs
    it, each run with the counts set to 0 just before and read just after:
    (A) the flagship through the host loader, 20 steps of 128,
@@ -145,7 +174,9 @@ caught:
    live weights do; (B) fs_tpu_tuned with DATA.DEVICE_CACHE: the cache
    built through load_host from the train dataset (512 tiles of 256 px;
    its build seconds and bytes), K3's fused pass once a step, K1/K2 as in
-   A; its median step.
+   A; its median step; (D) the flagship with MODEL.TEXTUAL.SELF_SUPERVISED
+   through the host loader, SSL_CLI_STEPS steps: K1 and K2 24 a step, the
+   textual loss positive, its median step, pairs/s and peak memory.
 10c. The downstream eval CLIs on JPEG files: the seeded flagship written
    as the JAX package's model-only checkpoint; synthetic trees of 480 x 640
    JPEGs (PIL, seeded) in each dataset's layout: COCO retrieval (256
@@ -204,7 +235,14 @@ caught:
    Checks: finite losses; K1, K2, K3's fused pass (one a step), the
    standalone K3 (one a val batch) exactly, crop_resize_flip_u8 and
    nvJPEG once a decoded batch; each run's median step start to start and
-   the host's enqueue beside phase 6's and phase 10b's.
+   the host's enqueue beside phase 6's and phase 10b's.  Then (A) and
+   (A0) again with --profile-dir, 9 steps (five traced after three, the
+   third in the profiler's warm-up, as 6a): K1-K3's events equal their
+   launches in the traced steps, and every launch the trace records has
+   its kernel event; per
+   step the enqueue, busy and idle split, nvJPEG's kernel ms and how much
+   of it overlaps the step's kernels, and the host's time blocked in
+   synchronisations, (A) beside (A0).
 11. One JSON line listing every kernel (K3's standalone and fused entry
    points each with their own launches, and crop_resize_flip_u8, which
    replaces the JAX core's host C++ and no TPU kernel); then the device
@@ -285,6 +323,7 @@ IMAGE_SHAPE = (BATCH, 224, 224, 3)
 # The data phase: CLRec records at COCO's shapes, CLI steps per run, and
 # batches timed through the host loader alone.
 DATA_TRAIN, DATA_VAL, DATA_STEPS, DATA_LOADER_BATCHES = 512, 256, 20, 6
+SSL_CLI_STEPS = 6  # phase 10b's textual SSL run (D): no sweep, one save
 # COCO train2017's image count, at the configs' CACHE_IMAGE_SIZE of 256.
 N_CORPUS, CACHE_SIZE, N_CAPS, CAPTION_TOKENS = 118_287, 256, 5, (8, 20)
 WORDS = ("a an the man woman child dog cat horse bus train car plate pizza "
@@ -1037,6 +1076,198 @@ def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
     return out
 
 
+def kernel_counters() -> dict:
+    """Each hand-written kernel's wrapper, whose ``launches`` counts it,
+    by the name of the wrapper's trace range (utils/trace.KERNEL_RANGES)."""
+    from clip_lite_torch.data import native
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+    from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
+
+    return {"K1 attention_fwd": fused_short_attention,
+            "K2 attention_bwd": attention_backward,
+            "K3 normalize_u8": normalize_u8,
+            "K3 augment_normalize_u8": augment_normalize_u8,
+            "crop_resize_flip_u8": native.crop_resize_flip_u8}
+
+
+NVJPEG_KERNELS = r"^void nvjpeg::|^nvjpeg::"
+
+
+def analyze_trace(name: str, path: str, launches: dict, n_steps: int,
+                  exact=None, inside=None) -> dict:
+    """Parse a trace of ``n_steps`` train steps and print: per step the
+    host's enqueue (the train_step range), the device's busy time (the
+    union of its kernels), the window (step start to next step start) and
+    the idle share; ms a step by component and by category; the ten
+    longest kernels with their counts; the longest idle gaps with what the
+    host was doing; nvJPEG's kernels a step and how much of them overlaps
+    the other kernels; the host's time in blocking runtime calls
+    (synchronisations, copies).
+    Fails unless each hand-written kernel of ``exact`` (default: all) has
+    as many events as its wrapper's ``launches`` over the same steps,
+    unless every event of the kernels of ``inside`` (default: ``exact``)
+    sits inside its wrapper's range, and unless every kernel launch the
+    trace records (on any thread) has its kernel event."""
+    from clip_lite_torch.utils import trace as T
+
+    t0 = time.perf_counter()
+    tr = T.Trace(path)
+    ops = tr.ops()
+    split = T.step_split(tr, ops=ops)
+    parse_s = time.perf_counter() - t0
+    if len(split) != n_steps:
+        raise AssertionError(f"{name}: {len(split)} train_step ranges in the "
+                             f"trace, expected {n_steps}")
+    window_us = sum(s["window_ms"] for s in split) * 1e3
+    summary = T.roofline_summary(ops, n_steps, *T.device_specs("cuda"),
+                                 window_us=window_us)
+    for i, s in enumerate(split):
+        log(f"{name} trace step {i + 1}: host enqueue {s['enqueue_ms']} ms, "
+            f"device busy {s['busy_ms']} ms, window {s['window_ms']} ms, "
+            f"idle share {s['idle_share']}")
+    log(f"{name} trace, the host's ms a step by range (the profiler's cost "
+        f"included): {json.dumps(T.host_ranges(tr))}")
+    log(f"{name} trace, ms a step by component: "
+        f"{json.dumps(summary['by_component'])}")
+    log(f"{name} trace, ms a step by category: "
+        f"{json.dumps(summary['by_category'])}")
+    log(f"{name} trace roofline (a step): " + json.dumps(
+        {k: v for k, v in summary.items()
+         if k not in ("by_component", "by_category")}))
+    kernels = {}
+    for o in ops:
+        if o["category"] == "kernel":
+            k = kernels.setdefault(o["name"], [0.0, 0])
+            k[0] += o["dur_us"]
+            k[1] += 1
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    for kname, (us, n) in top:
+        log(f"{name} trace kernel {us / 1e3 / n_steps:.4f} ms a step, "
+            f"{n / n_steps:g} a step: {kname[:110]}")
+    gaps = T.idle_gaps(tr, top=5, ops=ops)
+    for g in gaps:
+        log(f"{name} trace idle gap {g['gap_ms']:.4f} ms at "
+            f"{g['start_ms']:.3f} ms, host: {g['host']}")
+    syncs = T.sync_ms(tr)
+    kernel_ops = [o for o in ops if o["category"] == "kernel"]
+    nvjpeg = [(o["ts_us"], o["ts_us"] + o["dur_us"]) for o in kernel_ops
+              if re.search(NVJPEG_KERNELS, o["name"])]
+    others = [(o["ts_us"], o["ts_us"] + o["dur_us"]) for o in kernel_ops
+              if not re.search(NVJPEG_KERNELS, o["name"])]
+    nvjpeg_ms = sum(b - a for a, b in nvjpeg) / 1e3 / n_steps
+    overlap_ms = T.overlap_us(nvjpeg, others) / 1e3 / n_steps
+    log(f"{name} trace: nvJPEG's kernels {nvjpeg_ms} ms a step "
+        f"({len(nvjpeg) / n_steps:g} a step), {overlap_ms} ms of it overlapping "
+        f"the other kernels; the host in blocking runtime calls {syncs} ms "
+        f"over {n_steps} steps; parsed in {parse_s} s")
+    counts = T.kernel_counts(ops)
+    # Every launch the trace records has its kernel event.
+    lost = tr.lost_launches()
+    steps = tr.ranges("train_step")
+    for i in lost[:16]:
+        e = tr.host[i]
+        k = max([j for j, r in enumerate(steps) if r["ts"] <= e["ts"]],
+                default=0)
+        log(f"{name} trace: a launch without its kernel, {e['name']} in step "
+            f"{k + 1} at {(e['ts'] - steps[k]['ts']) / 1e3:.3f} ms, thread "
+            f"{'of the steps' if e['tid'] == steps[0]['tid'] else 'other'}, "
+            f"inside {[tr.host[j]['name'] for j in tr.chain(i)][1:4]}, scope "
+            f"{'/'.join(tr.scope_of(i))!r}")
+    ranges = {k: len(tr.ranges(k)) for k in T.KERNEL_RANGES}
+    outside = {k: sum(1 for o in kernel_ops if re.search(rx, o["name"])
+                      and k not in o["scope"])
+               for k, rx in T.KERNEL_RANGES.items()}
+    log(f"{name} trace: kernel events {counts}, the wrappers' launches "
+        f"{launches}, their ranges in the trace {ranges}, events outside "
+        f"their wrapper's range {outside}; {len(lost)} launches of any "
+        f"kernel without their kernel event")
+    if lost:
+        raise AssertionError(f"{name}: {len(lost)} kernel launches recorded "
+                             "without their kernel")
+    exact = list(T.KERNEL_RANGES) if exact is None else list(exact)
+    inside = exact if inside is None else list(inside)
+    if any(counts[k] != launches.get(k, 0) for k in exact):
+        raise AssertionError(f"{name}: kernel events {counts} differ from the "
+                             f"wrappers' launches {launches} ({exact})")
+    if any(outside[k] for k in inside):
+        raise AssertionError(f"{name}: kernel events outside their wrapper's "
+                             f"range: {outside}")
+    return dict(split=split, summary=summary, gaps=gaps, syncs_ms=syncs,
+                counts=counts, nvjpeg_ms=nvjpeg_ms, nvjpeg_overlap_ms=overlap_ms,
+                top=[(k[:110], us / 1e3 / n_steps, n / n_steps)
+                     for k, (us, n) in top])
+
+
+TRACE_WARM, TRACE_STEPS = 3, 5
+
+
+def phase_trace(float_step: dict, overrides=(), name: str = "trace") -> dict:
+    """Phase 6's flagship step (AMP bf16, batch 128, S 30, the same batches'
+    kind and one sync a step) under the profiler: TRACE_WARM steps, then
+    TRACE_STEPS traced, the counts set to 0 just before and read just
+    after; :func:`analyze_trace` prints and checks the trace."""
+    import shutil
+    import tempfile
+
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.tokenizers import HashingTokenizer
+    from clip_lite_torch.engine import (
+        create_train_state, make_train_step, metrics_to_floats)
+    from clip_lite_torch.utils.trace import capture_trace
+
+    cfg = Config(str(FLAGSHIP), list(overrides))
+    state = create_train_state(cfg, device="cuda")
+    train_step = make_train_step(cfg)
+    tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE,
+                           cfg.DATA.MAX_CAPTION_LENGTH)
+    rng = np.random.default_rng(1)
+    batches = [training_batch(rng, tok, BATCH, cfg.DATA.IMAGE_CROP_SIZE)
+               for _ in range(TRACE_WARM + TRACE_STEPS)]
+    counters = kernel_counters()
+
+    def run(todo):
+        nonlocal state
+        for batch in todo:
+            state, metrics = train_step(state, batch)
+            metrics_to_floats(metrics)  # phase 6's one sync a step
+
+    def warm_up():
+        """The last warm step, in the profiler's warm-up; then the counts
+        set to 0."""
+        run(batches[TRACE_WARM - 1:TRACE_WARM])
+        for c in counters.values():
+            c.launches = 0
+
+    run(batches[:TRACE_WARM - 1])
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        t0 = time.perf_counter()
+        path = capture_trace(lambda: run(batches[TRACE_WARM:]), outdir, "cuda",
+                             warm_up)
+        traced_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        out = analyze_trace(name, path, launches, TRACE_STEPS)
+        out["launches"] = launches
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    split = out["split"]
+    busy = statistics.median(s["busy_ms"] for s in split)
+    out["untraced_idle_share"] = 1.0 - busy / 1e3 / float_step["step_s"]
+    log(f"{name}: {TRACE_STEPS} steps traced after {TRACE_WARM}, captured and "
+        f"written in {traced_s} s; median step window "
+        f"{statistics.median(s['window_ms'] for s in split)} ms and host "
+        f"enqueue {statistics.median(s['enqueue_ms'] for s in split)} ms "
+        f"under the profiler (its cost: phase 6's untraced step "
+        f"{float_step['step_s']} s, enqueue {float_step['enqueue_s']} s); "
+        f"device busy {busy} ms a step, an idle share of "
+        f"{out['untraced_idle_share']} of phase 6's untraced step")
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def sass_fp32_instructions(kernel: str) -> dict:
     """The fp32-pipe instructions of ``kernel`` in the built K3 library's
     SASS (cuobjdump), up to its first unconditional EXIT (the division's
@@ -1419,6 +1650,231 @@ def phase_uint8_training(float_step: dict) -> dict:
                 enqueue_s=enqueue, peak_mib=peak_mb,
                 attention_s20=attention_times_at(seq))
 
+SSL_CORPUS = 8192  # tiles of the visual SSL phase's cache (1.6 GB)
+SSL = ["DATA.DEVICE_CACHE", True, "MODEL.VISUAL.SELF_SUPERVISED", True]
+
+
+def phase_ssl(float_step: dict, flagship_trace: dict) -> dict:
+    """Visual SSL at full width and depth: configs/fs_tpu_tuned.yaml +
+    DATA.DEVICE_CACHE + MODEL.VISUAL.SELF_SUPERVISED, a synthetic corpus
+    of SSL_CORPUS tiles with the cache's ssl_aug view, TRAIN_STEPS steps of
+    128 through the loop (counts set to 0 just before and read just
+    after: K3's fused pass twice a step, for the image and its view), then
+    TRACE_STEPS more steps traced, beside phase 6's trace.  Then the SSL
+    step (visual and textual on) through the kernels, same state and
+    batch, dropout 0, at PARITY_BATCH, in fp32 and bf16: K3's fused pass
+    against its composition on the step's own images and draws within
+    FUSED_ATOL, and the step against one through the plain attention fed
+    the same images at phase 7's bars; K1/K2 24 launches a step."""
+    import shutil
+    import tempfile
+
+    import clip_lite_torch.ops.image_ops as image_ops
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.device_cache import DeviceDataCache
+    from clip_lite_torch.engine import (
+        create_train_state, make_train_step, metrics_to_floats)
+    from clip_lite_torch.train import train_loop
+    from clip_lite_torch.utils.trace import capture_trace
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = Config(str(TUNED), SSL)
+    corpus = synthetic_corpus(cfg, np.random.default_rng(6), n=SSL_CORPUS)
+    cache = DeviceDataCache(corpus, BATCH, cache_size=cfg.DATA.CACHE_IMAGE_SIZE,
+                            crop_size=cfg.DATA.IMAGE_CROP_SIZE,
+                            seq_buckets=cfg.DATA.SEQ_BUCKETS,
+                            seed=cfg.RANDOM_SEED, ssl_aug=True, device="cuda")
+    del corpus
+    state = create_train_state(cfg, device="cuda")
+    if state.model.loss.visual_d is None or state.model.loss.textual_d:
+        raise AssertionError("fs_tpu_tuned + visual SSL: no visual critic")
+    n_layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+    crop = cfg.DATA.IMAGE_CROP_SIZE
+    stats_before = {n: b.clone() for n, b in state.model.named_buffers()}
+    train_step = make_train_step(cfg)
+    steps = []
+
+    def checked_step(st, batch):
+        shapes = {k: (batch[k].dtype, tuple(batch[k].shape))
+                  for k in ("image", "aug_image")}
+        if set(shapes.values()) != {(torch.uint8, (BATCH, crop, crop, 3))}:
+            raise AssertionError(f"cache batch: {shapes}")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st, metrics = train_step(st, batch)
+        enqueued = time.perf_counter() - start
+        values = metrics_to_floats(metrics)
+        steps.append(dict(seconds=time.perf_counter() - start,
+                          enqueue_seconds=enqueued, **values))
+        if not (math.isfinite(values["total_loss"])
+                and math.isfinite(values["grad_norm"])
+                and values["visual_loss"] > 0.0
+                and values["textual_loss"] == 0.0):
+            raise AssertionError(f"step {st.step}: {values}")
+        return st, metrics
+
+    counters = kernel_counters()
+    cache.set_start(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    state = train_loop(state, checked_step, iter(cache), TRAIN_STEPS,
+                       log_every=TRAIN_STEPS, checkpoint_every=10 ** 9)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for i, rec in enumerate(steps):
+        log(f"ssl step {i + 1}: {json.dumps(rec)}")
+    expected = dict(dict.fromkeys(counters, 0), **{
+        "K1 attention_fwd": n_layers * TRAIN_STEPS,
+        "K2 attention_bwd": n_layers * TRAIN_STEPS,
+        "K3 augment_normalize_u8": 2 * TRAIN_STEPS})
+    log(f"ssl (visual, device cache): launches {launches}: K3's fused pass "
+        f"{launches['K3 augment_normalize_u8'] / TRAIN_STEPS:g} a step")
+    if launches != expected:
+        raise AssertionError(f"ssl launches {launches}, expected {expected}")
+    unmoved = [n for n, b in state.model.named_buffers()
+               if torch.equal(b, stats_before[n])]
+    if unmoved:
+        raise AssertionError(f"BatchNorm statistics that did not move: {unmoved}")
+    times = [rec["seconds"] for rec in steps[2:]]
+    median = statistics.median(times)
+    enqueue = statistics.median(rec["enqueue_seconds"] for rec in steps[2:])
+    log(f"ssl (visual, device cache) at batch {BATCH}: median step {median} s "
+        f"over steps 3-{TRAIN_STEPS}, {BATCH / median} pairs/s, median host "
+        f"enqueue {enqueue} s, peak memory {peak_mb} MiB (the cache's "
+        f"{cache.memory_bytes() / 2 ** 20} MiB); phase 6's step "
+        f"{float_step['step_s']} s")
+    out = dict(launches=launches, step_s=median, pairs_per_s=BATCH / median,
+               enqueue_s=enqueue, peak_mib=peak_mb)
+
+    # TRACE_STEPS more steps under the profiler, after one in its warm-up.
+    batches = iter(cache)
+
+    def run(n=TRACE_STEPS):
+        nonlocal state
+        for _ in range(n):
+            state, metrics = train_step(state, next(batches))
+            metrics_to_floats(metrics)
+
+    def warm_up():
+        run(1)
+        for c in counters.values():
+            c.launches = 0
+
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_ssl_trace_")
+    try:
+        path = capture_trace(run, outdir, "cuda", warm_up)
+        traced = analyze_trace("ssl", path, {k: c.launches for k, c in
+                                             counters.items()}, TRACE_STEPS)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+    def med(t, k):
+        return statistics.median(s[k] for s in t["split"])
+
+    log("ssl trace beside phase 6's, a step: " + json.dumps({
+        k: {"ssl": med(traced, k), "phase 6": med(flagship_trace, k)}
+        for k in ("enqueue_ms", "busy_ms", "window_ms", "idle_share")}) +
+        "; by component (ms): " + json.dumps({
+            k: {"ssl": traced["summary"]["by_component"].get(k, {}).get("ms"),
+                "phase 6": flagship_trace["summary"]["by_component"].get(
+                    k, {}).get("ms")}
+            for k in ("resnet", "bert", "loss", "optimizer", "input")}))
+    out["trace"] = {k: med(traced, k) for k in ("enqueue_ms", "busy_ms",
+                                                "window_ms", "idle_share")}
+    del state, cache, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Kernels against twins: one SSL step each, visual and textual on.
+    cfg32 = Config(str(TUNED), SSL + ["MODEL.TEXTUAL.SELF_SUPERVISED", True])
+    corpus = synthetic_corpus(cfg32, np.random.default_rng(7), n=2 * BATCH)
+    cache = DeviceDataCache(corpus, PARITY_BATCH, cache_size=CACHE_SIZE,
+                            crop_size=crop, seq_buckets=cfg32.DATA.SEQ_BUCKETS,
+                            seed=1, ssl_aug=True, device="cuda")
+    batch = cache.batch_at(0)
+    other = cache.batch_at(1)  # the second captions
+    batch.update(aug_input_ids=other["input_ids"],
+                 aug_attention_mask=other["attention_mask"])
+    del corpus, cache
+    real_augment = image_ops.augment_normalize_u8
+    runs, state_dict, k3_err = {}, None, {}
+    # Two steps a compute type: "kernels" (K1, K2, K3's fused pass, whose
+    # images are held against its composition on the same draws), and
+    # "twins" (the plain attention, given those images).  A step through
+    # the composition's images too moves ResNet-50's grad norm past the
+    # bars from images in their last bits apart (PERF.md, section 6).
+    try:
+        for kind in ("float32", "bfloat16"):
+            made = []
+
+            def recorded(images, draws, flip=True, color_jitter=True):
+                made.append(real_augment(images, draws, flip, color_jitter))
+                twin = image_ops.augment_reference(images, draws, flip,
+                                                   color_jitter)
+                k3_err[kind, len(made)] = float(
+                    (made[-1] - twin).abs().max())
+                return made[-1]
+
+            def replayed(images, draws, flip=True, color_jitter=True):
+                return made.pop(0)
+
+            for mode, augment in (("kernels", recorded), ("twins", replayed)):
+                c = Config(str(TUNED), SSL + [
+                    "MODEL.TEXTUAL.SELF_SUPERVISED", True,
+                    "MODEL.TEXTUAL.DROPOUT", 0.0, "AMP", kind != "float32",
+                    "MODEL.TEXTUAL.FUSED_ATTENTION",
+                    str(mode == "kernels").lower()])
+                st = create_train_state(c, device="cuda", state_dict=state_dict)
+                if state_dict is None:
+                    state_dict = {k: v.detach().cpu()
+                                  for k, v in st.model.state_dict().items()}
+                image_ops.augment_normalize_u8 = augment
+                for k in counters.values():
+                    k.launches = 0
+                st, metrics = make_train_step(c)(st, batch)
+                got = {k: k_.launches for k, k_ in counters.items()}
+                want = dict(dict.fromkeys(counters, 0))
+                if mode == "kernels":
+                    want.update({"K1 attention_fwd": 2 * n_layers,
+                                 "K2 attention_bwd": 2 * n_layers,
+                                 "K3 augment_normalize_u8": 2})
+                if got != want:
+                    raise AssertionError(f"ssl parity {kind} {mode}: "
+                                         f"launches {got}, expected {want}")
+                layers = st.model.text_encoder.transformer
+                grads = [getattr(layers, n).qkv.weight.grad.float().clone()
+                         for n in layers.layer_names]
+                runs[kind, mode] = (metrics_to_floats(metrics), grads)
+                log(f"ssl parity {kind}, {mode} (launches {got}): "
+                    f"{runs[kind, mode][0]}")
+                del st, layers, grads
+                torch.cuda.empty_cache()
+    finally:
+        image_ops.augment_normalize_u8 = real_augment
+    log(f"ssl parity: K3's fused pass against its composition on the step's "
+        f"images and draws, max |difference| {k3_err} (bar "
+        f"{FUSED_ATOL['own means']})")
+    if max(k3_err.values()) > FUSED_ATOL["own means"]:
+        raise AssertionError(f"ssl: K3's fused pass off its twin: {k3_err}")
+    out["parity"] = {kind: parity(runs[kind, "kernels"], runs[kind, "twins"])
+                     for kind in ("float32", "bfloat16")}
+    out["k3_max_abs"] = max(k3_err.values())
+    for kind, got in out["parity"].items():
+        log(f"ssl parity {kind}, K1/K2 against the plain attention in the SSL "
+            f"step: {got} (tol {PARITY_TOL[kind]})")
+        if not within(got, PARITY_TOL[kind]):
+            raise AssertionError(f"ssl {kind}: step parity fails: {got}")
+    log(f"ssl: K1 and K2 {2 * n_layers} launches a step with textual SSL, K3's "
+        "fused pass 2 with visual SSL")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def write_coco_corpus(root: str, rng: np.random.Generator) -> None:
     """CLRec train and val files of ndarray records at COCO's shapes (480 x
     640 and 640 x 480 in turn), seeded uint8 images, five captions each
@@ -1434,6 +1890,44 @@ def write_coco_corpus(root: str, rng: np.random.Generator) -> None:
                 shape = (480, 640, 3) if i % 2 == 0 else (640, 480, 3)
                 w.append({"image_id": i, "captions": captions(rng, 5),
                           "image": rng.integers(0, 256, shape, dtype=np.uint8)})
+
+
+LOADER_SPLIT_ITEMS = 64
+
+
+def loader_split(dataset, n: int = LOADER_SPLIT_ITEMS) -> dict:
+    """A host loader's item stage by stage, on the dataset's own first
+    ``n`` items, in its order and with its generator, on one thread: the
+    record read (and decode), the caption draw, each image transform, the
+    caption transform and the tokenizer, the float32 copy; host ms an
+    item, and the whole ``dataset[i]`` beside their sum."""
+    spent = {}
+
+    def timed(key, fn, *a, **kw):
+        t0 = time.perf_counter()
+        result = fn(*a, **kw)
+        spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        return result
+
+    for i in range(n):
+        rng = dataset._rng(i)
+        rec = timed("read", dataset.reader.__getitem__, i)
+        caps = rec["captions"]
+        caption = caps[int(rng.integers(len(caps)))]
+        sample = {"image": rec["image"], "caption": caption}
+        for t in dataset.image_transform.transforms:
+            sample = timed(type(t).__name__, t, sample, rng)
+        caption = timed("caption_transform", dataset.caption_transform,
+                        caption=sample["caption"], rng=rng)["caption"]
+        timed("tokenize", dataset._tokenize, caption)
+        timed("to_float32", np.asarray, sample["image"], np.float32)
+    t0 = time.perf_counter()
+    for i in range(n):
+        dataset[i]
+    whole = (time.perf_counter() - t0) * 1e3 / n
+    ms = {k: v * 1e3 / n for k, v in spent.items()}
+    return dict(ms_an_item=ms, sum_ms=sum(ms.values()), whole_item_ms=whole,
+                items=n)
 
 
 def phase_data_cli(float_step: dict) -> dict:
@@ -1510,6 +2004,14 @@ def phase_data_cli(float_step: dict) -> dict:
         if not (first["image"].is_pinned() and tuple(first["image"].shape) == (
                 BATCH, 224, 224, 3)):
             raise AssertionError("the loader's batches are not pinned crops")
+        split = loader_split(loader.dataset)
+        log(f"data: the host loader's item by stage, host ms an item over "
+            f"{split['items']} of its items on one thread: "
+            f"{json.dumps(split['ms_an_item'])}; their sum {split['sum_ms']} "
+            f"ms, a whole item {split['whole_item_ms']} ms; {workers} workers "
+            f"at {loader_s} s a batch of {BATCH} is "
+            f"{loader_s * 1e3 * workers / BATCH} worker-ms an item")
+        out["loader_split"] = split
         del loader, stream, first
 
         def run(name, a, keep_batches=()):
@@ -1546,7 +2048,7 @@ def phase_data_cli(float_step: dict) -> dict:
             metrics = [json.loads(line) for line in open(os.path.join(
                 root, name, "metrics.jsonl"))]
             record["metrics"] = metrics
-            log(f"data ({name}): to step {DATA_STEPS}, with sweeps and "
+            log(f"data ({name}): to step {state.step}, with sweeps and "
                 f"checkpoints, in {record['wall']} s; launches "
                 f"{record['launches']}; "
                 f"metrics {json.dumps(metrics)}")
@@ -1560,7 +2062,8 @@ def phase_data_cli(float_step: dict) -> dict:
             sweeps = len([m for m in record["metrics"] if m["split"] == "val"])
             expected = dict(dict.fromkeys(counters, 0), attention_fwd=n_layers * (
                 steps + sweeps * (DATA_VAL // BATCH)),
-                attention_bwd=n_layers * steps, **want)
+                attention_bwd=n_layers * steps)
+            expected.update(want)
             got = {k: record["launches"][k] for k in counters}
             if got != expected:
                 raise AssertionError(f"({name}) launches {got}, expected "
@@ -1692,6 +2195,40 @@ def phase_data_cli(float_step: dict) -> dict:
                         build_s=cache.build_seconds,
                         cache_bytes=cache.memory_bytes())
         del state_b, rec_b, cache, built
+        device_cache.DeviceDataCache.from_dataset = classmethod(real_from_dataset)
+        device_cache.load_host = real_load_host
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (D) Textual SSL through the host loader: the flagship with
+        # MODEL.TEXTUAL.SELF_SUPERVISED, every item with a second caption
+        # of its image, through BERT's 12 layers a second time.
+        d_extra = ["MODEL.TEXTUAL.SELF_SUPERVISED", True,
+                   "OPTIM.NUM_ITERATIONS", SSL_CLI_STEPS,
+                   "OPTIM.WARMUP_STEPS", SSL_CLI_STEPS // 2]
+        cfg_d = Config(str(FLAGSHIP), sizes + d_extra)
+        torch.cuda.reset_peak_memory_stats()
+        state_d, rec_d = run("d", args("d", FLAGSHIP, d_extra))
+        peak_d = torch.cuda.max_memory_allocated() / 2 ** 20
+        n_layers = cfg_d.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+        expect("d", cfg_d, rec_d, SSL_CLI_STEPS,
+               attention_fwd=2 * n_layers * SSL_CLI_STEPS,
+               attention_bwd=2 * n_layers * SSL_CLI_STEPS)
+        train_rows = [m for m in rec_d["metrics"] if m["split"] == "train"]
+        if not train_rows or not all(m["textual_loss"] > 0 for m in train_rows):
+            raise AssertionError(f"(d) textual SSL loss: {train_rows}")
+        t = rec_d["t"]
+        times_d = [b - a for a, b in zip(t[2:], t[3:])]
+        step_d = statistics.median(times_d)
+        log(f"data (d): textual SSL through the host loader at batch {BATCH}: "
+            f"median step {step_d} s over steps 3-{SSL_CLI_STEPS} ({times_d}),"
+            f" {BATCH / step_d} pairs/s; K1 and K2 "
+            f"{rec_d['launches']['attention_fwd'] // SSL_CLI_STEPS} and "
+            f"{rec_d['launches']['attention_bwd'] // SSL_CLI_STEPS} a step; "
+            f"peak memory {peak_d} MiB; (a)'s step {step_a} s")
+        out["d"] = dict(launches=rec_d["launches"], step_s=step_d,
+                        pairs_per_s=BATCH / step_d, peak_mib=peak_d)
+        del state_d, rec_d
     finally:
         cli.make_train_step = real_make_step
         device_cache.DeviceDataCache.from_dataset = classmethod(real_from_dataset)
@@ -2568,6 +3105,7 @@ def phase_native(float_step: dict, host_step: float) -> dict:
     workers = os.cpu_count() or 1
     root = tempfile.mkdtemp(prefix="chip_smoke_native_")
     real_make_step = cli.make_train_step
+    real_record, real_stop = cli.record_trace, cli.stop_trace
     real_from_dataset = device_cache.DeviceDataCache.from_dataset.__func__
     logger = logging.getLogger("clip_lite_torch")
     phase_t0 = time.perf_counter()
@@ -2582,11 +3120,11 @@ def phase_native(float_step: dict, host_step: float) -> dict:
                  "OPTIM.NUM_ITERATIONS", NATIVE_STEPS,
                  "OPTIM.WARMUP_STEPS", NATIVE_STEPS // 2]
 
-        def args(name, config, extra=(), steps=NATIVE_STEPS):
+        def args(name, config, extra=(), steps=NATIVE_STEPS, flags=()):
             return cli.parser.parse_args([str(a) for a in (
                 "--config", config, "--serialization-dir",
                 os.path.join(root, name), "--checkpoint-every", 10,
-                "--log-every", 5, "--cpu-workers", workers,
+                "--log-every", 5, "--cpu-workers", workers, *flags,
                 "--config-override", *sizes, "OPTIM.NUM_ITERATIONS", steps,
                 "OPTIM.WARMUP_STEPS", steps // 2, *extra)])
 
@@ -2619,10 +3157,29 @@ def phase_native(float_step: dict, host_step: float) -> dict:
         out["loader_batches_per_s"] = {"native": 1 / loader_s[True],
                                        "python": 1 / loader_s[False]}
 
+        tracer = kernel_counters()
+
+        def counted_record(*a, **kw):
+            """The wrappers' counts as the profiler's record begins ..."""
+            real_record(*a, **kw)
+            window["start"] = {k: c.launches for k, c in tracer.items()}
+
+        def counted_stop(*a, **kw):
+            """... and as it stops: their launches in the traced steps."""
+            window["path"] = real_stop(*a, **kw)
+            window["launches"] = {k: c.launches - window["start"][k]
+                                  for k, c in tracer.items()}
+            return window["path"]
+
+        window = {}
+
         def run(name, a):
             """main(a) with the counts set to 0 just before and read just
-            after; each step's entry and return times."""
+            after; each step's entry and return times; with --profile-dir,
+            the wrappers' launches in the traced steps."""
             record = {"t": [], "t_out": []}
+            window.clear()
+            cli.record_trace, cli.stop_trace = counted_record, counted_stop
 
             def make_step(cfg):
                 step = real_make_step(cfg)
@@ -2647,7 +3204,9 @@ def phase_native(float_step: dict, host_step: float) -> dict:
             record["launches"].update(
                 attention_fwd_tc=fused_short_attention.tc_launches,
                 attention_bwd_tc=attention_backward.tc_launches)
+            record["window"] = dict(window)
             cli.make_train_step = real_make_step
+            cli.record_trace, cli.stop_trace = real_record, real_stop
             metrics = [json.loads(line) for line in open(os.path.join(
                 root, name, "metrics.jsonl"))]
             t, t_out = record["t"], record["t_out"]
@@ -2724,6 +3283,52 @@ def phase_native(float_step: dict, host_step: float) -> dict:
         finally:
             CocoCaptionsDataset.load_batch = real_load_batch
         expect("a1", cfg_a, rec_a1, NATIVE_STEPS, None)
+        # (A) and (A0) again under --profile-dir: TRACE_STEPS steps traced
+        # after TRACE_WARM (the last in the profiler's warm-up), and one
+        # more; no sweep.  The kernels of the step's thread (K1-K3): as many
+        # events as launches in the traced steps, each inside its wrapper's
+        # range.  The loader thread's (the crop kernel, nvJPEG's) launch
+        # beside the record's start and stop, so their counts are printed
+        # as the trace has them; every launch the trace records has its
+        # kernel.
+        traced_steps = TRACE_WARM + TRACE_STEPS + 1
+        main_thread = ("K1 attention_fwd", "K2 attention_bwd",
+                       "K3 normalize_u8", "K3 augment_normalize_u8")
+        traces = {}
+        for key in ("a", "a0"):
+            name = f"{key}_trace"
+            a = args(name, native_cfg, steps=traced_steps, flags=(
+                "--profile-dir", os.path.join(root, name, "trace")))
+            try:
+                if key == "a0":
+                    native.decode_crop_batch = fixed_decode
+                rec = run(name, a)
+            finally:
+                native.decode_crop_batch = real_decode
+            expect(name, cfg_a, rec, traced_steps,
+                   traced_steps if key == "a" else None)
+            w = rec["window"]
+            traces[key] = analyze_trace(f"native ({name})", w["path"],
+                                        w["launches"], TRACE_STEPS,
+                                        exact=main_thread)
+            traces[key].update(step_s=rec["step_s"],
+                               launches=rec["launches"])
+        ta, ta0 = traces["a"], traces["a0"]
+
+        def med(t, k):
+            return statistics.median(s[k] for s in t["split"])
+
+        log(f"native: (a) against (a0) under the profiler, a step: window "
+            f"{med(ta, 'window_ms')} against {med(ta0, 'window_ms')} ms, host "
+            f"enqueue {med(ta, 'enqueue_ms')} against {med(ta0, 'enqueue_ms')}"
+            f" ms, device busy {med(ta, 'busy_ms')} against "
+            f"{med(ta0, 'busy_ms')} ms; nvJPEG's kernels {ta['nvjpeg_ms']} ms, "
+            f"{ta['nvjpeg_overlap_ms']} ms of it beside the step's kernels; "
+            f"the host in blocking runtime calls {ta['syncs_ms']} against "
+            f"{ta0['syncs_ms']} ms over {TRACE_STEPS} steps")
+        out["traces"] = {k: {key: t[key] for key in (
+            "split", "nvjpeg_ms", "nvjpeg_overlap_ms", "syncs_ms", "launches")}
+            for k, t in traces.items()}
         del fixed_tiles, first_batches
         # (B) fs_tpu_tuned.yaml + DATA.DEVICE_CACHE, built natively.
         built = {}
@@ -2774,6 +3379,7 @@ def phase_native(float_step: dict, host_step: float) -> dict:
         log(f"native: phase 10d in {out['seconds']} s")
     finally:
         cli.make_train_step = real_make_step
+        cli.record_trace, cli.stop_trace = real_record, real_stop
         device_cache.DeviceDataCache.from_dataset = classmethod(real_from_dataset)
         for handler in logger.handlers:  # the CLI's, into the directory
             handler.close()
@@ -3145,6 +3751,10 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
+        "--native", action="store_true",
+        help="run phases 1, 2 and 10d (the native batch path and its "
+             "traced CLI runs) alone")
+    parser.add_argument(
         "--crop-kernel", action="store_true",
         help="build decode_crop.cu, check and time crop_resize_flip_u8 alone "
              "on phase 10d's records and print its row, nothing else (to "
@@ -3163,11 +3773,16 @@ def main() -> int:
     phase_environment()
     if args.crop_kernel:
         return crop_kernel_only()
+    if args.native:
+        phase_build()
+        phase_native({"step_s": None}, None)
+        return 0
     phase_build()
     phase_attention()
     inference = phase_main_path()
     attn = phase_attention_training()
     training = phase_training()
+    flagship_trace = phase_trace(training)
     ckpt = phase_checkpoint()
     phase_training_parity()
     full = phase_attention_training(full_bias=True)
@@ -3181,15 +3796,22 @@ def main() -> int:
     phase_training_parity(MPNET, name="MPNet training parity")
     norm = phase_normalize()
     uint8 = phase_uint8_training(training)
+    ssl = phase_ssl(training, flagship_trace)
     data = phase_data_cli(training)
     nat = phase_native(training, data["a"]["step_s"])
     evals = phase_eval_cli()
     cli = {"cli_host_loader": data["a"]["launches"],
            "cli_resumed": data["c"]["launches"],
            "cli_device_cache": data["b"]["launches"],
+           "cli_textual_ssl": data["d"]["launches"],
            "cli_native_input": nat["a"]["launches"],
+           "cli_native_input_traced": nat["traces"]["a"]["launches"],
+           "cli_native_fixed_tiles_traced": nat["traces"]["a0"]["launches"],
            "cli_native_tuned_cache": nat["b"]["launches"],
            "cli_native_tuned": nat["c"]["launches"]}
+    # The traced paths and the SSL cache path, counted by range name.
+    by_range = {"trace": flagship_trace["launches"],
+                "ssl_visual_training": ssl["launches"]}
     # phase_checkpoint's runs: (a) train with checkpoints, (b) resumed, (c)
     # again without, (d) the two bundles' encodes, (e) uint8 and resumed.
     by_run = {f"checkpoint_{run}": n for run, n in ckpt["launches"].items()}
@@ -3198,6 +3820,7 @@ def main() -> int:
                    "mpnet_inference": mpnet_inference["attention_fwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_fwd"],
                    "uint8_training": uint8["launches"]["attention_fwd"],
+                   **{k: n["K1 attention_fwd"] for k, n in by_range.items()},
                    **{k: n["attention_fwd"] for k, n in by_run.items()},
                    **{k: n["attention_fwd"] for k, n in cli.items()},
                    "cli_bundle": data["bundle_launches"],
@@ -3206,11 +3829,13 @@ def main() -> int:
     k2_launches = {"training": training["launches"]["attention_bwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"],
+                   **{k: n["K2 attention_bwd"] for k, n in by_range.items()},
                    **{k: n["attention_bwd"] for k, n in by_run.items()
                       if n["attention_bwd"]},
                    **{k: n["attention_bwd"] for k, n in cli.items()}}
     k3_fused_launches = {
         "uint8_training": uint8["launches"]["augment_normalize"],
+        "ssl_visual_training": ssl["launches"]["K3 augment_normalize_u8"],
         **{k: n["augment_normalize"] for k, n in by_run.items()
            if n["augment_normalize"]},
         **{k: n["augment_normalize"] for k, n in cli.items()

@@ -16,9 +16,15 @@ Python path, an item's image is float32 whatever the transforms: without
 ``normalize`` in the list the model trains on 0-255 floats (ROADMAP
 Queue 3 keeps this quirk, as the JAX package has it).
 
+With ``visual_self_supervised`` or ``textual_self_supervised`` an item
+also holds its augmented views for the SSL terms, as the JAX package's
+``_prepare`` makes them: ``aug_image``, a second transform draw of the
+same image, and ``aug_input_ids``/``aug_attention_mask``, another caption
+of the same image.
+
 Not here yet, each raising with its item of ROADMAP Queue 1: the ``glove``
-and ``sbert`` modes, the self-supervised views and the clustered hard
-negatives (item 7).
+and ``sbert`` modes (item 7(c)) and the clustered hard negatives (item
+7(b)).
 """
 
 from __future__ import annotations
@@ -74,11 +80,10 @@ class CaptionDatasetBase(Dataset):
         if mode != "train_sbert":
             raise NotImplementedError(
                 f"the {mode!r} dataset mode lands with the rest of the model "
-                "matrix (ROADMAP Queue 1, item 7)")
-        if visual_self_supervised or textual_self_supervised:
-            raise NotImplementedError("the self-supervised views land with "
-                                      "the SSL terms (ROADMAP Queue 1, item 7)")
+                "matrix (ROADMAP Queue 1, item 7(c))")
         self.mode = mode
+        self.visual_self_supervised = visual_self_supervised
+        self.textual_self_supervised = textual_self_supervised
         self.image_transform = image_transform or T.DEFAULT_IMAGE_TRANSFORM
         self.max_caption_length = max_caption_length
         self.use_single_caption = use_single_caption
@@ -110,36 +115,61 @@ class CaptionDatasetBase(Dataset):
 
     def _prepare(self, image_id: int, image: np.ndarray, captions,
                  rng: np.random.Generator) -> Dict[str, Any]:
+        """The item, drawing from ``rng`` in the JAX ``_prepare``'s order:
+        the caption, the SSL caption (redrawn while it equals the first),
+        the image transform, the caption transforms, the SSL image's own
+        transform draw."""
         if isinstance(captions, str):
             captions = [captions]
         if self.use_single_caption or len(captions) == 1:
             caption = captions[0]
         else:
             caption = captions[int(rng.integers(len(captions)))]
+        aug_caption = caption
+        if self.textual_self_supervised and isinstance(captions, list) \
+                and any(c != caption for c in captions):
+            while aug_caption == caption:
+                aug_caption = captions[int(rng.integers(len(captions)))]
         out = self.image_transform(image=image, caption=caption, rng=rng)
         caption = self.caption_transform(
             caption=out.get("caption", caption), rng=rng)["caption"]
         ids, mask = self._tokenize(caption)
-        return {"image_id": np.int64(image_id),
+        item = {"image_id": np.int64(image_id),
                 "image": np.asarray(out["image"], np.float32),
                 "input_ids": ids, "attention_mask": mask}
+        if self.textual_self_supervised:
+            aug = self.caption_transform(caption=aug_caption, rng=rng)["caption"]
+            item["aug_input_ids"], item["aug_attention_mask"] = \
+                self._tokenize(aug)
+        if self.visual_self_supervised:
+            aug_out = self.image_transform(image=image, caption=aug_caption,
+                                           rng=rng)
+            item["aug_image"] = np.asarray(aug_out["image"], np.float32)
+        return item
 
     def collate_fn(self, items: List[Dict[str, Any]]) -> Dict[str, np.ndarray]:
         return {k: np.stack([d[k] for d in items]) for k in items[0]}
 
+    _CAPTION_BATCH_KEYS = ("input_ids", "attention_mask",
+                           "aug_input_ids", "aug_attention_mask")
+
     def trim_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """Trim the caption arrays of a collated batch to the smallest
-        bucket that holds its longest caption (no-op without buckets).
-        Padding carries attention_mask 0, so the text tower's outputs at
-        real tokens do not change; only the shape does."""
+        """Trim the caption arrays of a collated batch (the SSL captions
+        too) to the smallest bucket that holds its longest caption (no-op
+        without buckets).  Padding carries attention_mask 0, so the text
+        tower's outputs at real tokens do not change; only the shape
+        does."""
         if not self.seq_buckets:
             return batch
-        longest = int(np.max(np.sum(batch["attention_mask"], axis=1)))
+        longest = max(int(np.max(np.sum(batch[k], axis=1)))
+                      for k in ("attention_mask", "aug_attention_mask")
+                      if k in batch)
         width = next(b for b in self.seq_buckets if b >= longest)
         if width >= batch["attention_mask"].shape[1]:
             return batch
-        for k in ("input_ids", "attention_mask"):
-            batch[k] = np.ascontiguousarray(batch[k][:, :width])
+        for k in self._CAPTION_BATCH_KEYS:
+            if k in batch:
+                batch[k] = np.ascontiguousarray(batch[k][:, :width])
         return batch
 
     def _caption_token_length(self, caption: str) -> int:
@@ -261,7 +291,10 @@ class CocoCaptionsDataset(CaptionDatasetBase):
         uint8 on ``device`` (zero tiles where a JPEG does not decode),
         ``input_ids`` and ``attention_mask`` (B, L) int32.  One generator
         per batch, from its first index and the epoch, draws the crop boxes
-        and then one caption per record."""
+        and then one caption per record.  As in the JAX package it makes no
+        SSL views: the training CLI refuses SSL on this path unless the
+        device cache makes the training batches (whose ``ssl_aug`` holds
+        the visual view); its val sweeps then score the pair terms."""
         from clip_lite_torch.data import native
 
         rng = self._rng(int(indices[0]) + 1_000_003 * self.epoch)
@@ -315,7 +348,7 @@ def _pending(name: str, why: str) -> type:
 
 CocoCaptionsClusteredDataset = _pending(
     "CocoCaptionsClusteredDataset",
-    "the clustered hard negatives land with ROADMAP Queue 1, item 7")
+    "the clustered hard negatives land with ROADMAP Queue 1, item 7(b)")
 
 
 # ---------------------------------------------------------------------------

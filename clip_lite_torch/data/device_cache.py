@@ -30,8 +30,11 @@ Differences from the JAX cache, by design:
     (sampling is uniform over the corpus either way) and is left out, so
     the tiles are used in the caller's order with no second copy; so
     there is no ``placement`` (sharded and replicated are the same on one
-    card); more than one rank raises (item 5), as does ``ssl_aug``
-    (item 7).
+    card); more than one rank raises (item 5).
+
+With ``ssl_aug`` (visual SSL) a batch also holds ``aug_image``, a second
+crop of each item's tile at its own offset, as the JAX cache makes it;
+the step then augments it with draws of its own.
 """
 
 from __future__ import annotations
@@ -220,9 +223,6 @@ class DeviceDataCache:
             raise NotImplementedError("a corpus placed across ranks lands with "
                                       "multi-GPU training (ROADMAP Queue 1, "
                                       "item 5)")
-        if ssl_aug:
-            raise NotImplementedError("the visual SSL view (ssl_aug) lands with "
-                                      "the SSL terms (ROADMAP Queue 1, item 7)")
         n = len(ids_list)
         if tuple(images.shape) != (n, cache_size, cache_size, 3) \
                 or images.dtype not in (np.uint8, torch.uint8):
@@ -234,6 +234,7 @@ class DeviceDataCache:
         self.crop_size = crop_size
         self.cache_size = cache_size
         self.seed = seed
+        self.ssl_aug = bool(ssl_aug)
 
         max_len = max(int(mm.sum(axis=-1).max()) for mm in mask_list)
         c_max = max(ii.shape[0] for ii in ids_list)
@@ -284,7 +285,9 @@ class DeviceDataCache:
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
         """Batch for iteration ``step``, a pure function of (seed, step):
         ``image`` (B, crop, crop, 3) uint8, ``input_ids`` and
-        ``attention_mask`` (B, S) int32, ``image_id`` (B,) int64."""
+        ``attention_mask`` (B, S) int32, ``image_id`` (B,) int64; with
+        ``ssl_aug``, ``aug_image``, the same tiles cropped at offsets drawn
+        after the first ones."""
         g = self._generator(step)
         b, dev = self.batch_size, self.device
         idx = torch.randint(0, self._n, (b,), generator=g, device=dev)
@@ -293,15 +296,22 @@ class DeviceDataCache:
         n_caps = self._n_caps[idx]
         u = torch.rand((b,), generator=g, device=dev)
         cap = torch.minimum((u * n_caps).long(), n_caps.long() - 1)
-        off = torch.randint(0, self.cache_size - self.crop_size + 1, (b, 2),
-                            generator=g, device=dev)
-        rows = off[:, 0, None] + self._window  # (B, crop)
-        cols = off[:, 1, None] + self._window
-        image = self._images[idx[:, None, None], rows[:, :, None],
-                             cols[:, None, :]]  # one gather, (B, crop, crop, 3)
-        return {"image": image, "input_ids": self._ids[idx, cap],
-                "attention_mask": self._mask[idx, cap],
-                "image_id": self._image_ids[idx]}
+
+        def crop() -> torch.Tensor:
+            off = torch.randint(0, self.cache_size - self.crop_size + 1,
+                                (b, 2), generator=g, device=dev)
+            rows = off[:, 0, None] + self._window  # (B, crop)
+            cols = off[:, 1, None] + self._window
+            # One gather, (B, crop, crop, 3).
+            return self._images[idx[:, None, None], rows[:, :, None],
+                                cols[:, None, :]]
+
+        out = {"image": crop(), "input_ids": self._ids[idx, cap],
+               "attention_mask": self._mask[idx, cap],
+               "image_id": self._image_ids[idx]}
+        if self.ssl_aug:
+            out["aug_image"] = crop()
+        return out
 
     def set_start(self, step: int) -> None:
         """Resume point: iteration the next ``__iter__`` batch is for."""

@@ -49,6 +49,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from clip_lite_torch.utils.trace import traced
+
 f32 = np.float32
 
 
@@ -360,6 +362,7 @@ def crop_arrays(offsets, sizes, boxes, flips, denoms=None) -> list:
     return arrays
 
 
+@traced("crop_resize_flip_u8")
 def crop_resize_flip_u8(arena: torch.Tensor, offsets, sizes, boxes, flips,
                         out_size: int, out: Optional[torch.Tensor] = None,
                         denoms=None) -> torch.Tensor:

@@ -18,7 +18,12 @@ A batch whose ``image`` is uint8 (the device-resident cache's, or a
 uint8 host pipeline's) gets its augmentation on the device inside the
 step, as the JAX package's ``_maybe_device_preprocess`` gives it: flip,
 colour jitter and the normalize (K3) in training, the normalize alone in
-eval.
+eval; a uint8 ``aug_image`` (the visual SSL view) the same, with draws of
+its own.
+
+The train step opens the ``train_step``, ``device_preprocess`` and
+``backward`` ranges of a trace (``utils/trace.py``) while a profiler
+runs.
 
 :func:`to_jax_tree` and :func:`load_jax_tree` give and take the state as
 the JAX package's ``TrainState`` tree (``engine.py:35-41`` there),
@@ -43,6 +48,7 @@ from clip_lite_torch.models.model import VLInfoModel
 from clip_lite_torch.ops.image_ops import AugDraws, device_preprocess
 from clip_lite_torch.ops.layers import StepRNG, init_weights
 from clip_lite_torch.optim.fused import FusedOptimizer
+from clip_lite_torch.utils.trace import scope
 
 Batch = Dict[str, object]
 logger = logging.getLogger("clip_lite_torch")
@@ -141,23 +147,25 @@ def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
 
 def _maybe_device_preprocess(batch: Dict[str, torch.Tensor], rng: StepRNG,
                              train: bool,
-                             aug_draws: Optional[AugDraws] = None
+                             aug_draws: Optional[Dict[str, AugDraws]] = None
                              ) -> Dict[str, torch.Tensor]:
-    """A uint8 ``image`` gets flip, colour jitter and the normalize in
-    training (its draws from ``aug_draws`` or else from ``rng``), the
-    normalize alone in eval (``engine.py:69-81`` of the JAX package).
-    Keyed on the dtype; float32 images pass as they are.  ``neg_image``
-    and ``aug_image`` are refused by the model (ROADMAP Queue 1, item 7).
-    """
-    image = batch.get("image")
-    if image is None or image.dtype != torch.uint8:
-        return batch
-    draws = None
-    if train:
-        draws = aug_draws if aug_draws is not None else AugDraws.sample(
-            rng, image.shape[0])
+    """A uint8 ``image`` and ``aug_image`` each get flip, colour jitter and
+    the normalize in training, the normalize alone in eval
+    (``engine.py:69-81`` of the JAX package).  Each key's draws are its
+    own: from ``aug_draws`` (:class:`AugDraws` by key) where it has them,
+    else drawn from ``rng``, ``image``'s first.  Keyed on the dtype; float32 images pass as they
+    are.  ``neg_image`` is refused by the model (ROADMAP Queue 1, item
+    7(b))."""
     out = dict(batch)
-    out["image"] = device_preprocess(image, draws, flip=train,
+    for key in ("image", "aug_image"):
+        image = out.get(key)
+        if image is None or image.dtype != torch.uint8:
+            continue
+        draws = None
+        if train:
+            draws = (aug_draws or {}).get(key) or AugDraws.sample(
+                rng, image.shape[0])
+        out[key] = device_preprocess(image, draws, flip=train,
                                      color_jitter=train)
     return out
 
@@ -168,29 +176,35 @@ def make_train_step(config: Config) -> Callable:
 
     ``batch`` holds ``image`` (B, H, W, 3), float32 and normalized or
     uint8 (augmented and normalized in the step), and ``input_ids``,
-    ``attention_mask`` (B, L), as numpy arrays or tensors; ``prior_noise``
-    optionally replaces the prior terms' draws and ``aug_draws`` a uint8
-    batch's augmentation draws.  The metrics are 0-d device tensors
-    (reading one waits for the step).  After the step the parameters'
+    ``attention_mask`` (B, L), as numpy arrays or tensors, and for the SSL
+    terms ``aug_image`` and ``aug_input_ids``/``aug_attention_mask``;
+    ``prior_noise`` optionally replaces the prior terms' draws and
+    ``aug_draws`` the uint8 images' augmentation draws (``AugDraws`` by
+    key).  The metrics are 0-d device tensors (reading one waits for the
+    step).  After the step the parameters'
     ``.grad`` hold its gradients, unclipped."""
     _check_supported(config)
     seed = config.RANDOM_SEED
 
     def train_step(state: TrainState, batch: Batch,
                    prior_noise: Optional[Dict[str, torch.Tensor]] = None,
-                   aug_draws: Optional[AugDraws] = None):
-        model = state.model
-        model.train()
-        model.zero_grad(set_to_none=True)
-        rng = StepRNG(seed, state.step, state.device)
-        batch = _maybe_device_preprocess(_to_device(batch, state.device), rng,
-                                         train=True, aug_draws=aug_draws)
-        out = model(batch, rng=rng, prior_noise=prior_noise)
-        out["loss"].backward()
-        grad_norm = state.optimizer.step()
-        state.step += 1
-        metrics = dict(out["loss_components"])
-        metrics["grad_norm"] = grad_norm
+                   aug_draws: Optional[Dict[str, AugDraws]] = None):
+        with scope("train_step"):
+            model = state.model
+            model.train()
+            model.zero_grad(set_to_none=True)
+            rng = StepRNG(seed, state.step, state.device)
+            with scope("device_preprocess"):
+                batch = _maybe_device_preprocess(
+                    _to_device(batch, state.device), rng, train=True,
+                    aug_draws=aug_draws)
+            out = model(batch, rng=rng, prior_noise=prior_noise)
+            with scope("backward"):
+                out["loss"].backward()
+            grad_norm = state.optimizer.step()
+            state.step += 1
+            metrics = dict(out["loss_components"])
+            metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return train_step

@@ -225,12 +225,12 @@ class PretrainingDatasetFactory:
 
 
 class NegativeSamplingDatasetFactory:
-    """The clustered hard-negative datasets (ROADMAP Queue 1, item 7)."""
+    """The clustered hard-negative datasets (ROADMAP Queue 1, item 7(b))."""
 
     @classmethod
     def from_config(cls, config: Config, split: str = "train"):
         raise NotImplementedError(
-            "cluster negative sampling lands with ROADMAP Queue 1, item 7")
+            "cluster negative sampling lands with ROADMAP Queue 1, item 7(b)")
 
 
 class DownstreamDatasetFactory:

@@ -1,6 +1,8 @@
 """VLInfoModel: the image tower, the text tower and the JSD loss, with
-the training forward (the loss dict) and the encoding and projection API
-the downstream evals use."""
+the training forward (the loss dict, the augmented views' passes for the
+SSL terms included) and the encoding and projection API the downstream
+evals use.  The forward opens the ``image_encoder``, ``text_encoder`` and
+``loss`` ranges of a step's trace (``utils/trace.py``)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from clip_lite_torch.models.image_encoder import ImageEncoder
 from clip_lite_torch.models.text_encoder import TextEncoder
 from clip_lite_torch.ops.layers import StepRNG
 from clip_lite_torch.ops.loss import JSDInfoMaxLoss
+from clip_lite_torch.utils.trace import scope
 
 
 class VLInfoModel(nn.Module):
@@ -30,18 +33,36 @@ class VLInfoModel(nn.Module):
         """``{"loss", "loss_components"}`` for a batch of ``image``
         (B, H, W, 3), ``input_ids`` and ``attention_mask`` (B, L), the
         components detached (``models/model.py:29-70`` of the JAX
-        package).  Norms and dropout follow the module's training mode;
-        ``rng`` is the step's draws, ``prior_noise`` an optional
-        replacement for the prior terms' noise."""
-        extra = sorted(k for k in batch if k.startswith(("neg_", "aug_")))
-        if extra:
+        package).  An ``aug_image`` goes through the image tower and
+        ``aug_input_ids``/``aug_attention_mask`` through the text tower, in
+        that order after the pair, for the SSL terms; in training each pass
+        moves the image tower's BatchNorm statistics, as flax moves them.
+        Norms and dropout follow the module's training mode; ``rng`` is the
+        step's draws, ``prior_noise`` an optional replacement for the prior
+        terms' noise."""
+        neg = sorted(k for k in batch if k.startswith("neg_"))
+        if neg:
             raise NotImplementedError(
-                f"batch keys {extra}: hard negatives and augmented pairs are "
-                "not ported yet (ROADMAP Queue 1, item 7)")
-        image_features = self.image_encoder(batch["image"])
-        text_features = self.text_encoder(batch, rng=rng)
-        components = self.loss(image_features, text_features,
-                               prior_noise=prior_noise, rng=rng)
+                f"batch keys {neg}: hard negatives land with the cluster "
+                "curriculum (ROADMAP Queue 1, item 7(b))")
+        with scope("image_encoder"):
+            image_features = self.image_encoder(batch["image"])
+        with scope("text_encoder"):
+            text_features = self.text_encoder(batch, rng=rng)
+        aug_image_features = aug_text_features = None
+        if "aug_image" in batch:
+            with scope("image_encoder"):
+                aug_image_features = self.image_encoder(batch["aug_image"])
+        if "aug_input_ids" in batch:
+            with scope("text_encoder"):
+                aug_text_features = self.text_encoder(
+                    {"input_ids": batch["aug_input_ids"],
+                     "attention_mask": batch["aug_attention_mask"]}, rng=rng)
+        with scope("loss"):
+            components = self.loss(image_features, text_features,
+                                   aug_image_features=aug_image_features,
+                                   aug_text_features=aug_text_features,
+                                   prior_noise=prior_noise, rng=rng)
         return {"loss": components["total_loss"],
                 "loss_components": {k: v.detach()
                                     for k, v in components.items()}}

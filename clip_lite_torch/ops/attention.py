@@ -53,6 +53,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from clip_lite_torch.utils.trace import traced
+
 MASK_VALUE = float(np.finfo(np.float32).min) * 0.5
 MAX_SEQ = 256
 TC_MAX_SEQ = 64
@@ -346,6 +348,7 @@ def _on_tensor_cores(qkv: torch.Tensor) -> bool:
     return attention_route(qkv.dtype, qkv.shape[1]) == "tensor_core"
 
 
+@traced("K1 attention_fwd")
 def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
                       num_heads: int, *, dropout_rate: float = 0.0,
                       seed: int = 0,
@@ -369,6 +372,7 @@ def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
                        _on_tensor_cores(qkv))
 
 
+@traced("K2 attention_bwd")
 def attention_backward(qkv: torch.Tensor, mask_bias: torch.Tensor,
                        g: torch.Tensor, num_heads: int, *,
                        dropout_rate: float = 0.0, seed: int = 0,

@@ -3,10 +3,11 @@
 The counterpart of the JAX package's ``ops/loss.py``.  The projection
 heads (``MILinearBlock``) live inside the loss, because every downstream
 eval projects through ``loss.global_d.{img_block, text_block}``.  The
-objective is ported in its normal mode with the ``dot`` critic and both
-priors; cluster mode and the SSL terms raise (ROADMAP Queue 1, item 7).
-All critic math (normalize, softplus, log) runs in float32 whatever the
-compute type of the projections.
+objective is ported in its normal mode with the four critic types
+(``dot``, ``concat``, ``condot``, ``dotcon``), both priors and the visual
+and textual self-supervised terms; cluster mode raises (ROADMAP Queue 1,
+item 7(b)).  All critic math (normalize, softplus, log) runs in float32
+whatever the compute type of the projections.
 """
 
 from __future__ import annotations
@@ -71,6 +72,24 @@ class PriorDiscriminator(nn.Module):
         return torch.sigmoid(self.l2(h).float())
 
 
+class GlobalDiscriminator(nn.Module):
+    """Concat-MLP critic: T(x, y) = MLP([x; y]), 512-512-1, in float32 out
+    (``ops/loss.py:93-105`` of the JAX package)."""
+
+    def __init__(self, dim1: int, dim2: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.l0 = Linear(dim1 + dim2, 512, compute_dtype=compute_dtype)
+        self.l1 = Linear(512, 512, compute_dtype=compute_dtype)
+        self.l2 = Linear(512, 1, compute_dtype=compute_dtype)
+
+    def forward(self, features1: torch.Tensor,
+                features2: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([features1, features2], dim=1)
+        h = F.relu(self.l1(F.relu(self.l0(x))))
+        return self.l2(h).float()[:, 0]
+
+
 class GlobalDiscriminatorDot(nn.Module):
     """Encode-and-dot critic's parameters: one projection head per
     modality and the learnable temperature log(1/0.07)."""
@@ -112,14 +131,32 @@ def _jsd_pair_terms(critic: nn.Module, pos1: torch.Tensor, pos2: torch.Tensor,
     return em - ej
 
 
+# The critics of each critic type: (global_d, visual_d and textual_d),
+# ``ops/loss.py:183-208`` of the JAX package.
+CRITICS = {"dot": ("dot", "dot"), "concat": ("concat", "concat"),
+           "condot": ("concat", "dot"), "dotcon": ("dot", "concat")}
+
+
+def _critic(kind: str, dim1: int, dim2: int,
+            compute_dtype: torch.dtype) -> nn.Module:
+    if kind == "dot":
+        return GlobalDiscriminatorDot(dim1, dim2, compute_dtype=compute_dtype)
+    return GlobalDiscriminator(dim1, dim2, compute_dtype=compute_dtype)
+
+
 class JSDInfoMaxLoss(nn.Module):
-    """JSD InfoMax objective, normal mode, ``dot`` critic, optional image
-    and text priors:
+    """JSD InfoMax objective, normal mode, with optional image and text
+    priors and self-supervised terms:
 
-        total = (1 - prior_weight) * cross_modal + prior_weight * prior
+        total = (1 - prior_weight) * (cross_modal + visual + textual)
+              + prior_weight * prior
 
-    Negatives pair each item with the next one in the batch
-    (:func:`roll_shifted_left`)."""
+    ``critic_type`` picks the cross-modal critic ``global_d`` and the SSL
+    critics ``visual_d`` (image against its augmented view) and
+    ``textual_d`` (caption against another caption), each a
+    :class:`GlobalDiscriminatorDot` or a :class:`GlobalDiscriminator`
+    (:data:`CRITICS`).  Negatives pair each item with the next one in the
+    batch (:func:`roll_shifted_left`), the augmented features' too."""
 
     def __init__(self, image_dim: int, text_dim: int, critic_type: str = "dot",
                  prior_weight: float = 0.1,
@@ -129,14 +166,15 @@ class JSDInfoMaxLoss(nn.Module):
                  negatives: str = "local",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if critic_type != "dot" or visual_self_supervised \
-                or textual_self_supervised:
-            raise NotImplementedError(
-                f"critic {critic_type!r} with self-supervised terms "
-                f"({visual_self_supervised}, {textual_self_supervised}) is not "
-                "ported yet (ROADMAP Queue 1, the rest of the model matrix)")
-        self.global_d = GlobalDiscriminatorDot(image_dim, text_dim,
-                                               compute_dtype=compute_dtype)
+        if critic_type not in CRITICS:
+            raise ValueError(f"Unknown critic type {critic_type!r}")
+        cross, ssl = CRITICS[critic_type]
+        dt = compute_dtype
+        self.global_d = _critic(cross, image_dim, text_dim, dt)
+        self.visual_d = (_critic(ssl, image_dim, image_dim, dt)
+                         if visual_self_supervised else None)
+        self.textual_d = (_critic(ssl, text_dim, text_dim, dt)
+                          if textual_self_supervised else None)
         self.prior_d = (PriorDiscriminator(image_dim, compute_dtype)
                         if image_prior else None)
         self.text_prior_d = (PriorDiscriminator(text_dim, compute_dtype)
@@ -157,13 +195,14 @@ class JSDInfoMaxLoss(nn.Module):
 
         ``prior_noise``: optional ``{"image": ..., "text": ...}`` U[0, 1)
         inputs of the prior terms, shaped as the features; by default
-        drawn from ``rng``, the step's generator.
+        drawn from ``rng``, the step's generator.  ``aug_image_features``
+        and ``aug_text_features`` (the towers' features of the augmented
+        views) add the visual and textual terms.
         """
-        if any(f is not None for f in (neg_image_features, neg_text_features,
-                                       aug_image_features, aug_text_features)):
+        if neg_image_features is not None or neg_text_features is not None:
             raise NotImplementedError(
-                "cluster-mode negatives and the SSL terms are not ported yet "
-                "(ROADMAP Queue 1, item 7)")
+                "cluster-mode negatives land with the cluster curriculum "
+                "(ROADMAP Queue 1, item 7(b))")
         zero = image_features.new_zeros((), dtype=torch.float32)
         prior_total = zero
         for key, critic, feats in (("image", self.prior_d, image_features),
@@ -184,13 +223,33 @@ class JSDInfoMaxLoss(nn.Module):
         text_prime = roll_shifted_left(text_features, self.negatives)
         cross_modal = _jsd_pair_terms(self.global_d, image_features,
                                       text_features, text_prime)
-        total = ((1.0 - self.prior_weight) * cross_modal
+        # The SSL terms, in the JAX package's order (``ops/loss.py:265-280``).
+        ssl = {}
+        for key, critic, feats, aug in (
+                ("visual", self.visual_d, image_features, aug_image_features),
+                ("textual", self.textual_d, text_features, aug_text_features)):
+            if aug is None:
+                ssl[key] = zero
+                continue
+            if critic is None:
+                raise ValueError(f"{key} SSL features given to a loss built "
+                                 f"without {key}_self_supervised")
+            ssl[key] = _jsd_pair_terms(critic, feats, aug,
+                                       roll_shifted_left(aug, self.negatives))
+        jsd = cross_modal + ssl["visual"] + ssl["textual"]
+        total = ((1.0 - self.prior_weight) * jsd
                  + self.prior_weight * prior_total)
         return {"total_loss": total, "cross_modal_loss": cross_modal,
-                "visual_loss": zero, "textual_loss": zero}
+                "visual_loss": ssl["visual"], "textual_loss": ssl["textual"]}
+
+    def _projection(self, side: str, features: torch.Tensor) -> torch.Tensor:
+        if not isinstance(self.global_d, GlobalDiscriminatorDot):
+            raise TypeError("the concat critic has no projection heads: the "
+                            "evals project through a dot global_d")
+        return getattr(self.global_d, f"project_{side}")(features)
 
     def project_image(self, features: torch.Tensor) -> torch.Tensor:
-        return self.global_d.project_image(features)
+        return self._projection("image", features)
 
     def project_text(self, features: torch.Tensor) -> torch.Tensor:
-        return self.global_d.project_text(features)
+        return self._projection("text", features)

@@ -31,6 +31,7 @@ from clip_lite_torch.data.transforms import (
     IMAGENET_COLOR_MEAN,
     IMAGENET_COLOR_STD,
 )
+from clip_lite_torch.utils.trace import traced
 
 # pallas_kernels.py:51-52 of the JAX package, rounded once to fp32.
 MEAN_255 = tuple(float(np.float32(m * 255.0)) for m in IMAGENET_COLOR_MEAN)
@@ -102,6 +103,7 @@ def launch_normalize(lib: ctypes.CDLL, images: torch.Tensor,
     return out
 
 
+@traced("K3 normalize_u8")
 def normalize_u8(images: torch.Tensor,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, H, W, 3) uint8 (or float32 in [0, 255]) -> ImageNet-normalized
@@ -168,6 +170,7 @@ def launch_augment_normalize(lib: ctypes.CDLL, images_u8: torch.Tensor,
     return out
 
 
+@traced("K3 augment_normalize_u8")
 def augment_normalize_u8(images_u8: torch.Tensor, draws, flip: bool = True,
                          color_jitter: bool = True,
                          mean: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from clip_lite_torch.optim import make_decays_fn, make_lr_fn
+from clip_lite_torch.utils.trace import traced
 
 _ADAM_BETAS, _ADAM_EPS = (0.9, 0.999), 1e-8
 # FusedOptState's fields, and the _Group buffer behind each tree.
@@ -107,10 +108,12 @@ class FusedOptimizer:
                 for p in g.params]
 
     @torch.no_grad()
+    @traced("optimizer")
     def step(self) -> torch.Tensor:
         """Apply one update from the parameters' ``.grad`` (a missing grad
         counts as zero, as JAX's zero gradient of a frozen leaf); return
-        the gradients' global norm, a 0-d device tensor."""
+        the gradients' global norm, a 0-d device tensor.  The pass is the
+        ``optimizer`` range of a trace."""
         grads = {id(p): (p.grad if p.grad is not None else torch.zeros_like(p))
                  for g in self.groups for p in g.params}
         norms = torch._foreach_norm(list(grads.values()))

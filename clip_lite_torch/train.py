@@ -9,7 +9,9 @@ through the device-resident cache, with val sweeps, checkpoints and
 ``train_loop`` is the loop (lines 282-371 of the JAX ``train.py``) over
 any batch source.  Per iteration: one train step; every ``log_every``
 iterations the metrics come to the host, go to the log with the timer's
-stats and peak device memory, and to the metrics writer; every
+stats and peak device memory, and to the metrics writer; with a
+``profile_dir``, a trace of five steps after the first three
+(``utils/trace.py``; the JAX ``train.py:294-325``); every
 ``checkpoint_every`` iterations a validation sweep (when val batches are
 given) writes the mean loss components, and its mean ``total_loss`` is
 the metric of the checkpoint then written; in the last 20% of training a
@@ -18,11 +20,13 @@ final checkpoint.  With ``resume_from`` the loop first restores the state
 from that checkpoint and starts the batch source at its iteration.
 
 ``main`` refuses what the port does not have yet, naming its item of
-ROADMAP Queue 1: the switch to cluster negatives (item 7), pretrained
-weights (item 7), ``--profile-dir`` (item 8(b)) and
-``PARALLEL.STEPS_PER_CALL > 1`` (item 8(c)).
+ROADMAP Queue 1: the switch to cluster negatives (item 7(b)), pretrained
+weights (item 7(d)) and ``PARALLEL.STEPS_PER_CALL > 1`` (item 8(c)); and
+the SSL terms on the native batch path without the device cache, which
+makes no augmented views (ROADMAP Queue 3).
 
-Run (synthetic smoke, on the CPU):
+Run (synthetic smoke, on the CPU; ``--profile-dir DIR`` writes the
+trace to ``DIR/trace.json.gz``, which ``utils/trace.py`` parses):
     python -m clip_lite_torch.train --device cpu \
         --config-override MODEL.NAME random OPTIM.NUM_ITERATIONS 10
 """
@@ -52,6 +56,8 @@ from clip_lite_torch.utils.common import (
 )
 from clip_lite_torch.utils.loggers import MetricsWriter
 from clip_lite_torch.utils.timers import Timer, device_mem_usage_mb
+from clip_lite_torch.utils.trace import (
+    record_trace, scope, start_trace, stop_trace)
 
 logger = logging.getLogger("clip_lite_torch")
 
@@ -65,7 +71,10 @@ group.add_argument("--climax-freq", type=int, default=1000,
                    help="Checkpoint frequency in the last 20%% of training.")
 group.add_argument("--keep-recent", type=int, default=100)
 group.add_argument("--profile-dir", default=None,
-                   help="A trace of a few steps (ROADMAP Queue 1, item 8(b)).")
+                   help="Write a trace of five steady steps (after the "
+                        "first three) to this directory.")
+
+PROFILE_AFTER, PROFILE_STEPS = 3, 5
 
 
 def crossed_interval(iteration: int, interval: int,
@@ -83,7 +92,8 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
                writer: Optional[MetricsWriter] = None,
                checkpoint_every: int = 10000, climax_freq: int = 1000,
                manager: Optional[CheckpointManager] = None,
-               resume_from: Optional[str] = None) -> TrainState:
+               resume_from: Optional[str] = None,
+               profile_dir: Optional[str] = None) -> TrainState:
     """Train from ``state.step`` up to ``num_iterations`` steps, taking one
     batch of ``batches`` per step, and return the state.
 
@@ -94,7 +104,11 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
     ``resume_from`` (needs a manager) restores ``state`` from that
     checkpoint, in place, and starts ``batches`` at the stored iteration
     through its ``set_start`` (``DeviceDataCache`` has one); a source
-    without one must already begin at that iteration.
+    without one must already begin at that iteration.  With a
+    ``profile_dir`` the steps after the first ``PROFILE_AFTER`` run under
+    the profiler, ``PROFILE_STEPS`` of them (fewer where the run ends
+    first), the last of the first ``PROFILE_AFTER`` in its warm-up, and
+    their trace goes to ``profile_dir/trace.json.gz``.
     """
     if manager is not None:
         manager.checkpointables["state"] = state
@@ -110,12 +124,26 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
     batches = iter(batches)
     timer = Timer(start_from=iteration + 1, total_iterations=num_iterations)
     batch = next(batches) if iteration < num_iterations else None
+    profiler, first_traced = None, iteration + PROFILE_AFTER + 1
     while iteration < num_iterations:
         iteration += 1
+        if profile_dir and iteration == first_traced - 1 \
+                and first_traced <= num_iterations:
+            profiler = start_trace(state.device)  # this step is its warm-up
+        if profiler is not None and iteration == first_traced:
+            record_trace(profiler, state.device)
         timer.tic()
         state, metrics = train_step(state, batch)
         if iteration < num_iterations:
-            batch = next(batches)  # the host fetch overlaps the device step
+            with scope("next_batch"):
+                batch = next(batches)  # the host fetch overlaps the step
+        if profiler is not None and (
+                iteration == first_traced + PROFILE_STEPS - 1
+                or iteration == num_iterations):
+            path = stop_trace(profiler, profile_dir, state.device)
+            profiler = None
+            logger.info("Profiler trace written to %s (steps %d..%d)", path,
+                        first_traced, iteration)
         log_now = crossed_interval(iteration, log_every)
         if log_now:
             metrics = metrics_to_floats(metrics)
@@ -194,14 +222,17 @@ def _check_supported(_C: Config, _A) -> None:
         raise ValueError(f"Unknown placement {_C.DATA.CACHE_PLACEMENT!r}")
     if use_clusters:
         raise NotImplementedError("the switch to cluster negatives lands "
-                                  "with ROADMAP Queue 1, item 7")
+                                  "with ROADMAP Queue 1, item 7(b)")
     if (_C.MODEL.VISUAL.PRETRAINED and _C.MODEL.VISUAL.PRETRAINED_PATH) or \
             (_C.MODEL.TEXTUAL.PRETRAINED and _C.MODEL.TEXTUAL.PRETRAINED_PATH):
         raise NotImplementedError("pretrained weights from local files land "
-                                  "with ROADMAP Queue 1, item 7")
-    if _A.profile_dir:
-        raise NotImplementedError("--profile-dir's step trace lands with "
-                                  "ROADMAP Queue 1, item 8(b)")
+                                  "with ROADMAP Queue 1, item 7(d)")
+    if _C.DATA.NATIVE_PIPELINE and not _C.DATA.DEVICE_CACHE and (
+            _C.MODEL.VISUAL.SELF_SUPERVISED or _C.MODEL.TEXTUAL.SELF_SUPERVISED):
+        raise NotImplementedError(
+            "DATA.NATIVE_PIPELINE makes no augmented views for the SSL terms "
+            "(the JAX package's native path trains without them): use "
+            "DATA.DEVICE_CACHE for visual SSL, or the Python path")
     if steps_per_call > 1:
         raise NotImplementedError("PARALLEL.STEPS_PER_CALL > 1 (the step "
                                   "as one captured program) lands with "
@@ -271,7 +302,8 @@ def main(_A) -> TrainState:
             log_every=_A.log_every, eval_step=make_eval_step(_C),
             val_batches=val_loader, writer=writer,
             checkpoint_every=_A.checkpoint_every, climax_freq=_A.climax_freq,
-            manager=manager, resume_from=_A.resume_from)
+            manager=manager, resume_from=_A.resume_from,
+            profile_dir=_A.profile_dir)
     finally:
         writer.close()
         if hasattr(batches, "close"):  # the loader's producer thread stops

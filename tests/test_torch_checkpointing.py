@@ -340,7 +340,7 @@ def test_resume_is_bit_for_bit(kind, tmp_path):
     step = train_step
     if kind == "uint8-draws":
         def step(st, batch):
-            return train_step(st, batch, aug_draws=_draws(st.step))
+            return train_step(st, batch, aug_draws={"image": _draws(st.step)})
 
     def source(start):
         if kind == "uint8-cache":

@@ -129,14 +129,16 @@ REFUSALS = {
     "clusters": (["DATA.NEGATIVE_SAMPLING", "clusters"], (), "item 7"),
     "pretrained": (["MODEL.VISUAL.PRETRAINED", True,
                     "MODEL.VISUAL.PRETRAINED_PATH", "r50.npz"], (), "item 7"),
-    "profile_dir": ([], ("--profile-dir", "trace"), r"item 8\(b\)"),
     "steps_per_call": (["PARALLEL.STEPS_PER_CALL", 2], (), r"item 8\(c\)"),
     # The native path runs (tests/test_torch_native.py), on JPEG records
     # only: this corpus holds ndarray images.
     "native_pipeline": (["DATA.NATIVE_PIPELINE", True], (), "JPEG records",
                         TypeError),
     "glove": (["DATA.NAME", "glove"], (), "item 7"),
-    "ssl": (["MODEL.VISUAL.SELF_SUPERVISED", True], (), "item 7"),
+    # SSL runs (tests/test_torch_ssl.py), but not on the native batch path
+    # without the device cache: that path makes no augmented views.
+    "ssl": (["MODEL.VISUAL.SELF_SUPERVISED", True, "DATA.NATIVE_PIPELINE",
+             True], (), "no augmented views"),
     "num_devices": ([], ("--num-devices", "2"), "item 5"),
     "num_hosts": ([], ("--num-hosts", "2"), "item 5"),
     "virtual_devices": ([], ("--virtual-devices", "8"), "item 5"),

@@ -17,6 +17,9 @@ process.
 The native JPEG batch path: crop_resize_flip_u8 against its plain twin
 bit for bit, nvJPEG's tiles within the decode bars of the twin's, and the
 background loader's first losses equal to the foreground loader's.
+The step trace: each hand-written kernel's events in a traced SSL step
+equal its wrapper's launches, inside its wrapper's range; and the SSL
+step through the kernels against the step through their plain twins.
 
 These tests need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  The
 file imports no JAX, so it also runs where JAX is absent:
@@ -980,3 +983,137 @@ def test_background_native_loader_losses_equal_foreground(device, tmp_path):
             flags[2:]
     assert all(np.isfinite(losses[True]))
     assert losses[True] == losses[False]
+
+
+# -- the step trace and the SSL terms on the card ------------------------------
+
+SSL_SMALL = ["MODEL.VISUAL.NETWORK_NAME", "resnet18", "MODEL.VISUAL.WIDTH", 16,
+             "DATA.IMAGE_CROP_SIZE", 64, "MODEL.TEXTUAL.NUM_HIDDEN_LAYERS", 2,
+             "MODEL.TEXTUAL.DROPOUT", 0.0, "MODEL.LOSS.TYPE", "concat",
+             "MODEL.VISUAL.SELF_SUPERVISED", True,
+             "MODEL.TEXTUAL.SELF_SUPERVISED", True]
+
+
+def _ssl_batch(device, b=16, crop=64, s=30):
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def caption():
+        ids = torch.randint(103, 30000, (b, s), device=device, generator=g)
+        lengths = torch.randint(4, s + 1, (b, 1), device=device, generator=g)
+        mask = (torch.arange(s, device=device)[None, :] < lengths).int()
+        return (ids * mask).int(), mask
+
+    image = torch.randint(0, 256, (2, b, crop, crop, 3), device=device,
+                          generator=g, dtype=torch.uint8)
+    (ids, mask), (aug_ids, aug_mask) = caption(), caption()
+    return {"image": image[0], "aug_image": image[1], "input_ids": ids,
+            "attention_mask": mask, "aug_input_ids": aug_ids,
+            "aug_attention_mask": aug_mask}
+
+
+def _counters():
+    return {"K1 attention_fwd": fused_short_attention,
+            "K2 attention_bwd": attention_backward,
+            "K3 normalize_u8": normalize_u8,
+            "K3 augment_normalize_u8": augment_normalize_u8}
+
+
+def test_trace_kernel_events_equal_the_wrappers_launches(device, tmp_path):
+    """Two SSL steps (AMP bf16: the tensor-core route) under the profiler,
+    after one in its warm-up: each hand-written kernel's events in the
+    trace equal its wrapper's launches in those steps, every one inside
+    its wrapper's range (K2's under the forward's scope, then
+    ``backward``), and every launch the trace records has its kernel."""
+    import re
+
+    from clip_lite_torch.utils import trace as T
+
+    cfg = Config(FLAGSHIP, SSL_SMALL)
+    state = create_train_state(cfg, device=device)
+    step = make_train_step(cfg)
+    batch = _ssl_batch(device)
+    state, _ = step(state, batch)
+    counters = _counters()
+
+    def run(n=2):
+        nonlocal state
+        for _ in range(n):
+            state, _ = step(state, batch)
+
+    def warm_up():
+        run(1)
+        for c in counters.values():
+            c.launches = 0
+
+    tr = T.Trace(T.capture_trace(run, str(tmp_path / "t"), device, warm_up))
+    assert tr.lost_launches() == []
+    ops = tr.ops()
+    launches = {k: c.launches for k, c in counters.items()}
+    assert launches == {"K1 attention_fwd": 8, "K2 attention_bwd": 8,
+                        "K3 normalize_u8": 0, "K3 augment_normalize_u8": 4}
+    counts = T.kernel_counts(ops)
+    assert {k: counts[k] for k in launches} == launches
+    for name, rx in T.KERNEL_RANGES.items():
+        for o in ops:
+            if o["category"] == "kernel" and re.search(rx, o["name"]):
+                assert name in o["scope"], (name, o["scope"])
+    scopes = {o["scope"] for o in ops}
+    assert "train_step/text_encoder/backward/K2 attention_bwd" in scopes
+    summary = T.roofline_summary(ops, 2, *T.device_specs(device))
+    assert summary["by_component"].get("unattributed", {"ms": 0})["ms"] \
+        < 0.05 * summary["measured_ms"]
+    assert 0 < summary["busy_ms"] <= summary["window_ms"]
+
+
+def test_ssl_step_kernels_match_twins_on_card(device, monkeypatch):
+    """One SSL step (visual and textual on, concat critics, fp32) through
+    K1/K2 and K3's fused pass: the pass's images of the image and its view
+    against its plain composition on the same draws within 1e-4
+    (chip_smoke.py's FUSED_ATOL), and the step against one through the
+    plain attention fed the same images, from the same state and batch,
+    at chip_smoke.py phase 7's fp32 bars on the loss, the grad norm and
+    every QKV weight gradient."""
+    import clip_lite_torch.ops.image_ops as image_ops
+
+    batch = _ssl_batch(device)
+    made = []
+
+    def recorded(images, draws, flip=True, color_jitter=True):
+        made.append(augment_normalize_u8(images, draws, flip, color_jitter))
+        twin = augment_reference(images, draws, flip, color_jitter)
+        assert (made[-1] - twin).abs().max().item() <= 1e-4
+        return made[-1]
+
+    def replayed(images, draws, flip=True, color_jitter=True):
+        return made.pop(0)
+
+    runs, state_dict = [], None
+    for kernels in (True, False):
+        cfg = Config(FLAGSHIP, SSL_SMALL + [
+            "AMP", False, "MODEL.TEXTUAL.FUSED_ATTENTION",
+            str(kernels).lower()])
+        state = create_train_state(cfg, device=device, state_dict=state_dict)
+        if state_dict is None:
+            state_dict = {k: v.detach().cpu()
+                          for k, v in state.model.state_dict().items()}
+        monkeypatch.setattr(image_ops, "augment_normalize_u8",
+                            recorded if kernels else replayed)
+        for c in _counters().values():
+            c.launches = 0
+        state, metrics = make_train_step(cfg)(state, batch)
+        assert (augment_normalize_u8.launches, fused_short_attention.launches,
+                attention_backward.launches) == ((2, 4, 4) if kernels
+                                                 else (0, 0, 0))
+        layers = state.model.text_encoder.transformer
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     [getattr(layers, n).qkv.weight.grad.clone()
+                      for n in layers.layer_names]))
+    assert made == []
+    (ma, ga), (mb, gb) = runs
+    assert ma["visual_loss"] > 0 and ma["textual_loss"] > 0
+    for k in ("total_loss", "grad_norm"):
+        assert abs(ma[k] - mb[k]) <= 1e-5 * abs(mb[k]), k
+    for x, y in zip(ga, gb):
+        assert ((x - y).abs().max() / y.abs().max()).item() <= 1e-3
+        assert torch.nn.functional.cosine_similarity(
+            x.flatten(), y.flatten(), dim=0).item() >= 0.99999

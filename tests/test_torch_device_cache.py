@@ -160,9 +160,6 @@ def test_memory_bytes_match_jax_at_one_device(dataset, cache):
 
 
 def test_rejects_what_one_card_does_not_do(corpus):
-    with pytest.raises(NotImplementedError):
-        DeviceDataCache(corpus, batch_size=B, cache_size=CACHE, crop_size=CROP,
-                        ssl_aug=True, device="cpu")
     with pytest.raises(ValueError):
         DeviceDataCache(corpus, batch_size=B, cache_size=CACHE,
                         crop_size=CACHE + 1, device="cpu")

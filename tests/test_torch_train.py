@@ -218,7 +218,8 @@ def run_port(reference, train=TRAIN, fused="true"):
     draws = reference.get("draws") or [None] * len(reference["batches"])
     metrics, first_grads = [], None
     for batch, aug in zip(reference["batches"], draws):
-        state, m = step(state, batch, prior_noise=noise, aug_draws=aug)
+        state, m = step(state, batch, prior_noise=noise,
+                        aug_draws=None if aug is None else {"image": aug})
         metrics.append(metrics_to_floats(m))
         if first_grads is None:  # an unused parameter (MPNet's pooler) has none
             first_grads = {n: torch.zeros_like(p) if p.grad is None
