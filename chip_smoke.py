@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 (``--crop-kernel`` runs phases 1, 2 and 10d's crop kernel alone, and
-prints its row; ``--native`` runs phases 1, 2 and 10d alone.)
+prints its row; ``--native`` runs phases 1, 2 and 10d alone;
+``--quality`` phases 1, 2 and 11.)
 
 Phases; any failure raises and exits non-zero, and no phase's error is
 caught:
@@ -243,7 +244,33 @@ caught:
    step the enqueue, busy and idle split, nvJPEG's kernel ms and how much
    of it overlaps the step's kernels, and the host's time blocked in
    synchronisations, (A) beside (A0).
-11. One JSON line listing every kernel (K3's standalone and fused entry
+11. The quality path (the JAX package's quality campaign, cut short):
+   the port's make_synth_data writes the synthetic learnable corpus
+   (512 train and 128 val scenes of 256 px, one zero-shot image a class)
+   and coco_preprocess its records; then the CLI, each run with the
+   counts set to 0 just before and read just after: (N)
+   configs/fs_tpu_tuned.yaml + DATA.DEVICE_CACHE at full width (the cache
+   built through the native decode), 4 steps of 128 and a checkpoint at
+   4; scripts/cluster.py on that checkpoint for both splits (k 2-10, one
+   K1 batch an image); (S) a fresh run of 4 steps that switches to the
+   cluster curriculum inside the run at step 3 (the native batch path's
+   stream closed, the host clustered loaders built); (C) the run resumed
+   at 4 into the cluster curriculum (DATA.NEGATIVE_SAMPLING clusters
+   from iteration 4), 4 steps through the host loader of 64 pairs and 64
+   hard negatives, a val sweep and a checkpoint at 8.  Checks: finite
+   losses and grad norms; (N) K1/K2 12 a step, K3's fused pass one a
+   step, the standalone K3 and the crop kernel in the sweep and the
+   cache's build; cluster.py's K1 one batch an image; (S) 128 pairs a
+   step before the switch and 64 with negatives after, K1/K2 12 then 24
+   launches a step, K3's fused pass and the crop kernel before it; (C)
+   every batch 64 pairs with negatives, K1
+   and K2 24 a step (the pair's and the negatives' BERT passes) and K1
+   24 a val batch; one of (C)'s steps again through K1/K2 and through
+   the plain attention, same state and batch, dropout 0, at phase 7's
+   bars in fp32 and bf16; quality_campaign --families sweep on (C)'s
+   checkpoint prints its JSON.  Prints both runs' step times start to
+   start and the clustering's seconds.
+12. One JSON line listing every kernel (K3's standalone and fused entry
    points each with their own launches, and crop_resize_flip_u8, which
    replaces the JAX core's host C++ and no TPU kernel); then the device
    line last.
@@ -3391,6 +3418,316 @@ def phase_native(float_step: dict, host_step: float) -> dict:
     return out
 
 
+# The quality path (phase 11): the synthetic corpus's size, the steps of
+# each run, the host loader's workers (the campaign's, the CLI's default).
+QUALITY_TRAIN, QUALITY_VAL, QUALITY_STEPS, QUALITY_WORKERS = 512, 128, 4, 4
+
+
+def qkv_grads(state) -> list:
+    """Every BERT layer's QKV weight gradient, fp32, after a step."""
+    layers = state.model.text_encoder.transformer
+    return [getattr(layers, n).qkv.weight.grad.float().clone()
+            for n in layers.layer_names]
+
+
+def phase_quality(float_step: dict) -> dict:
+    """The quality campaign's path at full width, cut short: the port's
+    make_synth_data writes a corpus (QUALITY_TRAIN train and QUALITY_VAL
+    val scenes of 256 px, one zero-shot image a class), coco_preprocess
+    makes its records; then, each CLI run with the counts set to 0 just
+    before and read just after: (N) fs_tpu_tuned through the native decode
+    and the device cache, QUALITY_STEPS steps of BATCH and a checkpoint;
+    scripts/cluster.py on that checkpoint for both splits (k 2-10, a K1
+    batch an image); (S) a fresh run that switches to the cluster
+    curriculum inside the run (DATA.NEGATIVE_SAMPLING clusters from step
+    QUALITY_STEPS // 2 + 1; the native batch path before, the host
+    loader's BATCH / 2 pairs and negatives after, K1/K2 twice a step);
+    (C) the run resumed at QUALITY_STEPS into the cluster
+    curriculum (DATA.NEGATIVE_SAMPLING clusters from QUALITY_STEPS) for
+    QUALITY_STEPS steps through the host loader, BATCH / 2 pairs and as
+    many negatives a step, a val sweep and a checkpoint; one of its steps
+    again through K1/K2 and through the plain attention, same state and
+    batch, dropout 0, fp32 and bf16, at phase 7's bars; quality_campaign
+    --families sweep on (C)'s last checkpoint."""
+    import os
+    import shutil
+    import tempfile
+
+    import clip_lite_torch.train as cli
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data import native
+    from clip_lite_torch.engine import create_train_state, make_train_step
+    from clip_lite_torch.engine import metrics_to_floats
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+    from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
+    from clip_lite_torch.scripts import (
+        cluster, coco_preprocess, make_synth_data, quality_campaign)
+
+    counters = {"attention_fwd": fused_short_attention,
+                "attention_bwd": attention_backward,
+                "normalize": normalize_u8,
+                "augment_normalize": augment_normalize_u8,
+                "crop_resize_flip": native.crop_resize_flip_u8}
+    root = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    synth = os.path.join(root, "synth")
+    real_make_step = cli.make_train_step
+    logger = logging.getLogger("clip_lite_torch")
+    out = {}
+
+    def zero():
+        for k in counters.values():
+            k.launches = 0
+        fused_short_attention.tc_launches = 0
+        attention_backward.tc_launches = 0
+
+    def read() -> dict:
+        got = {n: k.launches for n, k in counters.items()}
+        got.update(attention_fwd_tc=fused_short_attention.tc_launches,
+                   attention_bwd_tc=attention_backward.tc_launches)
+        return got
+
+    try:
+        t0 = time.perf_counter()
+        make_synth_data.main(make_synth_data.parser.parse_args([str(a) for a in (
+            "--output-dir", synth, "--train-n", QUALITY_TRAIN, "--val-n",
+            QUALITY_VAL, "--zeroshot-per-class", 1, "--probe-train-per-class",
+            0, "--voc-trainval", 0, "--voc-test", 0, "--gender-n", 0,
+            "--image-size", 256)]))
+        for split in ("train", "val"):
+            coco_preprocess.main(coco_preprocess.parser.parse_args([
+                "--data-root", os.path.join(synth, "coco"), "--split", split,
+                "--output-dir", os.path.join(synth, "serialized"),
+                "--short-edge", "256"]))
+        out["corpus_s"] = time.perf_counter() - t0
+        log(f"quality: make_synth_data + coco_preprocess, {QUALITY_TRAIN} "
+            f"train and {QUALITY_VAL} val scenes of 256 px and 64 zero-shot "
+            f"images, in {out['corpus_s']} s")
+        sizes = ["DATA.ROOT", os.path.join(synth, "serialized"),
+                 "OPTIM.BATCH_SIZE", BATCH, "OPTIM.WARMUP_STEPS",
+                 QUALITY_STEPS // 2]
+
+        def run(name, steps, extra, resume=None, keep=()):
+            """cli.main over ``extra`` to ``steps`` iterations, the counts
+            set to 0 just before and read just after; every step's start
+            time, image rows and negatives, and the batches of ``keep``."""
+            record = {"t": [], "rows": [], "batches": {}, "k1k2": []}
+
+            def make_step(cfg):
+                step = real_make_step(cfg)
+
+                def recorded(state, batch):
+                    record["t"].append(time.perf_counter())
+                    record["rows"].append((batch["image"].shape[0],
+                                           "neg_image" in batch))
+                    if state.step + 1 in keep:  # host batches: no sync
+                        record["batches"][state.step + 1] = batch
+                    k1, k2 = (fused_short_attention.launches,
+                              attention_backward.launches)
+                    result = step(state, batch)
+                    record["k1k2"].append(
+                        (fused_short_attention.launches - k1,
+                         attention_backward.launches - k2))
+                    return result
+                return recorded
+
+            args = cli.parser.parse_args([str(a) for a in (
+                "--config", TUNED, "--serialization-dir",
+                os.path.join(root, name), "--checkpoint-every", QUALITY_STEPS,
+                "--log-every", 1, "--cpu-workers", QUALITY_WORKERS,
+                *(("--resume-from", resume) if resume else ()),
+                "--config-override", *sizes, "OPTIM.NUM_ITERATIONS", steps,
+                *extra)])
+            cli.make_train_step = make_step
+            zero()
+            t0 = time.perf_counter()
+            try:
+                state = cli.main(args)
+                torch.cuda.synchronize()
+            finally:
+                cli.make_train_step = real_make_step
+            record["wall"] = time.perf_counter() - t0
+            record["launches"] = read()
+            record["metrics"] = [json.loads(line) for line in open(
+                os.path.join(root, name, "metrics.jsonl"))]
+            record["checkpoint"] = os.path.join(
+                args.serialization_dir + Config(
+                    args.config, list(args.config_override)).RUN_ID,
+                f"checkpoint_{steps}.msgpack")
+            t = record["t"]
+            record["step_s"] = [b - a for a, b in zip(t[1:], t[2:])]
+            log(f"quality ({name}): to step {state.step} in {record['wall']} "
+                f"s; launches {record['launches']}; step times start to "
+                f"start {record['step_s']}; metrics "
+                f"{json.dumps(record['metrics'])}")
+            if not record["metrics"] or not all(
+                    math.isfinite(m["total_loss"]) and math.isfinite(
+                        m.get("grad_norm", 0.0)) for m in record["metrics"]):
+                raise AssertionError(f"({name}) loss or grad norm not finite")
+            if not os.path.exists(record["checkpoint"]):
+                raise AssertionError(f"({name}) wrote no {record['checkpoint']}")
+            return state, record
+
+        def expect(name, cfg, record, want):
+            got = {k: record["launches"][k] for k in counters}
+            if got != dict(dict.fromkeys(counters, 0), **want):
+                raise AssertionError(f"({name}) launches {got}, expected {want}")
+            check_routes(cfg, cfg.DATA.MAX_CAPTION_LENGTH, record["launches"])
+
+        # (N) The normal phase through the native decode and the cache.
+        n_extra = ["DATA.DEVICE_CACHE", True]
+        cfg_n = Config(str(TUNED), sizes + n_extra)
+        layers = cfg_n.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
+        state_n, rec_n = run("normal", QUALITY_STEPS, n_extra)
+        crops = rec_n["launches"]["crop_resize_flip"]
+        if crops < 2:  # the cache's build and the val sweep decode
+            raise AssertionError(f"(normal) crop kernel launched {crops} times")
+        expect("normal", cfg_n, rec_n, dict(
+            attention_fwd=layers * (QUALITY_STEPS + 1),
+            attention_bwd=layers * QUALITY_STEPS,
+            augment_normalize=QUALITY_STEPS, normalize=1,
+            crop_resize_flip=crops))
+        out["normal"] = dict(rec_n["launches"], step_s=rec_n["step_s"],
+                             wall_s=rec_n["wall"])
+        del state_n
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # scripts/cluster.py on (N)'s checkpoint, both splits.
+        zero()
+        out["clustering"] = {}
+        for split in ("train", "val"):
+            out["clustering"][split] = cluster.main(cluster.parser.parse_args([
+                "--coco-root", os.path.join(synth, "coco"), "--split", split,
+                "--output-dir", os.path.join(synth, "clusters"),
+                "--min-clusters", "2", "--max-clusters", "10",
+                "--pretrain-config",
+                os.path.join(root, "normal", "pretrain_config.yaml"),
+                "--checkpoint-path", rec_n["checkpoint"]]))
+        embed = read()
+        if embed["attention_fwd"] != layers * (QUALITY_TRAIN + QUALITY_VAL):
+            raise AssertionError(f"cluster.py: K1 {embed['attention_fwd']}, "
+                                 "expected a batch an image")
+        out["embed_launches"] = embed["attention_fwd"]
+        log(f"quality: cluster.py, {QUALITY_TRAIN} + {QUALITY_VAL} images "
+            f"encoded one a call (K1 {embed['attention_fwd']} launches), "
+            f"k 2-10: {json.dumps(out['clustering'])}")
+
+        clustered = ["DATA.NEGATIVE_SAMPLING", "clusters",
+                     "DATA.CLUSTER_PATH", os.path.join(synth, "clusters"),
+                     "DATA.COCO_ROOT", os.path.join(synth, "coco")]
+        val_batches = QUALITY_VAL // (BATCH // 2)
+
+        # (S) A fresh run that switches inside the run: the native batch
+        # path's stream closed, the host clustered loaders built.
+        before = QUALITY_STEPS // 2
+        s_extra = clustered + ["DATA.NEGATIVE_SAMPLING_START_ITERATION",
+                               before + 1]
+        cfg_s = Config(str(TUNED), sizes + s_extra)
+        state_s, rec_s = run("switched", QUALITY_STEPS, s_extra)
+        after = QUALITY_STEPS - before
+        if rec_s["rows"] != [(BATCH, False)] * before + [
+                (BATCH // 2, True)] * after or rec_s["k1k2"] != [
+                (layers, layers)] * before + [(2 * layers, 2 * layers)] * after:
+            raise AssertionError(f"(switched) batches {rec_s['rows']}, K1/K2 "
+                                 f"a step {rec_s['k1k2']}")
+        crops = rec_s["launches"]["crop_resize_flip"]
+        if crops < before:  # a decoded batch a step before the switch
+            raise AssertionError(f"(switched) crop kernel launched {crops} "
+                                 "times")
+        expect("switched", cfg_s, rec_s, dict(
+            attention_fwd=layers * before + 2 * layers * (after + val_batches),
+            attention_bwd=layers * before + 2 * layers * after,
+            augment_normalize=before, crop_resize_flip=crops))
+        out["switched"] = dict(rec_s["launches"], step_s=rec_s["step_s"],
+                               wall_s=rec_s["wall"], k1k2=rec_s["k1k2"])
+        log(f"quality: the switch inside a run at step {before + 1}: "
+            f"image rows {rec_s['rows']}, K1/K2 a step {rec_s['k1k2']}")
+        del state_s
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (C) Resumed into the cluster curriculum through the host loader.
+        c_extra = clustered + ["DATA.NEGATIVE_SAMPLING_START_ITERATION",
+                               QUALITY_STEPS]
+        cfg_c = Config(str(TUNED), sizes + c_extra)
+        first = QUALITY_STEPS + 1
+        state_c, rec_c = run("clusters", 2 * QUALITY_STEPS, c_extra,
+                             resume=rec_n["checkpoint"], keep=(first,))
+        if rec_c["rows"] != [(BATCH // 2, True)] * QUALITY_STEPS or \
+                rec_c["k1k2"] != [(2 * layers, 2 * layers)] * QUALITY_STEPS:
+            raise AssertionError(f"(clusters) batches {rec_c['rows']}, K1/K2 "
+                                 f"a step {rec_c['k1k2']}")
+        expect("clusters", cfg_c, rec_c, dict(
+            attention_fwd=2 * layers * (QUALITY_STEPS + val_batches),
+            attention_bwd=2 * layers * QUALITY_STEPS))
+        out["clusters"] = dict(rec_c["launches"], step_s=rec_c["step_s"],
+                               wall_s=rec_c["wall"])
+        log(f"quality: the cluster steps through the host loader "
+            f"({QUALITY_WORKERS} workers, {BATCH // 2} pairs + {BATCH // 2} "
+            f"negatives): {rec_c['step_s']} s start to start, K1/K2 "
+            f"{2 * layers} a step; the cache steps {rec_n['step_s']} s; "
+            f"phase 6's step {float_step['step_s']} s")
+
+        # One cluster step through K1/K2 against the plain attention.
+        batch = rec_c["batches"][first]
+        state_dict = {k: v.detach().clone()
+                      for k, v in state_c.model.state_dict().items()}
+        del state_c
+        gc.collect()
+        runs = {}
+        for kind in ("float32", "bfloat16"):
+            for flag in ("true", "false"):
+                cfg = Config(str(TUNED), sizes + c_extra + [
+                    "MODEL.TEXTUAL.DROPOUT", 0.0, "AMP", kind != "float32",
+                    "MODEL.TEXTUAL.FUSED_ATTENTION", flag])
+                state = create_train_state(cfg, device="cuda",
+                                           state_dict=state_dict)
+                state, metrics = make_train_step(cfg)(state, batch)
+                runs[kind, flag] = (metrics_to_floats(metrics), qkv_grads(state))
+                del state
+                torch.cuda.empty_cache()
+        out["parity"] = {}
+        for kind in ("float32", "bfloat16"):
+            got = parity(runs[kind, "true"], runs[kind, "false"])
+            log(f"quality: cluster step {kind}, K1/K2 vs plain attention: "
+                f"{got} (tol {PARITY_TOL[kind]})")
+            if not within(got, PARITY_TOL[kind]):
+                raise AssertionError(f"cluster step {kind}: parity fails: {got}")
+            out["parity"][kind] = got
+        del runs, state_dict, batch, rec_c
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # quality_campaign's sweep on (C)'s last checkpoint (its CLIs are
+        # processes of their own, on the card).
+        t0 = time.perf_counter()
+        result = quality_campaign.main(quality_campaign.parser.parse_args([
+            "--run-dir", os.path.join(root, "clusters"), "--synth-root", synth,
+            "--output", os.path.join(root, "quality.json"), "--work-dir",
+            os.path.join(root, "campaign"), "--families", "sweep",
+            "--retrieval-checkpoints", "1"]))
+        out["campaign_s"] = time.perf_counter() - t0
+        entry = result["checkpoints"].get(str(2 * QUALITY_STEPS), {})
+        if result.get("failures") or not (
+                0 <= entry["retrieval"]["r_mean"] <= 100
+                and 0 <= entry["zero_shot"]["zero_shot_top1"] <= 100):
+            raise AssertionError(f"quality_campaign: {json.dumps(result)}")
+        out["campaign"] = entry
+        log(f"quality: quality_campaign --families sweep in "
+            f"{out['campaign_s']} s: {json.dumps(result)}")
+    finally:
+        cli.make_train_step = real_make_step
+        for handler in logger.handlers:  # the CLI's, into the directory
+            handler.close()
+        logger.handlers.clear()
+        logger.propagate = True
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def state_tensors(state) -> dict:
     """Copies of every tensor of a train state: parameters, BatchNorm
     statistics, the optimizer's trace and slow weights."""
@@ -3755,6 +4092,9 @@ def main() -> int:
         help="run phases 1, 2 and 10d (the native batch path and its "
              "traced CLI runs) alone")
     parser.add_argument(
+        "--quality", action="store_true",
+        help="run phases 1, 2 and 11 (the quality path) alone")
+    parser.add_argument(
         "--crop-kernel", action="store_true",
         help="build decode_crop.cu, check and time crop_resize_flip_u8 alone "
              "on phase 10d's records and print its row, nothing else (to "
@@ -3776,6 +4116,10 @@ def main() -> int:
     if args.native:
         phase_build()
         phase_native({"step_s": None}, None)
+        return 0
+    if args.quality:
+        phase_build()
+        phase_quality({"step_s": None})
         return 0
     phase_build()
     phase_attention()
@@ -3800,6 +4144,7 @@ def main() -> int:
     data = phase_data_cli(training)
     nat = phase_native(training, data["a"]["step_s"])
     evals = phase_eval_cli()
+    quality = phase_quality(training)
     cli = {"cli_host_loader": data["a"]["launches"],
            "cli_resumed": data["c"]["launches"],
            "cli_device_cache": data["b"]["launches"],
@@ -3825,26 +4170,44 @@ def main() -> int:
                    **{k: n["attention_fwd"] for k, n in cli.items()},
                    "cli_bundle": data["bundle_launches"],
                    **{f"eval_{k}": n for k, n in evals["launches"].items()
-                      if n}}
+                      if n},
+                   "quality_cache_training": quality["normal"]["attention_fwd"],
+                   "quality_cluster_embed": quality["embed_launches"],
+                   "quality_switched_training":
+                       quality["switched"]["attention_fwd"],
+                   "quality_cluster_training":
+                       quality["clusters"]["attention_fwd"]}
     k2_launches = {"training": training["launches"]["attention_bwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"],
                    **{k: n["K2 attention_bwd"] for k, n in by_range.items()},
                    **{k: n["attention_bwd"] for k, n in by_run.items()
                       if n["attention_bwd"]},
-                   **{k: n["attention_bwd"] for k, n in cli.items()}}
+                   **{k: n["attention_bwd"] for k, n in cli.items()},
+                   "quality_cache_training": quality["normal"]["attention_bwd"],
+                   "quality_switched_training":
+                       quality["switched"]["attention_bwd"],
+                   "quality_cluster_training":
+                       quality["clusters"]["attention_bwd"]}
     k3_fused_launches = {
         "uint8_training": uint8["launches"]["augment_normalize"],
         "ssl_visual_training": ssl["launches"]["K3 augment_normalize_u8"],
         **{k: n["augment_normalize"] for k, n in by_run.items()
            if n["augment_normalize"]},
         **{k: n["augment_normalize"] for k, n in cli.items()
-           if n["augment_normalize"]}}
+           if n["augment_normalize"]},
+        "quality_cache_training": quality["normal"]["augment_normalize"],
+        "quality_switched_native": quality["switched"]["augment_normalize"]}
     k3_launches = {"uint8_eval": uint8["launches"]["normalize"],
                    **{k: n["normalize"] for k, n in cli.items()
-                      if n["normalize"]}}
+                      if n["normalize"]},
+                   "quality_cache_eval": quality["normal"]["normalize"]}
     crop_launches = {k: n["crop_resize_flip"] for k, n in cli.items()
                      if n.get("crop_resize_flip")}
+    crop_launches["quality_cache_build_and_eval"] = \
+        quality["normal"]["crop_resize_flip"]
+    crop_launches["quality_switched_native"] = \
+        quality["switched"]["crop_resize_flip"]
     s20 = uint8["attention_s20"]
     timed = ("ms", "ms_device", "ms_cuda_core", "ms_cuda_core_device",
              "library_ms", "library_ms_device")

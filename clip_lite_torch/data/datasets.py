@@ -22,9 +22,11 @@ also holds its augmented views for the SSL terms, as the JAX package's
 same image, and ``aug_input_ids``/``aug_attention_mask``, another caption
 of the same image.
 
-Not here yet, each raising with its item of ROADMAP Queue 1: the ``glove``
-and ``sbert`` modes (item 7(c)) and the clustered hard negatives (item
-7(b)).
+``CocoCaptionsClusteredDataset`` pairs each item with a hard negative
+from its caption cluster, for the training CLI's cluster curriculum.
+
+Not here yet, raising with their item of ROADMAP Queue 1: the ``glove``
+and ``sbert`` modes (item 7(c)).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import glob
 import json
 import os
 import pickle
+import threading
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -335,20 +338,137 @@ class CocoCaptionsDataset(CaptionDatasetBase):
         return out
 
 
-def _pending(name: str, why: str) -> type:
-    """A dataset class of the JAX package that the port does not have yet:
-    constructing it raises ``NotImplementedError`` with ``why``."""
+class CocoCaptionsClusteredDataset(CaptionDatasetBase):
+    """Curriculum hard negatives from k-means clusters of the captions
+    (``scripts/cluster.py``), the counterpart of the JAX package's
+    ``CocoCaptionsClusteredDataset``: each item pairs a record of the
+    CLRec split with a random other image of the same cluster and one of
+    its captions, ``neg_image``, ``neg_input_ids``, ``neg_attention_mask``.
+    The number of clusters follows the training iteration (the loader's
+    ``set_iteration``): from the fewest available at
+    ``negative_sampling_start_iter`` to the most at ``total_iters``, the
+    ``k`` of ``img_id_cluster_map_{split}_{k}.pkl`` nearest to the
+    schedule.  The negative's image is read from ``coco_root`` with the
+    port's ``read_image``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name}: {why}")
+    Items equal the JAX dataset's draw for draw.  Where the JAX dataset
+    rebuilds its cluster maps in place on whichever loader thread sees the
+    new ``k``, this one builds them aside and swaps them in under a lock,
+    so that no concurrent item draws from a half-built member list; and a
+    cluster of one image raises, where the JAX loop would spin for ever
+    looking for another member."""
 
-    return type(name, (Dataset,), {"__init__": __init__,
-                                   "__doc__": f"Not ported yet: {why}."})
+    def __init__(self, data_root: str, split: str = "train",
+                 total_iters: int = 500000,
+                 negative_sampling_start_iter: int = 250000,
+                 cluster_path: str = "", coco_root: str = "",
+                 percentage: float = 100.0, **kw):
+        kw.pop("visual_self_supervised", None)
+        kw.pop("textual_self_supervised", None)
+        super().__init__(**kw)
+        path = os.path.join(data_root, f"coco_{split}_{self.mode}2017.clrec")
+        self.reader = CocoCaptionsRecordReader(path, percentage=percentage)
+        self.split = split
+        self.cluster_path = cluster_path
+        self.coco_root = coco_root
+        self.total_iters = total_iters
+        self.negative_sampling_start_iter = negative_sampling_start_iter
+        self.iter_num = 0
+        self.current_cluster_num = -1
+        self.cluster_options = self._scan_cluster_options()
+        self._lock = threading.Lock()
+        # (image id -> cluster, cluster -> member image ids), swapped whole.
+        self._maps: Tuple[Dict[int, int], Dict[int, List[int]]] = ({}, {})
+        self._img_id_caption_map: Optional[dict] = None
+        self._img_id_filename_map: Optional[dict] = None
 
+    def _scan_cluster_options(self) -> List[int]:
+        options = [int(f.split("_")[-1].replace(".pkl", ""))
+                   for f in (os.listdir(self.cluster_path)
+                             if os.path.isdir(self.cluster_path) else ())
+                   if f"img_id_cluster_map_{self.split}" in f]
+        if not options:
+            raise FileNotFoundError(
+                f"No img_id_cluster_map_{self.split}_*.pkl under "
+                f"{self.cluster_path!r} (run scripts/cluster.py first)")
+        return sorted(options)
 
-CocoCaptionsClusteredDataset = _pending(
-    "CocoCaptionsClusteredDataset",
-    "the clustered hard negatives land with ROADMAP Queue 1, item 7(b)")
+    def set_iteration(self, iteration: int) -> None:
+        self.iter_num = iteration
+
+    def cluster_num(self, iteration: int) -> int:
+        """The number of clusters of the schedule at ``iteration``."""
+        span = self.total_iters - self.negative_sampling_start_iter
+        frac = (iteration - self.negative_sampling_start_iter) / max(1, span)
+        pred = max(self.cluster_options) * frac
+        return min(self.cluster_options, key=lambda x: abs(x - pred))
+
+    def _load_pickle(self, name: str):
+        with open(os.path.join(self.cluster_path, name), "rb") as f:
+            return pickle.load(f)
+
+    def _current_maps(self) -> Tuple[Dict[int, int], Dict[int, List[int]]]:
+        """The cluster maps for the current iteration, loaded and swapped
+        in (under the lock) when its number of clusters changed."""
+        num = self.cluster_num(self.iter_num)
+        if num != self.current_cluster_num:
+            with self._lock:
+                if num != self.current_cluster_num:
+                    if self._img_id_caption_map is None:
+                        self._img_id_caption_map = self._load_pickle(
+                            f"img_id_caption_map_{self.split}.pkl")
+                        self._img_id_filename_map = self._load_pickle(
+                            f"img_id_filename_map_{self.split}.pkl")
+                    cluster_map = self._load_pickle(
+                        f"img_id_cluster_map_{self.split}_{num}.pkl")
+                    members: Dict[int, List[int]] = defaultdict(list)
+                    for img_id, cluster in cluster_map.items():
+                        members[cluster].append(img_id)
+                    self._maps = (cluster_map, dict(members))
+                    self.current_cluster_num = num
+        return self._maps
+
+    def __len__(self):
+        return len(self.reader)
+
+    def __getitem__(self, idx: int):
+        rng = self._rng(idx)
+        cluster_map, cluster_members = self._current_maps()
+        rec = self.reader[idx]
+        image_id, image, captions = (rec["image_id"], rec["image"],
+                                     rec["captions"])
+        caption = captions[0] if self.use_single_caption else \
+            captions[int(rng.integers(len(captions)))]
+
+        # The hard negative: another image of the same caption cluster.
+        members = cluster_members[cluster_map[image_id]]
+        if len(members) < 2:
+            raise ValueError(f"image {image_id} is alone in its cluster of "
+                             f"{self.current_cluster_num}: no negative")
+        neg_image_id = image_id
+        while neg_image_id == image_id:
+            neg_image_id = members[int(rng.integers(len(members)))]
+        neg_image = read_image(os.path.join(
+            self.coco_root, self._img_id_filename_map[neg_image_id]))
+        neg_captions = self._img_id_caption_map[neg_image_id]
+        neg_caption = neg_captions[int(rng.integers(len(neg_captions)))]
+
+        pos = self.image_transform(image=image, caption=caption, rng=rng)
+        neg = self.image_transform(image=neg_image, caption=neg_caption,
+                                   rng=rng)
+        pos_c = self.caption_transform(caption=pos["caption"],
+                                       rng=rng)["caption"]
+        neg_c = self.caption_transform(caption=neg["caption"],
+                                       rng=rng)["caption"]
+        ids, mask = self._tokenize(pos_c)
+        nids, nmask = self._tokenize(neg_c)
+        return {
+            "image_id": np.int64(image_id),
+            "image": np.asarray(pos["image"], np.float32),
+            "input_ids": ids, "attention_mask": mask,
+            "neg_image": np.asarray(neg["image"], np.float32),
+            "neg_input_ids": nids, "neg_attention_mask": nmask,
+        }
 
 
 # ---------------------------------------------------------------------------

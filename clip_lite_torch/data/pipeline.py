@@ -170,6 +170,13 @@ class DataLoader:
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
 
+    def set_iteration(self, iteration: int) -> None:
+        """Tell the dataset (one with ``set_iteration``, as the clustered
+        one's curriculum needs) which training iteration the next batch
+        is for."""
+        if hasattr(self.dataset, "set_iteration"):
+            self.dataset.set_iteration(iteration)
+
     def _epoch_order(self) -> np.ndarray:
         n = len(self.dataset)
         if not self.shuffle:
@@ -277,6 +284,8 @@ def _stream(loader: DataLoader, background: bool, endless: bool,
                     loader.set_epoch(iteration // per_epoch)
                 for idxs in loader._batches(iteration % per_epoch
                                             if endless else 0):
+                    if endless:
+                        loader.set_iteration(iteration)
                     yield loader._load_batch(idxs, pool)
                     iteration += 1
                 if not endless:
@@ -298,7 +307,9 @@ def infinite_batches(loader: DataLoader,
     epoch N // len(loader), batch N % len(loader).  With
     ``loader.background`` a background thread fills a
     ``loader.prefetch``-deep queue, so that batches N+1 .. N+prefetch load
-    while the card runs step N."""
+    while the card runs step N.  Before it loads each batch, the producer
+    calls ``loader.set_iteration`` with the iteration the batch is for
+    (the clustered dataset's curriculum reads it), in both modes."""
     return _stream(loader, loader.background, endless=True,
                    start_iteration=start_iteration)
 

@@ -18,8 +18,8 @@ A batch whose ``image`` is uint8 (the device-resident cache's, or a
 uint8 host pipeline's) gets its augmentation on the device inside the
 step, as the JAX package's ``_maybe_device_preprocess`` gives it: flip,
 colour jitter and the normalize (K3) in training, the normalize alone in
-eval; a uint8 ``aug_image`` (the visual SSL view) the same, with draws of
-its own.
+eval; a uint8 ``neg_image`` (a hard negative) and ``aug_image`` (the
+visual SSL view) the same, with draws of their own.
 
 The train step opens the ``train_step``, ``device_preprocess`` and
 ``backward`` ranges of a trace (``utils/trace.py``) while a profiler
@@ -149,15 +149,14 @@ def _maybe_device_preprocess(batch: Dict[str, torch.Tensor], rng: StepRNG,
                              train: bool,
                              aug_draws: Optional[Dict[str, AugDraws]] = None
                              ) -> Dict[str, torch.Tensor]:
-    """A uint8 ``image`` and ``aug_image`` each get flip, colour jitter and
-    the normalize in training, the normalize alone in eval
-    (``engine.py:69-81`` of the JAX package).  Each key's draws are its
-    own: from ``aug_draws`` (:class:`AugDraws` by key) where it has them,
-    else drawn from ``rng``, ``image``'s first.  Keyed on the dtype; float32 images pass as they
-    are.  ``neg_image`` is refused by the model (ROADMAP Queue 1, item
-    7(b))."""
+    """A uint8 ``image``, ``neg_image`` and ``aug_image`` each get flip,
+    colour jitter and the normalize in training, the normalize alone in
+    eval (``engine.py:69-81`` of the JAX package).  Each key's draws are
+    its own: from ``aug_draws`` (:class:`AugDraws` by key) where it has
+    them, else drawn from ``rng`` in that order of keys.  Keyed on the
+    dtype; float32 images pass as they are."""
     out = dict(batch)
-    for key in ("image", "aug_image"):
+    for key in ("image", "neg_image", "aug_image"):
         image = out.get(key)
         if image is None or image.dtype != torch.uint8:
             continue
@@ -176,8 +175,10 @@ def make_train_step(config: Config) -> Callable:
 
     ``batch`` holds ``image`` (B, H, W, 3), float32 and normalized or
     uint8 (augmented and normalized in the step), and ``input_ids``,
-    ``attention_mask`` (B, L), as numpy arrays or tensors, and for the SSL
-    terms ``aug_image`` and ``aug_input_ids``/``aug_attention_mask``;
+    ``attention_mask`` (B, L), as numpy arrays or tensors, for the cluster
+    curriculum ``neg_image`` and ``neg_input_ids``/``neg_attention_mask``,
+    and for the SSL terms ``aug_image`` and
+    ``aug_input_ids``/``aug_attention_mask``;
     ``prior_noise`` optionally replaces the prior terms' draws and
     ``aug_draws`` the uint8 images' augmentation draws (``AugDraws`` by
     key).  The metrics are 0-d device tensors (reading one waits for the

@@ -225,12 +225,36 @@ class PretrainingDatasetFactory:
 
 
 class NegativeSamplingDatasetFactory:
-    """The clustered hard-negative datasets (ROADMAP Queue 1, item 7(b))."""
+    """The clustered hard-negative dataset of DATA.NEGATIVE_SAMPLING
+    ``clusters``: DATA.CLUSTER_PATH's cluster maps over DATA.ROOT's CLRec
+    split, negatives' images under DATA.COCO_ROOT, the number of clusters
+    scheduled from DATA.NEGATIVE_SAMPLING_START_ITERATION to
+    OPTIM.NUM_ITERATIONS.  As in the JAX package it takes no
+    DATA.SEQ_BUCKETS: its captions keep DATA.MAX_CAPTION_LENGTH."""
 
     @classmethod
     def from_config(cls, config: Config, split: str = "train"):
-        raise NotImplementedError(
-            "cluster negative sampling lands with ROADMAP Queue 1, item 7(b)")
+        from clip_lite_torch.data import datasets
+
+        _C = config
+        if _C.DATA.NEGATIVE_SAMPLING != "clusters":
+            raise KeyError(
+                f"Unknown negative sampling {_C.DATA.NEGATIVE_SAMPLING!r}")
+        return datasets.CocoCaptionsClusteredDataset(
+            data_root=_C.DATA.ROOT,
+            split=split,
+            mode=_C.DATA.NAME,
+            tokenizer_name=_C.MODEL.TEXTUAL.NETWORK_NAME,
+            vocab_size=_C.MODEL.TEXTUAL.VOCAB_SIZE,
+            total_iters=_C.OPTIM.NUM_ITERATIONS,
+            negative_sampling_start_iter=(
+                _C.DATA.NEGATIVE_SAMPLING_START_ITERATION),
+            cluster_path=_C.DATA.CLUSTER_PATH,
+            use_single_caption=_C.DATA.USE_SINGLE_CAPTION,
+            coco_root=_C.DATA.COCO_ROOT,
+            max_caption_length=_C.DATA.MAX_CAPTION_LENGTH,
+            image_transform=_build_transform_pipeline(_C, split),
+        )
 
 
 class DownstreamDatasetFactory:

@@ -1,7 +1,7 @@
 """VLInfoModel: the image tower, the text tower and the JSD loss, with
-the training forward (the loss dict, the augmented views' passes for the
-SSL terms included) and the encoding and projection API the downstream
-evals use.  The forward opens the ``image_encoder``, ``text_encoder`` and
+the training forward (the loss dict, the hard negatives' passes and the
+augmented views' passes for the SSL terms included) and the encoding and
+projection API the downstream evals use.  The forward opens the ``image_encoder``, ``text_encoder`` and
 ``loss`` ranges of a step's trace (``utils/trace.py``)."""
 
 from __future__ import annotations
@@ -33,22 +33,27 @@ class VLInfoModel(nn.Module):
         """``{"loss", "loss_components"}`` for a batch of ``image``
         (B, H, W, 3), ``input_ids`` and ``attention_mask`` (B, L), the
         components detached (``models/model.py:29-70`` of the JAX
-        package).  An ``aug_image`` goes through the image tower and
-        ``aug_input_ids``/``aug_attention_mask`` through the text tower, in
-        that order after the pair, for the SSL terms; in training each pass
-        moves the image tower's BatchNorm statistics, as flax moves them.
+        package).  After the pair, a ``neg_image`` goes through the image
+        tower and ``neg_input_ids``/``neg_attention_mask`` through the text
+        tower (the cluster curriculum's hard negatives), then an
+        ``aug_image`` and ``aug_input_ids``/``aug_attention_mask`` (the SSL
+        views), in that order; in training each pass moves the image
+        tower's BatchNorm statistics, as flax moves them.
         Norms and dropout follow the module's training mode; ``rng`` is the
         step's draws, ``prior_noise`` an optional replacement for the prior
         terms' noise."""
-        neg = sorted(k for k in batch if k.startswith("neg_"))
-        if neg:
-            raise NotImplementedError(
-                f"batch keys {neg}: hard negatives land with the cluster "
-                "curriculum (ROADMAP Queue 1, item 7(b))")
         with scope("image_encoder"):
             image_features = self.image_encoder(batch["image"])
         with scope("text_encoder"):
             text_features = self.text_encoder(batch, rng=rng)
+        neg_image_features = neg_text_features = None
+        if "neg_input_ids" in batch:
+            with scope("image_encoder"):
+                neg_image_features = self.image_encoder(batch["neg_image"])
+            with scope("text_encoder"):
+                neg_text_features = self.text_encoder(
+                    {"input_ids": batch["neg_input_ids"],
+                     "attention_mask": batch["neg_attention_mask"]}, rng=rng)
         aug_image_features = aug_text_features = None
         if "aug_image" in batch:
             with scope("image_encoder"):
@@ -60,6 +65,8 @@ class VLInfoModel(nn.Module):
                      "attention_mask": batch["aug_attention_mask"]}, rng=rng)
         with scope("loss"):
             components = self.loss(image_features, text_features,
+                                   neg_image_features=neg_image_features,
+                                   neg_text_features=neg_text_features,
                                    aug_image_features=aug_image_features,
                                    aug_text_features=aug_text_features,
                                    prior_noise=prior_noise, rng=rng)

@@ -3,10 +3,10 @@
 The counterpart of the JAX package's ``ops/loss.py``.  The projection
 heads (``MILinearBlock``) live inside the loss, because every downstream
 eval projects through ``loss.global_d.{img_block, text_block}``.  The
-objective is ported in its normal mode with the four critic types
-(``dot``, ``concat``, ``condot``, ``dotcon``), both priors and the visual
-and textual self-supervised terms; cluster mode raises (ROADMAP Queue 1,
-item 7(b)).  All critic math (normalize, softplus, log) runs in float32
+objective is ported whole: the normal and the cluster mode (hard
+negatives), the four critic types (``dot``, ``concat``, ``condot``,
+``dotcon``), both priors and the visual and textual self-supervised
+terms.  All critic math (normalize, softplus, log) runs in float32
 whatever the compute type of the projections.
 """
 
@@ -145,8 +145,8 @@ def _critic(kind: str, dim1: int, dim2: int,
 
 
 class JSDInfoMaxLoss(nn.Module):
-    """JSD InfoMax objective, normal mode, with optional image and text
-    priors and self-supervised terms:
+    """JSD InfoMax objective, in the normal or the cluster mode, with
+    optional image and text priors and self-supervised terms:
 
         total = (1 - prior_weight) * (cross_modal + visual + textual)
               + prior_weight * prior
@@ -156,7 +156,8 @@ class JSDInfoMaxLoss(nn.Module):
     ``textual_d`` (caption against another caption), each a
     :class:`GlobalDiscriminatorDot` or a :class:`GlobalDiscriminator`
     (:data:`CRITICS`).  Negatives pair each item with the next one in the
-    batch (:func:`roll_shifted_left`), the augmented features' too."""
+    batch (:func:`roll_shifted_left`), the augmented features' too; in
+    cluster mode the hard negatives' captions join them."""
 
     def __init__(self, image_dim: int, text_dim: int, critic_type: str = "dot",
                  prior_weight: float = 0.1,
@@ -195,14 +196,18 @@ class JSDInfoMaxLoss(nn.Module):
 
         ``prior_noise``: optional ``{"image": ..., "text": ...}`` U[0, 1)
         inputs of the prior terms, shaped as the features; by default
-        drawn from ``rng``, the step's generator.  ``aug_image_features``
-        and ``aug_text_features`` (the towers' features of the augmented
-        views) add the visual and textual terms.
+        drawn from ``rng``, the step's generator.  ``neg_image_features``
+        and ``neg_text_features`` (the hard negatives' features) put the
+        cross-modal term in cluster mode (``ops/loss.py:247-263`` of the
+        JAX package): its positive part over the pairs and the negatives'
+        own pairs, its negative part pairing every image with the
+        negatives' captions and the pairs' captions rolled by one.
+        ``aug_image_features`` and ``aug_text_features`` (the towers'
+        features of the augmented views) add the visual and textual terms.
         """
-        if neg_image_features is not None or neg_text_features is not None:
-            raise NotImplementedError(
-                "cluster-mode negatives land with the cluster curriculum "
-                "(ROADMAP Queue 1, item 7(b))")
+        if (neg_image_features is None) != (neg_text_features is None):
+            raise ValueError("cluster mode needs both neg_image_features and "
+                             "neg_text_features")
         zero = image_features.new_zeros((), dtype=torch.float32)
         prior_total = zero
         for key, critic, feats in (("image", self.prior_d, image_features),
@@ -221,8 +226,15 @@ class JSDInfoMaxLoss(nn.Module):
             prior_total = prior_total - (term_a + term_b)
 
         text_prime = roll_shifted_left(text_features, self.negatives)
-        cross_modal = _jsd_pair_terms(self.global_d, image_features,
-                                      text_features, text_prime)
+        if neg_text_features is None:
+            cross_modal = _jsd_pair_terms(self.global_d, image_features,
+                                          text_features, text_prime)
+        else:
+            image_all = torch.cat([image_features, neg_image_features])
+            cross_modal = _jsd_pair_terms(
+                self.global_d, image_all,
+                torch.cat([text_features, neg_text_features]),
+                torch.cat([neg_text_features, text_prime]))
         # The SSL terms, in the JAX package's order (``ops/loss.py:265-280``).
         ssl = {}
         for key, critic, feats, aug in (

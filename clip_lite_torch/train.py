@@ -4,7 +4,12 @@ trains on one card (``--device cpu`` for the CPU) from CLRec records
 through the host loader (with ``DATA.NATIVE_PIPELINE``, JPEG records
 decoded on the card a batch at a time) or, with ``DATA.DEVICE_CACHE``,
 through the device-resident cache, with val sweeps, checkpoints and
-``--resume-from``, as ``python -m clip_lite_tpu.train`` does.
+``--resume-from``, as ``python -m clip_lite_tpu.train`` does.  With
+``DATA.NEGATIVE_SAMPLING clusters`` it switches to the clustered
+hard-negative loaders (``data/datasets.py``, half the batch in items, each
+with its negative) at ``DATA.NEGATIVE_SAMPLING_START_ITERATION``, or
+starts with them when ``--resume-from`` names a checkpoint at or past it,
+as the JAX CLI does (its ``train.py:71-102, 177-187, 300-308``).
 
 ``train_loop`` is the loop (lines 282-371 of the JAX ``train.py``) over
 any batch source.  Per iteration: one train step; every ``log_every``
@@ -17,11 +22,13 @@ given) writes the mean loss components, and its mean ``total_loss`` is
 the metric of the checkpoint then written; in the last 20% of training a
 model-only climax snapshot every ``climax_freq`` iterations; at the end a
 final checkpoint.  With ``resume_from`` the loop first restores the state
-from that checkpoint and starts the batch source at its iteration.
+from that checkpoint and starts the batch source at its iteration; with
+``switch`` it takes new batch sources at an iteration (the cluster
+curriculum's switch).
 
 ``main`` refuses what the port does not have yet, naming its item of
-ROADMAP Queue 1: the switch to cluster negatives (item 7(b)), pretrained
-weights (item 7(d)) and ``PARALLEL.STEPS_PER_CALL > 1`` (item 8(c)); and
+ROADMAP Queue 1: pretrained weights (item 7(d)) and
+``PARALLEL.STEPS_PER_CALL > 1`` (item 8(c)); and
 the SSL terms on the native batch path without the device cache, which
 makes no augmented views (ROADMAP Queue 3).
 
@@ -34,7 +41,7 @@ trace to ``DIR/trace.json.gz``, which ``utils/trace.py`` parses):
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 from clip_lite_torch.config import Config
 from clip_lite_torch.data.device_cache import DeviceDataCache
@@ -47,7 +54,10 @@ from clip_lite_torch.engine import (
     metrics_to_floats,
 )
 from clip_lite_torch.eval_utils import resolve_device
-from clip_lite_torch.factories import PretrainingDatasetFactory
+from clip_lite_torch.factories import (
+    NegativeSamplingDatasetFactory,
+    PretrainingDatasetFactory,
+)
 from clip_lite_torch.utils.checkpointing import CheckpointManager, peek_iteration
 from clip_lite_torch.utils.common import (
     check_one_card,
@@ -75,6 +85,7 @@ group.add_argument("--profile-dir", default=None,
                         "first three) to this directory.")
 
 PROFILE_AFTER, PROFILE_STEPS = 3, 5
+Sources = Tuple[Iterable, Iterable]  # train and val batches
 
 
 def crossed_interval(iteration: int, interval: int,
@@ -93,7 +104,9 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
                checkpoint_every: int = 10000, climax_freq: int = 1000,
                manager: Optional[CheckpointManager] = None,
                resume_from: Optional[str] = None,
-               profile_dir: Optional[str] = None) -> TrainState:
+               profile_dir: Optional[str] = None,
+               switch: Optional[Tuple[int, Callable[[int], Sources]]] = None
+               ) -> TrainState:
     """Train from ``state.step`` up to ``num_iterations`` steps, taking one
     batch of ``batches`` per step, and return the state.
 
@@ -108,7 +121,11 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
     ``profile_dir`` the steps after the first ``PROFILE_AFTER`` run under
     the profiler, ``PROFILE_STEPS`` of them (fewer where the run ends
     first), the last of the first ``PROFILE_AFTER`` in its warm-up, and
-    their trace goes to ``profile_dir/trace.json.gz``.
+    their trace goes to ``profile_dir/trace.json.gz``.  With ``switch``,
+    ``(at, sources)``, the first step at or past ``at`` replaces the train
+    and val batch sources by ``sources(iteration)`` (the old train source
+    closed, the batch it had made for that step dropped), as the JAX CLI
+    switches to the cluster curriculum's loaders.
     """
     if manager is not None:
         manager.checkpointables["state"] = state
@@ -127,6 +144,15 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
     profiler, first_traced = None, iteration + PROFILE_AFTER + 1
     while iteration < num_iterations:
         iteration += 1
+        if switch is not None and iteration >= switch[0]:
+            logger.info("Switching to clustered hard-negative sampling "
+                        "(iteration %d)", iteration)
+            if hasattr(batches, "close"):
+                batches.close()
+            batches, val_batches = switch[1](iteration)
+            batches = iter(batches)
+            batch = next(batches)
+            switch = None
         if profile_dir and iteration == first_traced - 1 \
                 and first_traced <= num_iterations:
             profiler = start_trace(state.device)  # this step is its warm-up
@@ -220,9 +246,6 @@ def _check_supported(_C: Config, _A) -> None:
     if _C.DATA.DEVICE_CACHE and \
             _C.DATA.CACHE_PLACEMENT not in ("sharded", "replicated"):
         raise ValueError(f"Unknown placement {_C.DATA.CACHE_PLACEMENT!r}")
-    if use_clusters:
-        raise NotImplementedError("the switch to cluster negatives lands "
-                                  "with ROADMAP Queue 1, item 7(b)")
     if (_C.MODEL.VISUAL.PRETRAINED and _C.MODEL.VISUAL.PRETRAINED_PATH) or \
             (_C.MODEL.TEXTUAL.PRETRAINED and _C.MODEL.TEXTUAL.PRETRAINED_PATH):
         raise NotImplementedError("pretrained weights from local files land "
@@ -239,23 +262,30 @@ def _check_supported(_C: Config, _A) -> None:
                                   "ROADMAP Queue 1, item 8(c)")
 
 
-def init_dataloaders(_C: Config, _A, device) -> tuple:
+def init_dataloaders(_C: Config, _A, device, kind: str = "normal") -> tuple:
     """The train and val loaders (the train one length-grouped under
     DATA.SEQ_BUCKETS), pinning their host batches for a CUDA ``device``;
-    under DATA.NATIVE_PIPELINE their images are decoded on ``device``."""
-    train_ds = PretrainingDatasetFactory.from_config(_C, split="train",
-                                                     device=device)
-    val_ds = PretrainingDatasetFactory.from_config(_C, split="val",
-                                                   device=device)
+    under DATA.NATIVE_PIPELINE their images are decoded on ``device``.
+    ``kind`` ``clusters`` gives the clustered hard-negative loaders at half
+    of OPTIM.BATCH_SIZE in items, each a pair and its negative."""
+    batch_size = _C.OPTIM.BATCH_SIZE
+    if kind == "normal":
+        train_ds = PretrainingDatasetFactory.from_config(_C, split="train",
+                                                         device=device)
+        val_ds = PretrainingDatasetFactory.from_config(_C, split="val",
+                                                       device=device)
+    else:
+        train_ds = NegativeSamplingDatasetFactory.from_config(_C, "train")
+        val_ds = NegativeSamplingDatasetFactory.from_config(_C, "val")
+        batch_size //= 2
     common = dict(num_workers=_A.cpu_workers, seed=_C.RANDOM_SEED,
                   prefetch=_C.DATA.PREFETCH, drop_last=True,
                   pin_memory=device.type == "cuda")
     train_loader = DataLoader(
-        train_ds, _C.OPTIM.BATCH_SIZE, shuffle=True,
+        train_ds, batch_size, shuffle=True,
         length_group_batches=(_C.DATA.LENGTH_GROUP_BATCHES
                               if _C.DATA.SEQ_BUCKETS else 0), **common)
-    val_loader = DataLoader(val_ds, _C.OPTIM.BATCH_SIZE, shuffle=False,
-                            **common)
+    val_loader = DataLoader(val_ds, batch_size, shuffle=False, **common)
     return train_loader, val_loader
 
 
@@ -269,10 +299,16 @@ def main(_A) -> TrainState:
     common_setup(_C, _A, job_type="pretrain")
     logger.info("Device: %s; batch %d", device, _C.OPTIM.BATCH_SIZE)
 
-    # The resume point before any loader is built (the JAX CLI decides
-    # its curriculum phase from it).
+    # The curriculum phase, from the resume point, before any loader is
+    # built (the JAX CLI's train.py:177-187).
     start_iteration = peek_iteration(_A.resume_from) if _A.resume_from else 0
-    train_loader, val_loader = init_dataloaders(_C, _A, device)
+    switch_at = None
+    kind = "normal"
+    if "clusters" in _C.DATA.NEGATIVE_SAMPLING:
+        switch_at = _C.DATA.NEGATIVE_SAMPLING_START_ITERATION
+        if _A.resume_from and start_iteration >= switch_at:
+            kind, switch_at = "clusters", None
+    train_loader, val_loader = init_dataloaders(_C, _A, device, kind)
     if _C.DATA.DEVICE_CACHE:
         batches = DeviceDataCache.from_dataset(
             train_loader.dataset, _C.OPTIM.BATCH_SIZE,
@@ -296,6 +332,13 @@ def main(_A) -> TrainState:
     manager = CheckpointManager(_A.serialization_dir + _C.RUN_ID,
                                 keep_recent=_A.keep_recent, state=state)
     writer = MetricsWriter(_A.serialization_dir)
+    streams = [batches]
+
+    def clustered(iteration: int) -> tuple:
+        train, val = init_dataloaders(_C, _A, device, "clusters")
+        streams.append(infinite_batches(train, iteration))
+        return streams[-1], val
+
     try:
         state = train_loop(
             state, make_train_step(_C), batches, _C.OPTIM.NUM_ITERATIONS,
@@ -303,11 +346,13 @@ def main(_A) -> TrainState:
             val_batches=val_loader, writer=writer,
             checkpoint_every=_A.checkpoint_every, climax_freq=_A.climax_freq,
             manager=manager, resume_from=_A.resume_from,
-            profile_dir=_A.profile_dir)
+            profile_dir=_A.profile_dir,
+            switch=None if switch_at is None else (switch_at, clustered))
     finally:
         writer.close()
-        if hasattr(batches, "close"):  # the loader's producer thread stops
-            batches.close()
+        for stream in streams:  # the loaders' producer threads stop
+            if hasattr(stream, "close"):
+                stream.close()
     logger.info("Done: %d iterations.", _C.OPTIM.NUM_ITERATIONS)
     return state
 

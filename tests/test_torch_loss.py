@@ -147,7 +147,7 @@ def test_noise_from_step_rng_and_refusals(case):
         assert a.item() == b.item() != c.item()
         with pytest.raises(ValueError):
             port(img, txt)  # priors with no noise and no generator
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="both"):  # half of cluster mode
             port(img, txt, neg_text_features=txt, rng=StepRNG(0, 0, "cpu"))
         with pytest.raises(ValueError):  # a loss built without visual SSL
             port(img, txt, aug_image_features=img, rng=StepRNG(0, 0, "cpu"))

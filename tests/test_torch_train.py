@@ -458,8 +458,9 @@ def test_unported_options_raise(reference, caplog):
     cfg = Config(FLAGSHIP, TRAIN)
     state = create_train_state(cfg, device="cpu", state_dict=bridge.from_jax_variables(
         reference["variables"], cfg))
+    # Hard negatives need their images and masks too.
     batch = dict(reference["batches"][0], neg_input_ids=np.zeros((B, L), np.int32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="neg_image"):
         make_train_step(cfg)(state, batch)
     assert device_mem_usage_mb("cpu") == 0
 
