@@ -270,7 +270,30 @@ caught:
    bars in fp32 and bf16; quality_campaign --families sweep on (C)'s
    checkpoint prints its JSON.  Prints both runs' step times start to
    start and the clustering's seconds.
-12. One JSON line listing every kernel (K3's standalone and fused entry
+12. Multi-GPU training (one process a card, ``torch.distributed``):
+   CLRec files of RANKS_TRAIN and RANKS_VAL ndarray records of 256 px;
+   ``python -m clip_lite_torch.train`` over configs/fs_tpu_tuned.yaml +
+   DATA.DEVICE_CACHE at full width (ResNet-50 with sync BatchNorm,
+   BERT-12, AMP bf16, global batch 128, global negatives,
+   PARALLEL.ZERO1), RANKS_STEPS steps and a checkpoint, deterministic
+   algorithms: (world1) under ``torch.distributed.run --standalone
+   --nproc-per-node 1`` (torchrun; an NCCL group of one rank) and
+   (plain) the same command without it, the two at once.  Checks:
+   world1's per-step metrics equal plain's and its checkpoint equals
+   plain's byte for byte; each run's K1/K2 12 a step (tensor cores), K3's fused pass one
+   a step, as each process logged them; no collective at a world of
+   one.  With two cards or more, the run at the card count against
+   plain, its per-step losses printed beside plain's and held within
+   RANKS_LOSS_REL (the loss's critics normalize over each rank's rows,
+   so they are not the one process's).  Then
+   ZeRO-1's flat update (which the CLI uses only across ranks) with one
+   shard over an NCCL group of one, against the replicated fused
+   update on one step's gradients of the same model (batch
+   PARITY_BATCH), from one state past warmup on a Lookahead sync step:
+   the norm within ZERO1_NORM_REL, parameters and slow weights within
+   ZERO1_UPDATE_REL of the largest update (see the constants), one
+   reduce-scatter, one all-reduce and one all-gather.
+13. One JSON line listing every kernel (K3's standalone and fused entry
    points each with their own launches, and crop_resize_flip_u8, which
    replaces the JAX core's host C++ and no TPU kernel); then the device
    line last.
@@ -4066,6 +4089,293 @@ def phase_checkpoint() -> dict:
                 bundle_s=bundle_s, distances=(d_ab, d_ac))
 
 
+RANKS_STEPS, RANKS_TRAIN, RANKS_VAL, RANKS_TILE = 4, 256, 128, 256
+# fs_tpu_tuned.yaml (global negatives, PARALLEL.ZERO1) at full width, the
+# cache over ndarray records, sync BatchNorm, deterministic algorithms.
+RANKS_OVERRIDES = ["MODEL.NAME", "captions", "OPTIM.BATCH_SIZE", BATCH,
+                   "OPTIM.NUM_ITERATIONS", RANKS_STEPS,
+                   "OPTIM.WARMUP_STEPS", 1, "DATA.DEVICE_CACHE", True,
+                   "DATA.NATIVE_PIPELINE", False,
+                   "MODEL.VISUAL.BN_MODE", "sync",
+                   "CUDNN_DETERMINISTIC", True, "CUDNN_BENCHMARK", False]
+# ZeRO-1's flat update against the replicated fused one on the same
+# gradients: the clip's global norm is a sum of 1.5e8 fp32 squares taken in
+# another order (ZeRO-1 sums the flat slice, the fused update per tensor
+# with torch._foreach_norm), so the norms may differ by about 1e-6 of
+# their size, and the clip scale and every clipped update with them; and
+# p - (lr x mult) d rounds its product once against p + (-(lr x mult)) d.
+# Bars: the norm within ZERO1_NORM_REL; each parameter and slow weight
+# within ZERO1_UPDATE_REL of the largest update plus two ulps of the
+# largest value.
+ZERO1_NORM_REL, ZERO1_UPDATE_REL = 1e-5, 1e-5
+# Losses across cards against one process's (see phase_ranks).
+RANKS_LOSS_REL = 0.1
+
+
+def write_tile_corpus(root: str, rng: np.random.Generator) -> None:
+    """CLRec train and val files of RANKS_TILE-square ndarray records,
+    seeded uint8 images, five captions each drawn from WORDS."""
+    import os
+
+    from clip_lite_torch.data.readers import ClRecWriter
+
+    for split, n in (("train", RANKS_TRAIN), ("val", RANKS_VAL)):
+        with ClRecWriter(os.path.join(
+                root, f"coco_{split}_train_sbert2017.clrec")) as w:
+            for i in range(n):
+                w.append({"image_id": i, "captions": captions(rng, 5),
+                          "image": rng.integers(0, 256, (RANKS_TILE,
+                                                         RANKS_TILE, 3),
+                                                dtype=np.uint8)})
+
+
+def ranks_cli(root: str, name: str, nproc) -> subprocess.Popen:
+    """Start ``python -m clip_lite_torch.train`` over the records, under
+    torchrun with ``nproc`` ranks (``torch.distributed.run
+    --standalone``), or alone where ``nproc`` is None; its output goes to
+    ``root/<name>.out``.  :func:`ranks_result` reads the run."""
+    import os
+
+    cli = ["-m", "clip_lite_torch.train", "--config", str(TUNED),
+           "--serialization-dir", os.path.join(root, name),
+           "--checkpoint-every", 1000, "--log-every", 1, "--cpu-workers", 4,
+           "--config-override", "DATA.ROOT", root, *RANKS_OVERRIDES]
+    launcher = [] if nproc is None else [
+        "-m", "torch.distributed.run", "--standalone",
+        f"--nproc-per-node={nproc}"]
+    cmd = [sys.executable, *launcher, *[str(a) for a in cli]]
+    with open(os.path.join(root, f"{name}.out"), "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT)
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def ranks_result(root: str, name: str, proc: subprocess.Popen) -> dict:
+    """Wait for a :func:`ranks_cli` run (killed past 600 s); its per-step
+    losses, the kernel launches and collectives rank 0 logged, its process
+    group, its wall seconds and its last checkpoint's path.  Raises if it
+    failed."""
+    import glob
+    import os
+
+    from clip_lite_torch.config import Config
+
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at 600 s"
+    wall = time.perf_counter() - proc.t0
+    text = open(os.path.join(root, f"{name}.out")).read()
+    if rc:
+        raise AssertionError(f"ranks ({name}): exit {rc}:\n{text[-4000:]}")
+    m = re.search(r"Kernel launches: (\{.*?\}); collectives: (\{.*?\})", text)
+    group = re.search(r"\(process group: (\w+)\)", text)
+    out = os.path.join(root, name)
+    losses = [json.loads(line) for line in open(os.path.join(
+        out, "metrics.jsonl"))]
+    run_dir = out + Config(str(TUNED), RANKS_OVERRIDES).RUN_ID
+    ckpt = glob.glob(os.path.join(glob.escape(run_dir),
+                                  f"checkpoint_{RANKS_STEPS}.msgpack"))
+    if not m or not group or len(ckpt) != 1:
+        raise AssertionError(f"ranks ({name}): no launch line, group or "
+                             f"checkpoint ({ckpt}):\n{text[-4000:]}")
+    times = [float(t) for t in re.findall(r"Time/iter ([0-9.]+)s", text)]
+    return dict(losses=[r for r in losses if r["split"] == "train"],
+                launches=json.loads(m[1]), collectives=json.loads(m[2]),
+                group=group[1], wall_s=wall, step_s=times, checkpoint=ckpt[0])
+
+
+def zero1_flat_check() -> dict:
+    """ZeRO-1's flat update (``parallel/zero1.py``) with one shard, over an
+    NCCL group of one rank, against the replicated fused update, both from
+    one state (random momentum and slow weights, past warmup, the step
+    before a Lookahead sync) on one step's gradients of fs_tpu_tuned at
+    full width (a batch of PARITY_BATCH)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.tokenizers import HashingTokenizer
+    from clip_lite_torch.engine import create_train_state
+    from clip_lite_torch.factories import LRSchedulerFactory
+    from clip_lite_torch.ops.layers import StepRNG
+    from clip_lite_torch.parallel.collectives import COUNTS
+    from clip_lite_torch.parallel.zero1 import Zero1Optimizer
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        cfg = Config(str(TUNED), ["DATA.DEVICE_CACHE", True])
+        state = create_train_state(cfg, device="cuda")
+        model, fused = state.model, state.optimizer
+        rng = np.random.default_rng(12)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE,
+                               cfg.DATA.MAX_CAPTION_LENGTH)
+        batch = training_batch(rng, tok, PARITY_BATCH,
+                               cfg.DATA.IMAGE_CROP_SIZE)
+        model.train()
+        out = model({k: torch.as_tensor(v).cuda() for k, v in batch.items()},
+                    rng=StepRNG(0, 0, "cuda"))
+        out["loss"].backward()
+        fused.count = cfg.OPTIM.WARMUP_STEPS
+        fused.la_count = cfg.OPTIM.LOOKAHEAD.STEPS - 1
+        with torch.no_grad():
+            for g in fused.groups:
+                for t, s_, p in zip(g.trace, g.slow, g.params):
+                    t.normal_(0.0, 1e-3, generator=gen)
+                    s_.copy_(p + 1e-3 * torch.randn(p.shape, generator=gen,
+                                                    device="cuda"))
+        zero1 = Zero1Optimizer(model, cfg, LRSchedulerFactory.from_config(cfg))
+        zero1.load_jax_state(fused.jax_state(lambda d: d), lambda d: d)
+        params = [p for p in model.parameters()]
+        p0 = [p.detach().clone() for p in params]
+        COUNTS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        norm_z = float(zero1.step())
+        zero1_s = time.perf_counter() - t0
+        counts = dict(COUNTS)
+        pz = [p.detach().clone() for p in params]
+        slow_z = {k: v.clone() for k, v in zero1.slow_state().items()}
+        with torch.no_grad():
+            for p, q in zip(params, p0):
+                p.copy_(q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        norm_f = float(fused.step())
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        pf = [p.detach() for p in params]
+        slow_f = fused.slow_state()
+        update = max(float((a - b).abs().max()) for a, b in zip(pf, p0))
+        largest = max(float(a.abs().max()) for a in pf)
+        ulps = 2 * largest * 2.0 ** -23
+        diff = max(float((a - b).abs().max()) for a, b in zip(pz, pf))
+        slow_diff = max(float((slow_z[k] - v).abs().max())
+                        for k, v in slow_f.items())
+        moved = sum(int((a != b).sum()) for a, b in zip(pz, pf))
+        res = dict(norm_zero1=norm_z, norm_fused=norm_f,
+                   norm_rel=abs(norm_z - norm_f) / norm_f, update_max=update,
+                   param_max_abs_diff=diff, slow_max_abs_diff=slow_diff,
+                   elements_that_differ=moved,
+                   elements=sum(p.numel() for p in params),
+                   zero1_step_s=zero1_s, fused_step_s=fused_s,
+                   collectives=counts, backend=dist.get_backend())
+        log(f"ranks: ZeRO-1's flat update (one shard, NCCL) against the "
+            f"fused one: {res}")
+        bar = ZERO1_UPDATE_REL * update + ulps
+        if res["norm_rel"] > ZERO1_NORM_REL or diff > bar \
+                or slow_diff > bar or counts != {
+                    "reduce_scatter": 1, "all_reduce": 1, "all_gather": 1}:
+            raise AssertionError(f"ranks: ZeRO-1 against the fused update "
+                                 f"past its bars (norm {ZERO1_NORM_REL}, "
+                                 f"update {bar}): {res}")
+        del state, model, fused, zero1, out
+        return res
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_ranks() -> dict:
+    """Multi-GPU training: the CLI under torchrun at the machine's card
+    count (NCCL), against it alone; ZeRO-1's flat path on the card."""
+    import filecmp
+    import os
+    import tempfile
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    out = {"cards": n_cards}
+    log(f"ranks: {n_cards} card(s); this process still holds "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card")
+    with tempfile.TemporaryDirectory() as root:
+        write_tile_corpus(root, np.random.default_rng(14))
+        # Both at once on the card: each alone is deterministic.
+        procs = {"world1": ranks_cli(root, "world1", 1),
+                 "plain": ranks_cli(root, "plain", None)}
+        runs = {name: ranks_result(root, name, proc)
+                for name, proc in procs.items()}
+        w1, plain = runs["world1"], runs["plain"]
+        for name, run in runs.items():
+            log(f"ranks ({name}): process group {run['group']}, "
+                f"{run['wall_s']} s of wall, step s {run['step_s']}, "
+                f"losses {[r['total_loss'] for r in run['losses']]}, "
+                f"launches {run['launches']}, collectives {run['collectives']}")
+        # At a world of one the run is the single process's, bit for bit:
+        # every step's metrics, and the final checkpoint (parameters,
+        # BatchNorm statistics, optimizer state) byte for byte.
+        same_ckpt = filecmp.cmp(w1["checkpoint"], plain["checkpoint"],
+                                shallow=False)
+        if w1["group"] != "nccl" or plain["group"] != "None" \
+                or w1["losses"] != plain["losses"] or not same_ckpt \
+                or len(w1["losses"]) != RANKS_STEPS:
+            raise AssertionError(
+                f"ranks: torchrun at a world of one ({w1['group']}) against "
+                f"one process: losses {w1['losses']} against "
+                f"{plain['losses']}, checkpoints equal {same_ckpt}")
+        per_step = dict(attention_fwd=12 * RANKS_STEPS,
+                        attention_bwd=12 * RANKS_STEPS,
+                        augment_normalize=RANKS_STEPS)
+        for name, run in runs.items():
+            got = run["launches"]
+            if (got["K1 attention_fwd"], got["K2 attention_bwd"],
+                    got["K3 augment_normalize_u8"], got["K1 tensor cores"],
+                    got["K2 tensor cores"]) != (
+                    per_step["attention_fwd"], per_step["attention_bwd"],
+                    per_step["augment_normalize"], per_step["attention_fwd"],
+                    per_step["attention_bwd"]):
+                raise AssertionError(f"ranks ({name}): launches {got}, "
+                                     f"expected {per_step} a run")
+        if w1["collectives"]:
+            raise AssertionError(f"ranks (world1): collectives "
+                                 f"{w1['collectives']} at a world of one")
+        log(f"ranks: torchrun --nproc-per-node 1 (NCCL) equals the single "
+            f"process bit for bit: {RANKS_STEPS} steps' metrics and "
+            f"checkpoint_{RANKS_STEPS} ({os.path.getsize(w1['checkpoint'])} "
+            f"bytes); NCCL collectives a step at a world of one: 0 (the step "
+            f"skips them); K1/K2/K3 a run {per_step}")
+        if n_cards >= 2:
+            runs["world"] = many = ranks_result(
+                root, "world", ranks_cli(root, "world", n_cards))
+            rel = [abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
+                   for a, b in zip(many["losses"], plain["losses"])]
+            log(f"ranks ({n_cards} ranks): losses "
+                f"{[r['total_loss'] for r in many['losses']]} against one "
+                f"process's {[r['total_loss'] for r in plain['losses']]}, "
+                f"relative {rel}; collectives {many['collectives']} "
+                f"({RANKS_STEPS} steps, the cache's build and the checkpoint's "
+                f"gathers); launches {many['launches']}")
+            # Not the one process's run: the loss's critics hold local
+            # BatchNorm (as in JAX), which normalizes over each rank's rows,
+            # so the losses differ from step 1 on (a CPU rehearsal at 4 rows
+            # a rank: 0.074 at step 1).  Held within RANKS_LOSS_REL.
+            if many["group"] != "nccl" or len(rel) != RANKS_STEPS or \
+                    max(rel) > RANKS_LOSS_REL:
+                raise AssertionError(f"ranks ({n_cards} ranks) against one "
+                                     f"process: relative {rel}")
+        else:
+            log("ranks: one card, so no run across cards (NCCL between "
+                "cards not exercised)")
+        out["runs"] = {k: {kk: vv for kk, vv in v.items() if kk != "checkpoint"}
+                       for k, v in runs.items()}
+    out["zero1"] = zero1_flat_check()
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"ranks: phase {out['phase_s']} s")
+    return out
+
+
 def crop_kernel_only() -> int:
     """``--crop-kernel``: phase 10d's records, then crop_resize_flip_u8
     alone (native_kernel_alone), its row printed as one JSON line."""
@@ -4095,6 +4405,9 @@ def main() -> int:
         "--quality", action="store_true",
         help="run phases 1, 2 and 11 (the quality path) alone")
     parser.add_argument(
+        "--ranks", action="store_true",
+        help="run phases 1, 2 and 12 (multi-GPU training) alone")
+    parser.add_argument(
         "--crop-kernel", action="store_true",
         help="build decode_crop.cu, check and time crop_resize_flip_u8 alone "
              "on phase 10d's records and print its row, nothing else (to "
@@ -4121,6 +4434,10 @@ def main() -> int:
         phase_build()
         phase_quality({"step_s": None})
         return 0
+    if args.ranks:
+        phase_build()
+        phase_ranks()
+        return 0
     phase_build()
     phase_attention()
     inference = phase_main_path()
@@ -4145,6 +4462,8 @@ def main() -> int:
     nat = phase_native(training, data["a"]["step_s"])
     evals = phase_eval_cli()
     quality = phase_quality(training)
+    ranks = {f"ranks_{name}": run["launches"]
+             for name, run in phase_ranks()["runs"].items()}
     cli = {"cli_host_loader": data["a"]["launches"],
            "cli_resumed": data["c"]["launches"],
            "cli_device_cache": data["b"]["launches"],
@@ -4176,7 +4495,8 @@ def main() -> int:
                    "quality_switched_training":
                        quality["switched"]["attention_fwd"],
                    "quality_cluster_training":
-                       quality["clusters"]["attention_fwd"]}
+                       quality["clusters"]["attention_fwd"],
+                   **{k: n["K1 attention_fwd"] for k, n in ranks.items()}}
     k2_launches = {"training": training["launches"]["attention_bwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"],
@@ -4188,7 +4508,8 @@ def main() -> int:
                    "quality_switched_training":
                        quality["switched"]["attention_bwd"],
                    "quality_cluster_training":
-                       quality["clusters"]["attention_bwd"]}
+                       quality["clusters"]["attention_bwd"],
+                   **{k: n["K2 attention_bwd"] for k, n in ranks.items()}}
     k3_fused_launches = {
         "uint8_training": uint8["launches"]["augment_normalize"],
         "ssl_visual_training": ssl["launches"]["K3 augment_normalize_u8"],
@@ -4197,7 +4518,8 @@ def main() -> int:
         **{k: n["augment_normalize"] for k, n in cli.items()
            if n["augment_normalize"]},
         "quality_cache_training": quality["normal"]["augment_normalize"],
-        "quality_switched_native": quality["switched"]["augment_normalize"]}
+        "quality_switched_native": quality["switched"]["augment_normalize"],
+        **{k: n["K3 augment_normalize_u8"] for k, n in ranks.items()}}
     k3_launches = {"uint8_eval": uint8["launches"]["normalize"],
                    **{k: n["normalize"] for k, n in cli.items()
                       if n["normalize"]},

@@ -19,18 +19,26 @@ there)), memoized on disk by :func:`load_host_cached`
 (``DATA.CACHE_HOST_DIR``); :meth:`DeviceDataCache.from_dataset` joins the
 two, as the training CLI calls it.
 
+Across ranks (the JAX cache's ``placement``, its ``device_cache.py:10-62,
+100-114``): the seed-keyed corpus permutation splits the items into one
+block a rank (sizes differing by at most one, each wrap-padded to the
+same m rows), and rank r draws its B/n items of each step from its block
+with a generator keyed by (seed, step, r).  ``sharded`` decodes and keeps
+only the rank's block on its card; ``replicated`` keeps every block and
+draws from its own, so the two placements give the same batches bit for
+bit.  The ranks agree on the caption padding (count and length) with one
+all-reduce of their maxima.
+
 Differences from the JAX cache, by design:
   * the host cache's key folds in the tokenizer, the caption length and
     the dataset's class besides the file, and an unnamed corpus is not
     cached, so a cache that the JAX package wrote is not reused;
   * the draws come from a torch generator on the device, so batches are
     not the JAX cache's for the same seed;
-  * one card, one rank: the seed-keyed corpus permutation that makes the
-    JAX cache's device shards exchangeable changes nothing on one device
-    (sampling is uniform over the corpus either way) and is left out, so
-    the tiles are used in the caller's order with no second copy; so
-    there is no ``placement`` (sharded and replicated are the same on one
-    card); more than one rank raises (item 5).
+  * over a world of one the permutation changes nothing (sampling is
+    uniform over the corpus either way) and is left out, so the tiles
+    are used in the caller's order with no second copy, and both
+    placements are the same.
 
 With ``ssl_aug`` (visual SSL) a batch also holds ``aug_image``, a second
 crop of each item's tile at its own offset, as the JAX cache makes it;
@@ -43,14 +51,15 @@ import hashlib
 import os
 import pickle
 import time
-from typing import Dict, Iterator, NamedTuple, Sequence, Union
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from clip_lite_torch.data.imgproc import resize_area
 from clip_lite_torch.eval_utils import resolve_device
+from clip_lite_torch.parallel.collectives import all_reduce_
+from clip_lite_torch.parallel.distributed import process_count, process_index
 
 
 class DecodedCorpus(NamedTuple):
@@ -201,29 +210,84 @@ def _static_seq_len(max_len: int, seq_buckets, fallback: int) -> int:
     return fallback
 
 
+def shard_layout(n_items: int, world: int, seed: int):
+    """The JAX cache's partition of ``n_items`` over ``world`` ranks:
+    ``take`` (world x m dataset rows, rank r's block at [r m, (r + 1) m)),
+    ``valid`` (each block's items before its wrap-padding) and ``m``."""
+    if n_items < world:
+        raise ValueError(f"corpus of {n_items} items cannot shard over "
+                         f"{world} ranks")
+    perm = np.random.default_rng(seed).permutation(n_items)
+    base, rem = divmod(n_items, world)
+    m = base + (1 if rem else 0)
+    valid = (base + (np.arange(world) < rem)).astype(np.int64)
+    take = np.empty(m * world, np.int64)
+    start = 0
+    for d in range(world):
+        block = perm[start:start + valid[d]]
+        start += valid[d]
+        take[d * m:(d + 1) * m] = np.resize(block, m)
+    return take, valid, m
+
+
+def rows_held(n_items: int, seed: int, placement: str = "sharded"
+              ) -> np.ndarray:
+    """The dataset rows this rank's cache holds, in its order: all of
+    them over a world of one, else the rank's block (``sharded``) or
+    every block (``replicated``) of :func:`shard_layout`."""
+    if placement not in ("sharded", "replicated"):
+        raise ValueError(f"Unknown placement {placement!r}")
+    world = process_count()
+    if world == 1:
+        return np.arange(n_items)
+    take, _, m = shard_layout(n_items, world, seed)
+    if placement == "replicated":
+        return take
+    r = process_index()
+    return take[r * m:(r + 1) * m]
+
+
 class DeviceDataCache:
-    """The corpus on one card and a sampler of batches over it.
+    """The corpus on the card and a sampler of batches over it.
 
     ``corpus`` is a :class:`DecodedCorpus` (or the 5-tuple of the JAX
-    ``_load_host``).  Captions are padded to the corpus-wide caption count
-    and trimmed to the smallest of ``seq_buckets`` that holds the longest
-    caption (one shape for the whole run).
+    ``_load_host``) of the rows :func:`rows_held` names, in that order,
+    of a dataset of ``n_items`` (needed over more than one rank).
+    Captions are padded to the corpus-wide caption count and trimmed to
+    the smallest of ``seq_buckets`` that holds the longest caption (one
+    shape for the whole run).  Each batch holds this rank's
+    ``batch_size`` / n rows of the global batch.
     """
 
     def __init__(self, corpus: Sequence, batch_size: int,
                  cache_size: int = 256, crop_size: int = 224,
                  seq_buckets=None, seed: int = 0, ssl_aug: bool = False,
-                 device="cuda"):
+                 device="cuda", placement: str = "sharded",
+                 n_items: Optional[int] = None):
         images, ids_list, mask_list, n_caps, image_ids = corpus
         if cache_size < crop_size:
             raise ValueError(
                 f"cache_size {cache_size} < crop_size {crop_size}")
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError("a corpus placed across ranks lands with "
-                                      "multi-GPU training (ROADMAP Queue 1, "
-                                      "item 5)")
+        if placement not in ("sharded", "replicated"):
+            raise ValueError(f"Unknown placement {placement!r}")
+        self.world, self.rank = process_count(), process_index()
+        if batch_size % self.world:
+            raise ValueError(f"batch_size {batch_size} must divide across "
+                             f"{self.world} ranks")
+        self.placement = placement
         n = len(ids_list)
+        self._offset, self._valid = 0, n
+        if self.world > 1:
+            if n_items is None:
+                raise ValueError("a cache across ranks needs n_items")
+            _, valid, m = shard_layout(n_items, self.world, seed)
+            held = m * (self.world if placement == "replicated" else 1)
+            if n != held:
+                raise ValueError(f"the corpus holds {n} rows, not the {held} "
+                                 f"of rows_held({n_items}, ...)")
+            self._valid = int(valid[self.rank])
+            if placement == "replicated":
+                self._offset = self.rank * m
         if tuple(images.shape) != (n, cache_size, cache_size, 3) \
                 or images.dtype not in (np.uint8, torch.uint8):
             raise ValueError(f"images must be ({n}, {cache_size}, {cache_size},"
@@ -238,6 +302,10 @@ class DeviceDataCache:
 
         max_len = max(int(mm.sum(axis=-1).max()) for mm in mask_list)
         c_max = max(ii.shape[0] for ii in ids_list)
+        if self.world > 1:  # every rank pads to the corpus-wide shapes
+            maxima = torch.tensor([max_len, c_max], device=self.device)
+            all_reduce_(maxima, op=torch.distributed.ReduceOp.MAX)
+            max_len, c_max = (int(v) for v in maxima.tolist())
         s_tok = ids_list[0].shape[1]
         seq = min(_static_seq_len(max_len, seq_buckets, s_tok), s_tok)
         ids = np.zeros((n, c_max, seq), np.int32)
@@ -255,7 +323,6 @@ class DeviceDataCache:
         self._mask = put(mask)
         self._n_caps = put(np.asarray(n_caps, np.int32))
         self._image_ids = put(np.asarray(image_ids, np.int64))
-        self._n = n
         self._window = torch.arange(crop_size, device=self.device)
         self._step = 0
 
@@ -263,23 +330,37 @@ class DeviceDataCache:
     def from_dataset(cls, dataset, batch_size: int, cache_size: int = 256,
                      crop_size: int = 224, seq_buckets=None, seed: int = 0,
                      ssl_aug: bool = False, host_cache_dir: str = "",
-                     device="cuda") -> "DeviceDataCache":
-        """The cache of every row of ``dataset``, decoded by
-        :func:`load_host` (through :func:`load_host_cached` with a
-        ``host_cache_dir``); ``build_seconds`` holds the time it took."""
+                     device="cuda", placement: str = "sharded"
+                     ) -> "DeviceDataCache":
+        """The cache of ``dataset``'s rows that this rank holds
+        (:func:`rows_held`), decoded by :func:`load_host` (through
+        :func:`load_host_cached` with a ``host_cache_dir``), each once;
+        ``build_seconds`` holds the time it took."""
         t0 = time.perf_counter()
-        rows = np.arange(len(dataset))
-        corpus = (load_host_cached(dataset, cache_size, rows, host_cache_dir)
-                  if host_cache_dir else load_host(dataset, cache_size, rows))
+        rows = rows_held(len(dataset), seed, placement)
+        unique, inverse = np.unique(rows, return_inverse=True)
+        corpus = (load_host_cached(dataset, cache_size, unique, host_cache_dir)
+                  if host_cache_dir else load_host(dataset, cache_size, unique))
+        if len(unique) != len(rows) or (unique != rows).any():
+            images = corpus.images
+            corpus = DecodedCorpus(
+                images[torch.as_tensor(inverse, device=images.device)]
+                if isinstance(images, torch.Tensor) else images[inverse],
+                [corpus.ids[i] for i in inverse],
+                [corpus.mask[i] for i in inverse],
+                np.asarray(corpus.n_caps)[inverse],
+                np.asarray(corpus.image_ids)[inverse])
         cache = cls(corpus, batch_size, cache_size=cache_size,
                     crop_size=crop_size, seq_buckets=seq_buckets, seed=seed,
-                    ssl_aug=ssl_aug, device=device)
+                    ssl_aug=ssl_aug, device=device, placement=placement,
+                    n_items=len(dataset))
         cache.build_seconds = time.perf_counter() - t0
         return cache
 
     def _generator(self, step: int) -> torch.Generator:
-        word = np.random.SeedSequence((self.seed ^ 0x5EED, step)).generate_state(
-            1, np.uint64)[0]
+        key = (self.seed ^ 0x5EED, step) if self.world == 1 else \
+            (self.seed ^ 0x5EED, step, self.rank)
+        word = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
         return torch.Generator(device=self.device).manual_seed(int(word) >> 1)
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
@@ -289,8 +370,9 @@ class DeviceDataCache:
         ``ssl_aug``, ``aug_image``, the same tiles cropped at offsets drawn
         after the first ones."""
         g = self._generator(step)
-        b, dev = self.batch_size, self.device
-        idx = torch.randint(0, self._n, (b,), generator=g, device=dev)
+        b, dev = self.batch_size // self.world, self.device
+        idx = torch.randint(0, self._valid, (b,), generator=g,
+                            device=dev) + self._offset
         # A caption below each row's own count: floor(U * n_caps), which
         # torch.randint (one bound for all rows) cannot draw.
         n_caps = self._n_caps[idx]
@@ -323,15 +405,19 @@ class DeviceDataCache:
             self._step += 1
             yield batch
 
-    def memory_bytes(self) -> int:
-        """Device bytes of the padded corpus (the JAX cache's formula)."""
+    def memory_bytes_per_device(self) -> int:
+        """Device bytes of this rank's padded rows (the JAX cache's
+        formula)."""
         return (self._images.numel() + 4 * self._ids.numel() * 2
                 + 4 * self._n_caps.numel())
 
-    def memory_bytes_per_device(self) -> int:
-        """One card holds it all."""
-        return self.memory_bytes()
+    def memory_bytes(self) -> int:
+        """Device bytes of the padded corpus over all ranks, each block
+        counted once."""
+        shards = self.world if self.placement == "sharded" else 1
+        return self.memory_bytes_per_device() * shards
 
 
 __all__ = ["DecodedCorpus", "DeviceDataCache", "_static_seq_len",
-           "host_cache_key", "load_host", "load_host_cached"]
+           "host_cache_key", "load_host", "load_host_cached", "rows_held",
+           "shard_layout"]

@@ -25,7 +25,11 @@ tensors are marked as used on the consumer's stream (``record_stream``),
 so that the caching allocator does not give their memory to the next
 decode while the step still reads it.
 
-One rank only: more than one shard raises (ROADMAP Queue 1, item 5).
+Across ranks each loader is one shard (``num_shards``, ``shard_index``,
+the JAX loader's arguments and the reference's DistributedSampler): every
+rank computes the same (seed, epoch) order of global batches and loads
+its contiguous rows of each, so the shards in rank order make up the
+global batch.
 """
 
 from __future__ import annotations
@@ -139,10 +143,17 @@ class DataLoader:
                  pin_memory: bool = False, background: bool = True,
                  length_group_batches: int = 0,
                  num_shards: int = 1, shard_index: int = 0):
-        if num_shards != 1 or shard_index != 0:
-            raise NotImplementedError("loading a shard per rank lands with "
-                                      "multi-GPU training (ROADMAP Queue 1, "
-                                      "item 5)")
+        if batch_size % num_shards:
+            raise ValueError(f"batch_size {batch_size} must divide across "
+                             f"{num_shards} shards")
+        if num_shards > 1 and not drop_last:
+            raise ValueError("sharded loading needs drop_last (a ragged "
+                             "last batch does not split evenly)")
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} out of range for "
+                             f"{num_shards} shards")
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -209,12 +220,16 @@ class DataLoader:
             -(-n // self.batch_size)
 
     def _batches(self, start_batch: int = 0) -> Iterator[np.ndarray]:
-        """The index arrays of this epoch's batches from ``start_batch``."""
+        """This shard's index arrays of the epoch's batches from
+        ``start_batch``."""
         order = self._epoch_order()
         n_full = len(order) // self.batch_size
         end = n_full * self.batch_size if self.drop_last else len(order)
+        local = self.batch_size // self.num_shards
         for b in range(start_batch, -(-end // self.batch_size)):
-            yield order[b * self.batch_size: (b + 1) * self.batch_size]
+            idxs = order[b * self.batch_size: (b + 1) * self.batch_size]
+            yield idxs[self.shard_index * local:
+                       (self.shard_index + 1) * local]
 
     def _native_device(self) -> Optional[torch.device]:
         """The card that a native-path dataset decodes on, else None."""

@@ -1,18 +1,26 @@
 """Training engine: the train state and the train and eval steps, the
 counterpart of the JAX package's ``engine.py``.
 
-One card runs one replica's batch.  A step is: model in training mode,
-forward (the loss dict), backward, the fused optimizer update, BatchNorm
-running statistics kept as the modules moved them, and metrics = the loss
-components + the gradients' global norm.  PyTorch runs eagerly, so there
-is no compiled program: the step updates the state in place and returns
-it.  Under ``AMP`` the modules compute in bf16 with fp32 parameters; like
+Each rank (one process per card, ``parallel/distributed.py``) runs its
+rows of the global batch.  A step is: model in training mode, forward
+(the loss dict), backward, then, over more than one rank, the mean over
+the ranks of the gradients, the BatchNorm running statistics and the
+loss components in one flat all-reduce (the JAX step's one ``psum``
+divided by n, ``engine.py:104-130`` there; under ZeRO-1 the gradients
+are reduce-scattered by the optimizer instead, ``parallel/zero1.py``),
+the optimizer update (fused, or ZeRO-1's sharded one), and metrics = the
+loss components + the gradients' global norm.  Every rank averages the
+running statistics, as the JAX step does; none takes rank 0's.  PyTorch
+runs eagerly, so there is no compiled program: the step updates the
+state in place and returns it.  Under ``AMP`` the modules compute in bf16 with fp32 parameters; like
 the JAX package (``engine.py:16-18`` there) there is no GradScaler, since
 bf16 has fp32's exponent range.
 
 The step's random draws (dropout masks, the attention kernels' Philox
 seeds, prior noise, augmentation) are a function of (``RANDOM_SEED``,
-step) alone (:class:`~clip_lite_torch.ops.layers.StepRNG`).
+step) alone (:class:`~clip_lite_torch.ops.layers.StepRNG`), and of the
+rank over more than one rank (JAX's ``_fold_device_rng``), so a world of
+one draws as a single process does.
 
 A batch whose ``image`` is uint8 (the device-resident cache's, or a
 uint8 host pipeline's) gets its augmentation on the device inside the
@@ -38,7 +46,6 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from clip_lite_torch import bridge
 from clip_lite_torch.config import Config
@@ -46,8 +53,13 @@ from clip_lite_torch.eval_utils import resolve_device
 from clip_lite_torch.factories import OptimizerFactory, PretrainingModelFactory
 from clip_lite_torch.models.model import VLInfoModel
 from clip_lite_torch.ops.image_ops import AugDraws, device_preprocess
-from clip_lite_torch.ops.layers import StepRNG, init_weights
+from clip_lite_torch.ops.layers import BatchNorm, StepRNG, init_weights
 from clip_lite_torch.optim.fused import FusedOptimizer
+from clip_lite_torch.parallel.collectives import (
+    flat_all_reduce_mean_,
+    world_size,
+)
+from clip_lite_torch.parallel.distributed import process_index
 from clip_lite_torch.utils.trace import scope
 
 Batch = Dict[str, object]
@@ -62,7 +74,7 @@ class TrainState:
 
     step: int
     model: VLInfoModel
-    optimizer: FusedOptimizer
+    optimizer: FusedOptimizer  # or parallel.zero1.Zero1Optimizer
 
     @property
     def device(self) -> torch.device:
@@ -75,12 +87,7 @@ def _check_supported(config: Config) -> None:
             "PARALLEL.STEPS_PER_CALL > 1 folds steps into one XLA program; "
             "the port runs one step per call (ROADMAP Queue 3, deliberate "
             "differences)")
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError("training across ranks (and PARALLEL.ZERO1 "
-                                  "there) lands with multi-GPU training "
-                                  "(ROADMAP Queue 1, item 5)")
-    if config.PARALLEL.ZERO1:
+    if config.PARALLEL.ZERO1 and world_size() == 1:
         # As the JAX package does on a one-device mesh (train.py:164-167).
         logger.warning("PARALLEL.ZERO1 on one rank shards nothing; using the "
                        "replicated update instead")
@@ -169,6 +176,33 @@ def _maybe_device_preprocess(batch: Dict[str, torch.Tensor], rng: StepRNG,
     return out
 
 
+def _step_rng(seed: int, step: int, device, stream: int = 0) -> StepRNG:
+    """The step's draws; the rank joins the key over more than one rank."""
+    rank = process_index() if world_size() > 1 else None
+    return StepRNG(seed, step, device, stream=stream, rank=rank)
+
+
+def _reduce_across_ranks(state: TrainState, metrics: Dict[str, torch.Tensor]
+                         ) -> None:
+    """Over more than one rank, the mean over the ranks, in place, of the
+    gradients (unless the optimizer reduce-scatters them itself), every
+    BatchNorm's running statistics and ``metrics``: one all-reduce."""
+    if world_size() == 1:
+        return
+    tensors = []
+    if not getattr(state.optimizer, "reduces_grads", False):
+        for p in state.model.parameters():
+            if p.grad is None:  # a leaf the loss does not reach: zero
+                p.grad = torch.zeros_like(p)
+            tensors.append(p.grad)
+    tensors += [t for m in state.model.modules() if isinstance(m, BatchNorm)
+                for t in (m.running_mean, m.running_var)]
+    names = list(metrics)
+    values = [metrics[k].detach().float().clone() for k in names]
+    flat_all_reduce_mean_(tensors + values)
+    metrics.update(zip(names, values))
+
+
 def make_train_step(config: Config) -> Callable:
     """``train_step(state, batch, prior_noise=None, aug_draws=None) ->
     (state, metrics)``.
@@ -194,7 +228,7 @@ def make_train_step(config: Config) -> Callable:
             model = state.model
             model.train()
             model.zero_grad(set_to_none=True)
-            rng = StepRNG(seed, state.step, state.device)
+            rng = _step_rng(seed, state.step, state.device)
             with scope("device_preprocess"):
                 batch = _maybe_device_preprocess(
                     _to_device(batch, state.device), rng, train=True,
@@ -202,10 +236,10 @@ def make_train_step(config: Config) -> Callable:
             out = model(batch, rng=rng, prior_noise=prior_noise)
             with scope("backward"):
                 out["loss"].backward()
-            grad_norm = state.optimizer.step()
-            state.step += 1
             metrics = dict(out["loss_components"])
-            metrics["grad_norm"] = grad_norm
+            _reduce_across_ranks(state, metrics)
+            metrics["grad_norm"] = state.optimizer.step()
+            state.step += 1
         return state, metrics
 
     return train_step
@@ -223,11 +257,13 @@ def make_eval_step(config: Config) -> Callable:
                   prior_noise: Optional[Dict[str, torch.Tensor]] = None):
         model = state.model
         model.eval()
-        rng = StepRNG(seed, state.step, state.device, stream=1 + index)
+        rng = _step_rng(seed, state.step, state.device, stream=1 + index)
         batch = _maybe_device_preprocess(_to_device(batch, state.device), rng,
                                          train=False)
         out = model(batch, rng=rng, prior_noise=prior_noise)
-        return out["loss_components"]
+        components = dict(out["loss_components"])
+        flat_all_reduce_mean_(list(components.values()))  # pmean over ranks
+        return components
 
     return eval_step
 

@@ -92,7 +92,9 @@ class PretrainingModelFactory:
 
 class OptimizerFactory:
     """The fused update over ``model``'s parameters
-    (:mod:`clip_lite_torch.optim.fused`).  ``OPTIM.FUSED`` false selects
+    (:mod:`clip_lite_torch.optim.fused`), or under ``PARALLEL.ZERO1`` over
+    more than one rank its sharded form (:mod:`clip_lite_torch.parallel.
+    zero1`).  ``OPTIM.FUSED`` false selects
     the JAX package's optax chain, which computes the same update
     (``tests/test_optim.py::test_fused_matches_chain``); the port has the
     fused form only."""
@@ -100,9 +102,14 @@ class OptimizerFactory:
     @classmethod
     def from_config(cls, config: Config, model):
         from clip_lite_torch.optim.fused import FusedOptimizer
+        from clip_lite_torch.parallel.collectives import world_size
+        from clip_lite_torch.parallel.zero1 import Zero1Optimizer
 
-        return FusedOptimizer(model, config,
-                              LRSchedulerFactory.from_config(config))
+        # ZeRO-1 over more than one rank; on one the replicated update, as
+        # the JAX CLI chooses (its train.py:164-167).
+        cls_ = Zero1Optimizer if config.PARALLEL.ZERO1 and world_size() > 1 \
+            else FusedOptimizer
+        return cls_(model, config, LRSchedulerFactory.from_config(config))
 
 
 class LRSchedulerFactory:

@@ -1,6 +1,7 @@
 """Image tower wrapper, the counterpart of the JAX package's
 ``models/image_encoder.py``: a registered backbone by name, classifier
-chopped.  ``frozen`` keeps the backbone in eval mode with no gradients.
+chopped.  ``frozen`` keeps the backbone in eval mode with no gradients;
+``bn_mode`` ``sync`` takes the BatchNorm statistics over the ranks.
 Only the ResNets are registered yet; VGG and the model zoo are queued in
 ROADMAP.md (Queue 1).
 
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from clip_lite_torch.models.resnet import RESNETS, ResNet
+from clip_lite_torch.ops.layers import BatchNorm
 
 BACKBONES: Dict[str, Any] = dict(RESNETS)
 
@@ -33,13 +35,14 @@ class ImageEncoder(nn.Module):
         if img_enc_net not in BACKBONES:
             raise KeyError(f"Unknown visual backbone {img_enc_net!r}. "
                            f"Choices: {sorted(BACKBONES)}")
-        if bn_mode != "local":
-            raise NotImplementedError(
-                "sync BatchNorm lands with multi-GPU training (ROADMAP "
-                "Queue 1, Multi-GPU)")
+        if bn_mode not in ("local", "sync"):
+            raise ValueError(f"Unknown BN_MODE {bn_mode!r}")
         self.frozen = frozen
         self.backbone = BACKBONES[img_enc_net](width=width,
                                                compute_dtype=compute_dtype)
+        for module in self.backbone.modules():
+            if isinstance(module, BatchNorm):
+                module.sync = bn_mode == "sync"  # statistics over the ranks
         self.feature_size = self.backbone.feature_size
         if frozen:
             self.backbone.requires_grad_(False)

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from clip_lite_torch.parallel.collectives import pmean, world_size
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 InitFn = Callable[[torch.Tensor, torch.Generator], None]
@@ -57,14 +59,18 @@ class StepRNG:
     so drawing one never waits on the device; the augmentation draws come
     from a device generator of their own, so a uint8 batch leaves the
     other draws as they are.  ``stream`` tells apart the draws of steps
-    that share a step count (the batches of a val sweep).
+    that share a step count (the batches of a val sweep); ``rank``, where
+    given, the ranks of a step across processes (JAX folds the device's
+    index into its key).
     """
 
-    def __init__(self, seed: int, step: int, device, stream: int = 0):
+    def __init__(self, seed: int, step: int, device, stream: int = 0,
+                 rank: Optional[int] = None):
         # The first words of a SeedSequence's state do not depend on how
         # many are asked for.
-        words = np.random.SeedSequence((seed, step, stream)).generate_state(
-            3, np.uint64)
+        key = (seed, step, stream) if rank is None else \
+            (seed, step, stream, rank)
+        words = np.random.SeedSequence(key).generate_state(3, np.uint64)
         self.device = torch.device(device)
         self.device_gen = torch.Generator(device=self.device).manual_seed(
             int(words[0]) >> 1)
@@ -152,15 +158,25 @@ class BatchNorm(nn.Module):
     In training the running variance is updated with the biased batch
     variance, as flax does (torch's own ``F.batch_norm`` would use the
     unbiased one).
+
+    ``sync`` (sync BatchNorm, the JAX module's ``axis_name``) takes the
+    batch statistics over the ranks of ``process_group`` (the default
+    group when None) when it has more than one: flax's mean and mean of
+    squares, each averaged over the ranks (differentiably), and the
+    biased variance max(0, E[x^2] - E[x]^2).  Over a world of one it is
+    the local BatchNorm.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 sync: bool = False, process_group=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
         self.compute_dtype = compute_dtype
+        self.sync = sync
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.empty(num_features))
         self.bias = nn.Parameter(torch.empty(num_features))
         self.register_buffer("running_mean", torch.empty(num_features))
@@ -179,6 +195,8 @@ class BatchNorm(nn.Module):
             out = F.batch_norm(x, self.running_mean, self.running_var,
                                self.weight, self.bias, False, 0.0, self.eps)
             return out.to(self.compute_dtype)
+        if self.sync and world_size(self.process_group) > 1:
+            return self._sync_forward(x)
         # Normalize by the biased batch statistics (differentiable), then
         # move the running ones towards them.
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
@@ -186,6 +204,23 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             dims = [d for d in range(x.ndim) if d != 1]
             var, mean = torch.var_mean(x.float(), dims, unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return out.to(self.compute_dtype)
+
+    def _sync_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training over the ranks: flax's ``_compute_stats`` with an
+        ``axis_name`` and its normalize, in float32."""
+        xf = x.float()
+        dims = [d for d in range(x.ndim) if d != 1]
+        stats = pmean(torch.cat([xf.mean(dims), (xf * xf).mean(dims)]),
+                      self.process_group)
+        mean, mean2 = stats.chunk(2)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        out = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return out.to(self.compute_dtype)

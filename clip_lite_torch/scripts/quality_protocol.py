@@ -18,8 +18,10 @@ the script exits 1 at the end.  Each seed's retrieval ``r_mean`` and
 zero-shot top-1 are set against the JAX package's three-seed spread at
 the same step (``QUALITY_r05.json``), mean ± 2 std (``jax_band``).
 
-Stages (``--stages``, in the order given): ``data`` (make_synth_data at
-its defaults from seed 0, coco_preprocess of both splits), ``seed0``,
+Stages (``--stages``, in the order given): ``data`` (make_synth_data with
+the JAX orchestration's arguments, ``SYNTH``: 6,000 training and 500 val
+scenes from seed 0, as ``clip_lite_tpu/scripts/run_quality_r5.sh`` makes
+them; coco_preprocess of both splits), ``seed0``,
 ``seed1``, ... (train and sweep), ``heavy`` (probe, VOC07 SVM, bias on
 seed 0), ``clusters`` (the cluster leg, run for at most
 ``--cluster-seconds``; its loss stream is what it reached), ``ssl`` (the
@@ -55,7 +57,10 @@ PROTOCOL = ["OPTIM.BATCH_SIZE", "128", "OPTIM.CNN_LR", "0.025",
             "OPTIM.WARMUP_STEPS", "500"]
 ITERATIONS, CHECKPOINT_EVERY, LOG_EVERY = 10000, 2500, 100
 CLUSTER_START = 7500  # seed 0's checkpoint that the cluster leg resumes
-SYNTH = ["--seed", "0"]  # make_synth_data's arguments: its defaults
+# make_synth_data's arguments: those of the JAX campaign's corpus (every
+# split is drawn from one generator in order, so the scene count fixes the
+# val and zero-shot scenes too)
+SYNTH = ["--seed", "0", "--train-n", "6000", "--val-n", "500"]
 REFERENCE = "QUALITY_r05.json"  # the JAX package's three seeds
 DEVICE = None  # every CLI's device: None for theirs, the card
 
@@ -141,13 +146,15 @@ def main(_A) -> int:
     work = os.path.abspath(_A.work_dir)
     synth = os.path.join(work, "synth")
     os.makedirs(work, exist_ok=True)
-    out = {"protocol": "the JAX package's round-5 quality protocol "
-                       "(fs_tpu_tuned, synthetic corpus, batch 128, 10k "
-                       "iterations) through the port's CLIs",
-           "stages": {}}
+    out = {"stages": {}}
     if os.path.exists(_A.output):
         with open(_A.output) as f:
             out = json.load(f)
+    out["protocol"] = {
+        "description": "the JAX package's round-5 quality protocol "
+                       "(fs_tpu_tuned, synthetic corpus, batch 128, 10k "
+                       "iterations) through the port's CLIs",
+        "corpus": [str(a) for a in SYNTH]}
     failures = out.setdefault("failures", {})
     try:  # the card's name and power limit, beside every time here
         out["card"] = subprocess.run(

@@ -1,6 +1,9 @@
 """The pretraining CLI, the counterpart of the JAX package's
 ``train.py``: ``python -m clip_lite_torch.train --config <yaml> ...``
-trains on one card (``--device cpu`` for the CPU) from CLRec records
+trains on one card (``--device cpu`` for the CPU), or on N with one
+process a card (``torchrun --nproc-per-node N -m clip_lite_torch.train
+...``, or ``--num-hosts``, ``--host-rank`` and ``--coordinator-address``
+as the JAX CLI takes them), from CLRec records
 through the host loader (with ``DATA.NATIVE_PIPELINE``, JPEG records
 decoded on the card a batch at a time) or, with ``DATA.DEVICE_CACHE``,
 through the device-resident cache, with val sweeps, checkpoints and
@@ -10,6 +13,11 @@ hard-negative loaders (``data/datasets.py``, half the batch in items, each
 with its negative) at ``DATA.NEGATIVE_SAMPLING_START_ITERATION``, or
 starts with them when ``--resume-from`` names a checkpoint at or past it,
 as the JAX CLI does (its ``train.py:71-102, 177-187, 300-308``).
+Over N ranks ``OPTIM.BATCH_SIZE`` is the global batch: each rank loads
+its shard of every batch (the host loaders' ``num_shards``), or samples
+its rows from its block of the device cache (``DATA.CACHE_PLACEMENT``),
+and ``PARALLEL.ZERO1`` shards the optimizer's state (its
+``train.py:125-167, 224-260``); the val sweep's means are over all ranks.
 
 ``train_loop`` is the loop (lines 282-371 of the JAX ``train.py``) over
 any batch source.  Per iteration: one train step; every ``log_every``
@@ -40,6 +48,7 @@ trace to ``DIR/trace.json.gz``, which ``utils/trace.py`` parses):
 
 from __future__ import annotations
 
+import json
 import logging
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
@@ -53,16 +62,25 @@ from clip_lite_torch.engine import (
     make_train_step,
     metrics_to_floats,
 )
-from clip_lite_torch.eval_utils import resolve_device
 from clip_lite_torch.factories import (
     NegativeSamplingDatasetFactory,
     PretrainingDatasetFactory,
 )
 from clip_lite_torch.utils.checkpointing import CheckpointManager, peek_iteration
+from clip_lite_torch.parallel.collectives import COUNTS
+from clip_lite_torch.parallel.distributed import (
+    backend,
+    launched_by_torchrun,
+    process_count,
+    process_index,
+    shutdown,
+)
+from clip_lite_torch.parallel.mesh import local_batch_size
+from clip_lite_torch.parallel.zero1 import Zero1Optimizer
 from clip_lite_torch.utils.common import (
-    check_one_card,
     common_parser,
     common_setup,
+    setup_ranks,
 )
 from clip_lite_torch.utils.loggers import MetricsWriter
 from clip_lite_torch.utils.timers import Timer, device_mem_usage_mb
@@ -203,6 +221,23 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
     return state
 
 
+def kernel_launches() -> Dict[str, int]:
+    """Each hand-written kernel's launches in this process so far, by the
+    name of its wrapper's trace range, and K1/K2's on the tensor cores."""
+    from clip_lite_torch.data import native
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+    from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
+
+    return {"K1 attention_fwd": fused_short_attention.launches,
+            "K1 tensor cores": fused_short_attention.tc_launches,
+            "K2 attention_bwd": attention_backward.launches,
+            "K2 tensor cores": attention_backward.tc_launches,
+            "K3 normalize_u8": normalize_u8.launches,
+            "K3 augment_normalize_u8": augment_normalize_u8.launches,
+            "crop_resize_flip_u8": native.crop_resize_flip_u8.launches}
+
+
 def _validate(state: TrainState, eval_step: Callable, val_batches: Iterable,
               iteration: int, writer: Optional[MetricsWriter]
               ) -> Optional[float]:
@@ -267,7 +302,9 @@ def init_dataloaders(_C: Config, _A, device, kind: str = "normal") -> tuple:
     DATA.SEQ_BUCKETS), pinning their host batches for a CUDA ``device``;
     under DATA.NATIVE_PIPELINE their images are decoded on ``device``.
     ``kind`` ``clusters`` gives the clustered hard-negative loaders at half
-    of OPTIM.BATCH_SIZE in items, each a pair and its negative."""
+    of OPTIM.BATCH_SIZE in items, each a pair and its negative.  Over
+    more than one rank each loader yields this rank's shard of every
+    global batch."""
     batch_size = _C.OPTIM.BATCH_SIZE
     if kind == "normal":
         train_ds = PretrainingDatasetFactory.from_config(_C, split="train",
@@ -280,7 +317,8 @@ def init_dataloaders(_C: Config, _A, device, kind: str = "normal") -> tuple:
         batch_size //= 2
     common = dict(num_workers=_A.cpu_workers, seed=_C.RANDOM_SEED,
                   prefetch=_C.DATA.PREFETCH, drop_last=True,
-                  pin_memory=device.type == "cuda")
+                  pin_memory=device.type == "cuda",
+                  num_shards=process_count(), shard_index=process_index())
     train_loader = DataLoader(
         train_ds, batch_size, shuffle=True,
         length_group_batches=(_C.DATA.LENGTH_GROUP_BATCHES
@@ -292,12 +330,15 @@ def init_dataloaders(_C: Config, _A, device, kind: str = "normal") -> tuple:
 def main(_A) -> TrainState:
     """Train as ``_A`` (this module's ``parser``) says; returns the final
     state."""
-    check_one_card(_A)
-    device = resolve_device(_A.device)
+    device = setup_ranks(_A)
     _C = Config(_A.config, list(_A.config_override))
     _check_supported(_C, _A)
     common_setup(_C, _A, job_type="pretrain")
-    logger.info("Device: %s; batch %d", device, _C.OPTIM.BATCH_SIZE)
+    world = process_count()
+    logger.info("Device: %s; rank %d of %d (process group: %s); global batch "
+                "%d (%d a rank)", device, process_index(), world, backend(),
+                _C.OPTIM.BATCH_SIZE,
+                local_batch_size(_C.OPTIM.BATCH_SIZE, world))
 
     # The curriculum phase, from the resume point, before any loader is
     # built (the JAX CLI's train.py:177-187).
@@ -316,11 +357,14 @@ def main(_A) -> TrainState:
             crop_size=_C.DATA.IMAGE_CROP_SIZE,
             seq_buckets=_C.DATA.SEQ_BUCKETS, seed=_C.RANDOM_SEED,
             ssl_aug=_C.MODEL.VISUAL.SELF_SUPERVISED,
-            host_cache_dir=_C.DATA.CACHE_HOST_DIR, device=device)
+            host_cache_dir=_C.DATA.CACHE_HOST_DIR, device=device,
+            placement=_C.DATA.CACHE_PLACEMENT)
         batches.set_start(start_iteration)
-        logger.info("Device-resident dataset cache: %d items, %.2f GB, "
-                    "built in %.1f s; host pipeline out of the loop",
-                    len(train_loader.dataset), batches.memory_bytes() / 1e9,
+        logger.info("Device-resident dataset cache: %d items, %s, %.2f GB "
+                    "(%.2f GB on this card), built in %.1f s; host pipeline "
+                    "out of the loop", len(train_loader.dataset),
+                    batches.placement, batches.memory_bytes() / 1e9,
+                    batches.memory_bytes_per_device() / 1e9,
                     batches.build_seconds)
     else:
         batches = infinite_batches(train_loader, start_iteration)
@@ -329,6 +373,9 @@ def main(_A) -> TrainState:
     n_params = sum(p.numel() for p in state.model.parameters())
     logger.info("Model: %s + %s | %.2fM params", _C.MODEL.VISUAL.NETWORK_NAME,
                 _C.MODEL.TEXTUAL.NAME, n_params / 1e6)
+    if isinstance(state.optimizer, Zero1Optimizer):
+        logger.info("ZeRO-1 weight-update sharding: optimizer state 1/%d "
+                    "a rank", world)
     manager = CheckpointManager(_A.serialization_dir + _C.RUN_ID,
                                 keep_recent=_A.keep_recent, state=state)
     writer = MetricsWriter(_A.serialization_dir)
@@ -354,11 +401,15 @@ def main(_A) -> TrainState:
             if hasattr(stream, "close"):
                 stream.close()
     logger.info("Done: %d iterations.", _C.OPTIM.NUM_ITERATIONS)
+    logger.info("Kernel launches: %s; collectives: %s",
+                json.dumps(kernel_launches()), json.dumps(dict(COUNTS)))
+    if launched_by_torchrun() or _A.num_hosts > 1:
+        shutdown()  # the group this run joined
     return state
 
 
-__all__ = ["crossed_interval", "init_dataloaders", "main", "parser",
-           "train_loop"]
+__all__ = ["crossed_interval", "init_dataloaders", "kernel_launches", "main",
+           "parser", "train_loop"]
 
 
 if __name__ == "__main__":

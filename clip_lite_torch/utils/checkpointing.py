@@ -29,8 +29,12 @@ re-raises whatever the worker raised.  ``async_writes`` defaults to on
 when the state lives on CUDA and off on the CPU, as the JAX driver
 chooses by platform.
 
-Not yet here: the multi-host write gate and the gather of sharded leaves
-(ROADMAP Queue 1, item 5); the engine allows one rank.
+Across ranks (the JAX ``_globalize`` and ``_is_writer``): every rank
+builds the state's tree at each save, which under ZeRO-1 gathers the
+optimizer's slices (``parallel/zero1.py``, a collective), and rank 0
+alone writes; the others keep no buffers and write nothing.  The file is
+the one-rank one, so it resumes at any world size and in the JAX
+package; on a load every rank reads it and takes its own slices.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from clip_lite_torch.engine import TrainState, load_jax_tree, to_jax_tree
+from clip_lite_torch.parallel.distributed import is_primary_host
 from clip_lite_torch.utils import msgpack_io
 
 logger = logging.getLogger("clip_lite_torch")
@@ -168,9 +173,10 @@ class CheckpointManager:
         self.serialization_dir = serialization_dir
         self.keep_recent = keep_recent
         self.checkpointables = dict(checkpointables)
-        tensors = self._tensors(_flatten(self._trees()))
+        tensors = self._tensors(_flatten(self._trees()))  # every rank
         if async_writes is None:
             async_writes = any(t.device.type == "cuda" for t in tensors)
+        async_writes = async_writes and self._is_writer()
         self._executor = (ThreadPoolExecutor(max_workers=1)
                           if async_writes else None)
         self._staging = _Staging(tensors) if async_writes and tensors else None
@@ -178,7 +184,13 @@ class CheckpointManager:
         self._best_metric: Optional[float] = None
         self._recent: List[str] = []
         self.written: List[Dict[str, Any]] = []
-        os.makedirs(serialization_dir, exist_ok=True)
+        if self._is_writer():
+            os.makedirs(serialization_dir, exist_ok=True)
+
+    @staticmethod
+    def _is_writer() -> bool:
+        """Rank 0 writes; the other ranks only take part in the gathers."""
+        return is_primary_host()
 
     @property
     def async_writes(self) -> bool:
@@ -198,8 +210,10 @@ class CheckpointManager:
         docstring)."""
         path = os.path.join(self.serialization_dir,
                             f"checkpoint_{iteration}.msgpack")
-        self._submit(self._write_step, self._snapshot(), iteration, path,
-                     metric, mode)
+        host_tree = self._snapshot()
+        if host_tree is not None:
+            self._submit(self._write_step, host_tree, iteration, path,
+                         metric, mode)
         return path
 
     def climax_step(self, iteration: int, model_key: str = "state") -> str:
@@ -209,6 +223,8 @@ class CheckpointManager:
         path = os.path.join(self.serialization_dir,
                             f"climax_model_{iteration}.msgpack")
         host_tree = self._snapshot()
+        if host_tree is None:
+            return path
 
         def variables() -> dict:
             tree = host_tree()[model_key]
@@ -233,12 +249,15 @@ class CheckpointManager:
         return [leaf.detach() for _, leaf in items
                 if isinstance(leaf, torch.Tensor)]
 
-    def _snapshot(self) -> Callable[[], dict]:
+    def _snapshot(self) -> Optional[Callable[[], dict]]:
         """Copy the checkpointables' tensors into the kept buffers now
         (after waiting for the save in flight, which may still read them),
-        and return the function that gives their trees on the host."""
+        and return the function that gives their trees on the host; None
+        off rank 0, which only takes part in building the trees."""
         self.wait()
         items = _flatten(self._trees())
+        if not self._is_writer():
+            return None
         tensors = self._tensors(items)
         staging = self._staging
         if tensors and (staging is None or not staging.fits(tensors)):

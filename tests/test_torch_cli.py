@@ -143,9 +143,14 @@ REFUSALS = {
     # without the device cache: that path makes no augmented views.
     "ssl": (["MODEL.VISUAL.SELF_SUPERVISED", True, "DATA.NATIVE_PIPELINE",
              True], (), "no augmented views"),
-    "num_devices": ([], ("--num-devices", "2"), "item 5"),
-    "num_hosts": ([], ("--num-hosts", "2"), "item 5"),
-    "virtual_devices": ([], ("--virtual-devices", "8"), "item 5"),
+    # Multi-GPU training runs one process a card
+    # (tests/test_torch_distributed.py): --num-devices must be the world
+    # size, --num-hosts needs a rendezvous, and the JAX package's virtual
+    # CPU devices have no counterpart.
+    "num_devices": ([], ("--num-devices", "2"), "world size", ValueError),
+    "num_hosts": ([], ("--num-hosts", "2"), "coordinator-address",
+                  ValueError),
+    "virtual_devices": ([], ("--virtual-devices", "8"), "virtual CPU mesh"),
 }
 
 

@@ -246,9 +246,18 @@ def test_foreground_loader_matches_background(corpus):
 
 
 def test_more_than_one_shard_raises(corpus):
+    """Shards that do not split every batch evenly raise (the JAX loader's
+    checks); shards that do load (tests/test_torch_distributed.py)."""
     ds, _ = _datasets(overrides(corpus))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pipeline.DataLoader(ds, B, num_shards=2, shard_index=1)
+    with pytest.raises(ValueError, match="must divide"):
+        pipeline.DataLoader(ds, B + 1, num_shards=2, shard_index=1)
+    with pytest.raises(ValueError, match="drop_last"):
+        pipeline.DataLoader(ds, B, drop_last=False, num_shards=2,
+                            shard_index=1)
+    with pytest.raises(ValueError, match="out of range"):
+        pipeline.DataLoader(ds, B, num_shards=2, shard_index=2)
+    assert pipeline.DataLoader(ds, B, num_shards=2, shard_index=1).num_shards \
+        == 2
 
 
 def test_native_pipeline_raises(corpus):
