@@ -7,7 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 (``--crop-kernel`` runs phases 1, 2 and 10d's crop kernel alone, and
 prints its row; ``--native`` runs phases 1, 2 and 10d alone;
-``--quality`` phases 1, 2 and 11.)
+``--quality`` phases 1, 2 and 11; ``--ranks`` phases 1, 2 and 12;
+``--matrix`` phases 1, 2 and 13.)
 
 Phases; any failure raises and exits non-zero, and no phase's error is
 caught:
@@ -162,17 +163,16 @@ caught:
    items on one thread; then
    clip_lite_torch.train.main as ``python -m clip_lite_torch.train`` runs
    it, each run with the counts set to 0 just before and read just after:
-   (A) the flagship through the host loader, 20 steps of 128,
-   --checkpoint-every 10 (a val sweep of two batches, then a checkpoint),
-   K1 12 a step and 24 a sweep, K2 12 a step, checkpoint_10 and _20
-   written, finite losses; the CLI's median step over steps 3-9 (start
-   to start) beside the loader's batches/s and phase 6's step; (C) A
-   resumed from its
-   checkpoint_10 to 20: the batches of steps 11-20 equal A's (image_id,
-   input_ids, attention_mask, and images to the byte), and the final
-   state equals A's bit for bit (A and C run under deterministic
-   algorithms); an EncoderBundle from A's checkpoint_20 encodes as A's
-   live weights do; (B) fs_tpu_tuned with DATA.DEVICE_CACHE: the cache
+   (A) the flagship through the host loader, DATA_STEPS (12) steps of
+   128, --checkpoint-every DATA_SAVE (6: a val sweep of
+   two batches, then a checkpoint), K1 12 a step and 24 a sweep, K2 12 a
+   step, checkpoint_6 and _12 written, finite losses; the CLI's median
+   step over steps 3-5 (start to start) beside the loader's batches/s
+   and phase 6's step; (C) A resumed from its checkpoint_6 to 12: the
+   batches of steps 7-12 equal A's (image_id, input_ids, attention_mask,
+   and images to the byte), and the final state equals A's bit for bit
+   (A and C run under deterministic algorithms); an EncoderBundle from
+   A's checkpoint_12 encodes as A's live weights do; (B) fs_tpu_tuned with DATA.DEVICE_CACHE: the cache
    built through load_host from the train dataset (512 tiles of 256 px;
    its build seconds and bytes), K3's fused pass once a step, K1/K2 as in
    A; its median step; (D) the flagship with MODEL.TEXTUAL.SELF_SUPERVISED
@@ -293,7 +293,32 @@ caught:
    the norm within ZERO1_NORM_REL, parameters and slow weights within
    ZERO1_UPDATE_REL of the largest update (see the constants), one
    reduce-scatter, one all-reduce and one all-gather.
-13. One JSON line listing every kernel (K3's standalone and fused entry
+13. The rest of the model matrix, at full width, AMP bf16, batch 128,
+   MATRIX_STEPS (4) steps a path on seeded uint8 batches (K3's fused pass
+   a step), each with the counts set to 0 just before and read just after:
+   (a) vgg16 at 224 px (its classifier kept: 1000 features, dropout 0.5)
+   with the flagship BERT-12 at S = 30 (K1/K2 12 a step), then phase
+   10a's parity for its step (K3's fused pass against its composition on
+   the step's images, FUSED_ATOL; K1/K2 against the plain attention given
+   those images at batch 32: fp32 at PARITY_TOL; bf16 at its loss and
+   max-rel, and phase 7's floor against the fp32 step in place of its
+   cosine, which two correct bf16 steps of VGG16 miss); (b) ``python -m clip_lite_torch.train`` in the
+   glove mode over ndarray records (MATRIX_TRAIN and MATRIX_VAL tiles of
+   MATRIX_TILE px) with ResNet-50 and GloVe's 400,002 x 300 table, its
+   word dictionary written by the port's generate_word_dict from the
+   records' COCO annotations, and the final checkpoint (the
+   host loader normalizes, so no kernel launches there); (c) the sbert
+   mode with ResNet-50 and 768-d caption_encodings; (d) finetune_sbert
+   with ResNet-50 and BERT-base loaded by apply_pretrained_weights from
+   seeded torchvision- and HF-layout files the phase writes, every loaded
+   tensor equal to the file's on the card before the first step (K1/K2 12
+   a step); (e) zoo::wrn_40_2 at its CIFAR 32 px with BERT-12.  Each prints
+   the median step over steps 2-4 (host clock, each step from a sync to
+   the sync that reads its metrics; the first, a warm-up, beside it), the
+   peak memory, the losses and grad norms (all
+   finite) and the launches, each kernel's count checked exactly and every
+   K1/K2 launch on its route.
+14. One JSON line listing every kernel (K3's standalone and fused entry
    points each with their own launches, and crop_resize_flip_u8, which
    replaces the JAX core's host C++ and no TPU kernel); then the device
    line last.
@@ -372,7 +397,11 @@ TRAIN_STEPS, PARITY_BATCH, RATE = 10, 32, 0.1
 IMAGE_SHAPE = (BATCH, 224, 224, 3)
 # The data phase: CLRec records at COCO's shapes, CLI steps per run, and
 # batches timed through the host loader alone.
-DATA_TRAIN, DATA_VAL, DATA_STEPS, DATA_LOADER_BATCHES = 512, 256, 20, 6
+# Phase 10b's CLI runs take DATA_STEPS steps, saving every DATA_SAVE: 12
+# (once 20), to keep the whole script well inside its time limit on slow
+# hosts with phase 13 in it.
+DATA_TRAIN, DATA_VAL, DATA_STEPS, DATA_LOADER_BATCHES = 512, 256, 12, 6
+DATA_SAVE = DATA_STEPS // 2
 SSL_CLI_STEPS = 6  # phase 10b's textual SSL run (D): no sweep, one save
 # COCO train2017's image count, at the configs' CACHE_IMAGE_SIZE of 256.
 N_CORPUS, CACHE_SIZE, N_CAPS, CAPTION_TOKENS = 118_287, 256, 5, (8, 20)
@@ -1983,10 +2012,10 @@ def loader_split(dataset, n: int = LOADER_SPLIT_ITEMS) -> dict:
 def phase_data_cli(float_step: dict) -> dict:
     """The training CLI (clip_lite_torch.train.main, as ``python -m
     clip_lite_torch.train`` calls it) over a COCO-shaped CLRec corpus:
-    (A) the flagship through the host loader, 20 steps of 128, val sweeps
-    and checkpoints at 10 and 20; (B) fs_tpu_tuned through the device cache
-    built from the dataset; (C) A resumed from its checkpoint_10 to 20;
-    then an EncoderBundle from A's checkpoint_20.  A and C run under
+    (A) the flagship through the host loader, DATA_STEPS steps of 128, val
+    sweeps and checkpoints every DATA_SAVE; (B) fs_tpu_tuned through the
+    device cache built from the dataset; (C) A resumed from its first
+    checkpoint to the end; then an EncoderBundle from A's last checkpoint.  A and C run under
     deterministic algorithms (CUDNN_DETERMINISTIC, no cuDNN benchmark), so
     C must end where A did, bit for bit."""
     import os
@@ -2027,10 +2056,10 @@ def phase_data_cli(float_step: dict) -> dict:
                  "OPTIM.WARMUP_STEPS", DATA_STEPS // 2]
         same_bits = ["CUDNN_DETERMINISTIC", True, "CUDNN_BENCHMARK", False]
 
-        def args(name, config, extra=(), flags=()):
+        def args(name, config, extra=(), flags=(), every=DATA_SAVE):
             return cli.parser.parse_args([str(a) for a in (
                 "--config", config, "--serialization-dir",
-                os.path.join(root, name), "--checkpoint-every", 10,
+                os.path.join(root, name), "--checkpoint-every", every,
                 "--log-every", 5, "--cpu-workers", workers, *flags,
                 "--config-override", *sizes, *extra)])
 
@@ -2121,27 +2150,30 @@ def phase_data_cli(float_step: dict) -> dict:
             check_routes(cfg, cfg.DATA.MAX_CAPTION_LENGTH, record["launches"])
 
         def step_times(record):
-            """Steps 3-9 (before the first sweep), each from its start to
+            """Steps 3 to DATA_SAVE - 1 (before the first sweep), each from its start to
             the next step's: the step, its share of the loop, and the wait
             for the next batch.  Steps 1-2 are left out, as phase 6 leaves
             them out (and the loader's prefetch fills while the state is
             built)."""
             t = record["t"]
-            return [b - a for a, b in zip(t[2:9], t[3:10])]
+            return [b - a for a, b in zip(t[2:DATA_SAVE - 1], t[3:DATA_SAVE])]
 
         torch.use_deterministic_algorithms(True, warn_only=True)
         # (A) The host loader.
         a_args = args("a", FLAGSHIP, same_bits)
-        state_a, rec_a = run("a", a_args, keep_batches=range(11, DATA_STEPS + 1))
+        resumed = range(DATA_SAVE + 1, DATA_STEPS + 1)  # (C)'s steps
+        state_a, rec_a = run("a", a_args, keep_batches=resumed)
         expect("a", cfg_a, rec_a, DATA_STEPS)
         ckpt_a = a_args.serialization_dir + cfg_a.RUN_ID
         files = sorted(os.listdir(ckpt_a))
-        if not {"checkpoint_10.msgpack", "checkpoint_20.msgpack"} <= set(files):
+        if not {f"checkpoint_{DATA_SAVE}.msgpack",
+                f"checkpoint_{DATA_STEPS}.msgpack"} <= set(files):
             raise AssertionError(f"(a) wrote {files}")
         times_a = step_times(rec_a)
         step_a = statistics.median(times_a)
         log(f"data (a): checkpoints {files}; the CLI through the host loader "
-            f"at batch {BATCH}: median step {step_a} s over steps 3-9 "
+            f"at batch {BATCH}: median step {step_a} s over steps "
+            f"3-{DATA_SAVE - 1} "
             f"({times_a}), {1 / step_a} steps/s; "
             f"{DATA_STEPS / rec_a['wall']} steps/s over the whole run with "
             f"sweeps and checkpoints; the loader alone {1 / loader_s} "
@@ -2156,17 +2188,18 @@ def phase_data_cli(float_step: dict) -> dict:
         del state_a
         gc.collect()
 
-        # (C) A resumed from its checkpoint_10, to 20.
+        # (C) A resumed from its first checkpoint, to the end.
         c_args = args("c", FLAGSHIP, same_bits, ["--resume-from", os.path.join(
-            ckpt_a, "checkpoint_10.msgpack")])
-        state_c, rec_c = run("c", c_args, keep_batches=range(11, DATA_STEPS + 1))
-        expect("c", cfg_a, rec_c, DATA_STEPS - 10)
-        same = sorted(rec_c["batches"]) == list(range(11, DATA_STEPS + 1)) and all(
+            ckpt_a, f"checkpoint_{DATA_SAVE}.msgpack")])
+        state_c, rec_c = run("c", c_args, keep_batches=resumed)
+        expect("c", cfg_a, rec_c, DATA_STEPS - DATA_SAVE)
+        same = sorted(rec_c["batches"]) == list(resumed) and all(
             torch.equal(rec_a["batches"][i][k], rec_c["batches"][i][k])
-            for i in range(11, DATA_STEPS + 1)
+            for i in resumed
             for k in ("image_id", "input_ids", "attention_mask", "image"))
         d_ac = distance(final_a, state_tensors(state_c))
-        log(f"data (c): resumed at 10: batches of steps 11-{DATA_STEPS} equal "
+        log(f"data (c): resumed at {DATA_SAVE}: batches of steps "
+            f"{DATA_SAVE + 1}-{DATA_STEPS} equal "
             f"(A's) {same}; the final state at max |difference| {d_ac} from A's")
         if not same or d_ac != 0.0:
             raise AssertionError("the resumed CLI run left run A's stream or "
@@ -2176,7 +2209,7 @@ def phase_data_cli(float_step: dict) -> dict:
         gc.collect()
         torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
 
-        # An EncoderBundle from A's checkpoint_20 against A's live weights.
+        # An EncoderBundle from A's last checkpoint against A's live weights.
         n_layers = cfg_a.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
         rng = np.random.default_rng(22)
         images = rng.standard_normal((BATCH, 224, 224, 3), dtype=np.float32)
@@ -2184,8 +2217,8 @@ def phase_data_cli(float_step: dict) -> dict:
         tok = HashingTokenizer(cfg_a.MODEL.TEXTUAL.VOCAB_SIZE,
                                cfg_a.DATA.MAX_CAPTION_LENGTH)
         encoded = []
-        for kw in (dict(checkpoint_path=os.path.join(ckpt_a,
-                                                     "checkpoint_20.msgpack")),
+        for kw in (dict(checkpoint_path=os.path.join(
+                       ckpt_a, f"checkpoint_{DATA_STEPS}.msgpack")),
                    dict(state_dict=live_sd)):
             bundle = EncoderBundle(cfg_a, batch_size=BATCH, device="cuda", **kw)
             fused_short_attention.launches = 0
@@ -2200,7 +2233,7 @@ def phase_data_cli(float_step: dict) -> dict:
                    for x, y in zip(*encoded)):
             raise AssertionError("the bundle from the CLI's checkpoint encodes "
                                  "otherwise than the run's live weights")
-        log(f"data: EncoderBundle from (a)'s checkpoint_20: embeddings "
+        log(f"data: EncoderBundle from (a)'s checkpoint_{DATA_STEPS}: embeddings "
             f"{encoded[0][0].shape} {encoded[0][1].shape}, equal to the live "
             "weights'")
         del live_sd, encoded
@@ -2238,7 +2271,8 @@ def phase_data_cli(float_step: dict) -> dict:
         log(f"data (b): the device cache built through load_host in "
             f"{cache.build_seconds} s: {tiles} uint8 tiles, "
             f"{cache.memory_bytes()} bytes; the CLI through the cache at batch "
-            f"{BATCH}: median step {step_b} s over steps 3-9 ({times_b}), "
+            f"{BATCH}: median step {step_b} s over steps "
+            f"3-{DATA_SAVE - 1} ({times_b}), "
             f"{1 / step_b} steps/s; {DATA_STEPS / rec_b['wall']} steps/s over "
             f"the whole run with the cache's build, sweeps and checkpoints")
         out["b"] = dict(launches=rec_b["launches"], step_s=step_b,
@@ -2258,7 +2292,7 @@ def phase_data_cli(float_step: dict) -> dict:
                    "OPTIM.WARMUP_STEPS", SSL_CLI_STEPS // 2]
         cfg_d = Config(str(FLAGSHIP), sizes + d_extra)
         torch.cuda.reset_peak_memory_stats()
-        state_d, rec_d = run("d", args("d", FLAGSHIP, d_extra))
+        state_d, rec_d = run("d", args("d", FLAGSHIP, d_extra, every=10 ** 6))
         peak_d = torch.cuda.max_memory_allocated() / 2 ** 20
         n_layers = cfg_d.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS
         expect("d", cfg_d, rec_d, SSL_CLI_STEPS,
@@ -4376,6 +4410,471 @@ def phase_ranks() -> dict:
     return out
 
 
+# Phase 13, the model matrix: steps a path, the CLI's records (tiles of
+# MATRIX_TILE px), and overrides put after every config's own (empty here;
+# a rehearsal on the CPU shrinks the models through them).
+# The first step of a path is a warm-up (cuDNN's algorithm search): the
+# median is over the other three.
+MATRIX_STEPS, MATRIX_TRAIN, MATRIX_VAL, MATRIX_TILE = 4, 3 * BATCH, BATCH, 256
+MATRIX_SIZES: list = []
+VGG16 = ["MODEL.VISUAL.NETWORK_NAME", "vgg16", "MODEL.VISUAL.FEATURE_SIZE", 1000]
+WRN_40_2 = ["MODEL.VISUAL.NETWORK_NAME", "zoo::wrn_40_2",
+            "MODEL.VISUAL.FEATURE_SIZE", 128, "DATA.IMAGE_CROP_SIZE", 32]
+GLOVE = ["MODEL.TEXTUAL.NAME", "glove", "DATA.NAME", "glove",
+         "MODEL.TEXTUAL.FEATURE_SIZE", 300]
+SBERT = ["MODEL.TEXTUAL.NAME", "sbert", "DATA.NAME", "sbert"]
+FINETUNE = ["MODEL.TEXTUAL.NAME", "finetune_sbert"]
+
+
+def matrix_batch(cfg, rng: np.random.Generator, n: int = BATCH) -> dict:
+    """Seeded uint8 images at the config's crop and the text tower's input:
+    hashed caption ids, or 768-d sentence vectors in the sbert mode."""
+    from clip_lite_torch.data.tokenizers import HashingTokenizer
+
+    crop = cfg.DATA.IMAGE_CROP_SIZE
+    batch = {"image": rng.integers(0, 256, (n, crop, crop, 3), dtype=np.uint8)}
+    if cfg.MODEL.TEXTUAL.NAME == "sbert":
+        batch["caption_encodings"] = rng.standard_normal((n, 768), np.float32)
+    else:
+        tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE,
+                               cfg.DATA.MAX_CAPTION_LENGTH)
+        enc = tok(captions(rng, n), max_length=tok.max_length)
+        batch.update(input_ids=np.asarray(enc["input_ids"], np.int32),
+                     attention_mask=np.asarray(enc["attention_mask"], np.int32))
+    return batch
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches by its trace range name, and K1's and K2's on
+    the tensor-core route."""
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+
+    counts = {k: c.launches for k, c in kernel_counters().items()}
+    counts.update(attention_fwd_tc=fused_short_attention.tc_launches,
+                  attention_bwd_tc=attention_backward.tc_launches)
+    return counts
+
+
+def zero_launch_counts() -> None:
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+
+    for c in kernel_counters().values():
+        c.launches = 0
+    fused_short_attention.tc_launches = attention_backward.tc_launches = 0
+
+
+def matrix_check(name: str, cfg, launches: dict, steps: int, attention: bool,
+                 k3_fused: bool, sweeps: int = 0) -> None:
+    """K1 and K2 a text layer a step where BERT runs (K1 too a layer a val
+    batch), K3's fused pass a step on uint8 batches, nothing else; every
+    K1/K2 launch on the route attention_route picks."""
+    layers = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS if attention else 0
+    want = dict.fromkeys(kernel_counters(), 0)
+    want.update({"K1 attention_fwd": layers * (steps + sweeps),
+                 "K2 attention_bwd": layers * steps,
+                 "K3 augment_normalize_u8": steps if k3_fused else 0})
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"matrix ({name}): launches {got}, expected {want}")
+    check_routes(cfg, cfg.DATA.MAX_CAPTION_LENGTH, {
+        "attention_fwd": launches["K1 attention_fwd"],
+        "attention_bwd": launches["K2 attention_bwd"],
+        "attention_fwd_tc": launches["attention_fwd_tc"],
+        "attention_bwd_tc": launches["attention_bwd_tc"]})
+
+
+def matrix_steps(name: str, cfg, state, rng: np.random.Generator) -> dict:
+    """MATRIX_STEPS train steps of seeded batches through the engine, the
+    counts set to 0 just before and read just after: each step on the host
+    clock from a sync to the sync that reads its metrics, the median after
+    the first, the peak memory, finite losses and grad norms."""
+    from clip_lite_torch.engine import make_train_step, metrics_to_floats
+
+    batches = [matrix_batch(cfg, rng) for _ in range(MATRIX_STEPS)]
+    train_step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    seconds, metrics = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        metrics.append(metrics_to_floats(m))  # the step's sync
+        seconds.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(math.isfinite(m["total_loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics):
+        raise AssertionError(f"matrix ({name}): {metrics}")
+    out = dict(step_s=statistics.median(seconds[1:]), seconds=seconds,
+               peak_mib=peak, launches=launches,
+               total_loss=[m["total_loss"] for m in metrics],
+               grad_norm=[m["grad_norm"] for m in metrics])
+    log(f"matrix ({name}): {cfg.MODEL.VISUAL.NETWORK_NAME} + "
+        f"{cfg.MODEL.TEXTUAL.NAME} at {cfg.DATA.IMAGE_CROP_SIZE} px, batch "
+        f"{BATCH}, AMP {cfg.AMP}: median step {out['step_s']} s over steps "
+        f"2-{MATRIX_STEPS} (host clock, each ending in a sync: {seconds}), peak "
+        f"memory {peak} MiB, losses {out['total_loss']}, grad norms "
+        f"{out['grad_norm']}, launches {launches}")
+    return out
+
+
+def matrix_vgg_parity() -> dict:
+    """Phase 10a's parity for the vgg16 + BERT-12 step: from one state and
+    uint8 batch at PARITY_BATCH, dropout 0 in BERT (VGG's classifier
+    dropout draws alike in both, from the same StepRNG), one step through
+    the kernels (K1, K2 and K3's fused pass, whose images are held against
+    its composition on the same draws within FUSED_ATOL) and one through
+    the plain attention given those images, in fp32, in bf16 and in bf16
+    with all but the text tower in fp32.  fp32 is held at PARITY_TOL.  In
+    bf16 the two steps' QKV gradients lie at cosine 0.9897 apart on an
+    H100 (PERF.md, section 6), under PARITY_TOL's 0.99, yet each lies as far
+    from the fp32 step as the other (cosine 0.9720 and 0.9729): two correct
+    bf16 steps of this model differ that much.  So bf16 is held at
+    PARITY_TOL's loss and max-rel, and, in place of its cosine, by phase
+    7's floor: the kernels' step no further from the fp32 step than the
+    twins', within BF16_FLOOR_FACTOR, in max-rel and in 1 - cosine."""
+    import clip_lite_torch.ops.image_ops as image_ops
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.engine import (
+        create_train_state, make_train_step, metrics_to_floats)
+    from clip_lite_torch.factories import OptimizerFactory
+
+    real_augment = image_ops.augment_normalize_u8
+    runs, k3_err = {}, {}
+    # One model for the three kinds: AMP's compute types as built, all fp32,
+    # or all but the text tower's in fp32; each step from the same start.
+    cfg = Config(str(FLAGSHIP), VGG16 + MATRIX_SIZES + [
+        "MODEL.TEXTUAL.DROPOUT", 0.0])
+    batch = matrix_batch(cfg, np.random.default_rng(40), PARITY_BATCH)
+    state = create_train_state(cfg, device="cuda")
+    state_dict = {k: v.detach().clone()
+                  for k, v in state.model.state_dict().items()}
+    amp = {m: m.compute_dtype for m in state.model.modules()
+           if hasattr(m, "compute_dtype")}
+    text = set(state.model.text_encoder.modules())
+    layers = state.model.text_encoder.transformer
+    try:
+        for kind in ("float32", "bfloat16", "text_bf16"):
+            for module, dtype in amp.items():
+                module.compute_dtype = (
+                    dtype if kind == "bfloat16"
+                    or (kind == "text_bf16" and module in text)
+                    else torch.float32)
+            made = []
+
+            def recorded(images, draws, flip=True, color_jitter=True):
+                made.append(real_augment(images, draws, flip, color_jitter))
+                twin = image_ops.augment_reference(images, draws, flip,
+                                                   color_jitter)
+                k3_err[kind] = float((made[-1] - twin).abs().max())
+                return made[-1]
+
+            def replayed(images, draws, flip=True, color_jitter=True):
+                return made.pop(0)
+
+            for flag, augment in (("true", recorded), ("false", replayed)):
+                state.model.load_state_dict(state_dict)
+                state.optimizer = OptimizerFactory.from_config(cfg, state.model)
+                state.step = 0
+                for n in layers.layer_names:
+                    getattr(layers, n).fused_attention = flag
+                image_ops.augment_normalize_u8 = augment
+                state, metrics = make_train_step(cfg)(state, batch)
+                grads = [getattr(layers, n).qkv.weight.grad.float().clone()
+                         for n in layers.layer_names]
+                runs[kind, flag] = (metrics_to_floats(metrics), grads)
+    finally:
+        image_ops.augment_normalize_u8 = real_augment
+        del state, layers, state_dict
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"matrix (a) parity: K3's fused pass against its composition on the "
+        f"step's images and draws, max |difference| {k3_err} (bar "
+        f"{FUSED_ATOL['own means']})")
+    if max(k3_err.values()) > FUSED_ATOL["own means"]:
+        raise AssertionError(f"matrix (a): K3's fused pass off its twin: "
+                             f"{k3_err}")
+    out = {kind: parity(runs[kind, "true"], runs[kind, "false"])
+           for kind in ("float32", "bfloat16", "text_bf16")}
+    for kind, got in out.items():
+        log(f"matrix (a) parity {kind}, vgg16 + BERT-12 at batch "
+            f"{PARITY_BATCH}, K1/K2 against the plain attention: {got} (tol "
+            f"{PARITY_TOL['float32' if kind == 'float32' else 'bfloat16']})")
+    floor = {(kind, flag): parity(runs[kind, flag], runs["float32", "false"])
+             for kind in ("bfloat16", "text_bf16") for flag in ("true", "false")}
+    for (kind, flag), got in floor.items():
+        log(f"matrix (a) parity: {kind} step, FUSED_ATTENTION {flag}, against "
+            f"the plain fp32 step: {got}")
+    out["bf16_vs_float32"] = {f"{kind} {flag}": got
+                              for (kind, flag), got in floor.items()}
+    out["k3_max_abs"] = max(k3_err.values())
+    if not within(out["float32"], PARITY_TOL["float32"]):
+        raise AssertionError(f"matrix (a) float32: step parity fails: "
+                             f"{out['float32']}")
+    bar = PARITY_TOL["bfloat16"]
+    for kind in ("bfloat16", "text_bf16"):
+        got = out[kind]
+        fused, plain = floor[kind, "true"], floor[kind, "false"]
+        if (got["loss_rel"] > bar["loss"] or got["qkv_grad_rel_max"] > bar["rel"]
+                or fused["qkv_grad_rel_max"]
+                > BF16_FLOOR_FACTOR * plain["qkv_grad_rel_max"]
+                or 1 - fused["qkv_grad_cos_min"]
+                > BF16_FLOOR_FACTOR * (1 - plain["qkv_grad_cos_min"])):
+            raise AssertionError(
+                f"matrix (a) {kind}: the step through the kernels is off the "
+                f"twins' ({got}) or lies more than {BF16_FLOOR_FACTOR}x as far "
+                f"from the fp32 step ({fused} against {plain})")
+    return out
+
+
+def write_matrix_records(root: str, mode: str,
+                         rng: np.random.Generator) -> None:
+    """CLRec train and val files of MATRIX_TILE-square ndarray records for
+    the ``mode`` datasets, five captions each drawn from WORDS, and COCO's
+    caption annotations of the train split."""
+    import os
+
+    from clip_lite_torch.data.readers import ClRecWriter
+
+    anns = []
+    for split, n in (("train", MATRIX_TRAIN), ("val", MATRIX_VAL)):
+        with ClRecWriter(os.path.join(
+                root, f"coco_{split}_{mode}2017.clrec")) as w:
+            for i in range(n):
+                caps = captions(rng, 5)
+                if split == "train":
+                    anns += [{"image_id": i, "id": 5 * i + j, "caption": c}
+                             for j, c in enumerate(caps)]
+                w.append({"image_id": i, "captions": caps,
+                          "image": rng.integers(0, 256, (MATRIX_TILE,
+                                                         MATRIX_TILE, 3),
+                                                dtype=np.uint8)})
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    with open(os.path.join(root, "annotations", "captions_train2017.json"),
+              "w") as f:
+        json.dump({"annotations": anns}, f)
+
+
+def matrix_glove_cli(root: str) -> dict:
+    """(b) ``python -m clip_lite_torch.train`` in the glove mode: the word
+    dictionary from the port's generate_word_dict over the records'
+    annotations, the table at GloVe's 400,002 x 300, ResNet-50, the host
+    loader over ndarray records (float32 batches: it normalizes on the
+    host, so K3 has no launch here), MATRIX_STEPS steps and the final
+    checkpoint.  Counts set to 0 just before and read just
+    after."""
+    import argparse
+    import os
+
+    import clip_lite_torch.train as cli
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.scripts import generate_word_dict
+
+    write_matrix_records(root, "glove", np.random.default_rng(41))
+    word_dict = generate_word_dict.main(argparse.Namespace(
+        coco_root=root, splits=["train"], glove_path=None, min_count=1,
+        output=os.path.join(root, "word_dict.json")))
+    overrides = ["MODEL.NAME", "captions", "DATA.ROOT", root,
+                 "OPTIM.BATCH_SIZE", BATCH, "OPTIM.NUM_ITERATIONS",
+                 MATRIX_STEPS, "OPTIM.WARMUP_STEPS", 1, *GLOVE,
+                 "MODEL.TEXTUAL.WORD_DICT_PATH",
+                 os.path.join(root, "word_dict.json"), *MATRIX_SIZES]
+    args = cli.parser.parse_args([str(a) for a in (
+        "--config", FLAGSHIP, "--serialization-dir",
+        os.path.join(root, "glove_run"), "--checkpoint-every", 10 ** 6,
+        "--log-every", 1, "--cpu-workers", os.cpu_count() or 1,
+        "--config-override", *overrides)])
+    cfg = Config(str(FLAGSHIP), overrides)
+    real_make_step = cli.make_train_step
+    seconds, tokens = [], []
+
+    def make_step(c):
+        step = real_make_step(c)
+
+        def timed(state, batch):
+            tokens.append(int(batch["caption_tokens"].max()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return state, metrics
+        return timed
+
+    cli.make_train_step = make_step
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        state = cli.main(args)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        cli.make_train_step = real_make_step
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    metrics = [json.loads(line) for line in open(os.path.join(
+        root, "glove_run", "metrics.jsonl"))]
+    table = state.model.text_encoder.embedding.weight
+    if (tuple(table.shape) != (400002, 300) or state.step != MATRIX_STEPS
+            or not all(math.isfinite(m["total_loss"]) for m in metrics)
+            or min(tokens) <= 3):  # ids above the specials: real words
+        raise AssertionError(f"matrix (b): table {tuple(table.shape)}, step "
+                             f"{state.step}, largest ids {tokens}, metrics "
+                             f"{metrics}")
+    out = dict(step_s=statistics.median(seconds[1:]), seconds=seconds,
+               peak_mib=peak, launches=launches, words=len(word_dict),
+               total_loss=[m["total_loss"] for m in metrics
+                           if m["split"] == "train"],
+               grad_norm=[m["grad_norm"] for m in metrics
+                          if m["split"] == "train"])
+    log(f"matrix (b): the CLI, resnet50 + glove (400,002 x 300, a word "
+        f"dictionary of {len(word_dict)} entries), batch {BATCH}, host "
+        f"loader: median step {out['step_s']} s over steps 2-{MATRIX_STEPS} "
+        f"(host clock, each from a sync to a sync, the loader's threads "
+        f"running beside it: {seconds}), peak memory {peak} "
+        f"MiB, metrics {json.dumps(metrics)}, launches {launches}")
+    del state
+    return out
+
+
+def matrix_pretrained_files(root: str, cfg) -> tuple:
+    """A seeded ResNet of the config (ResNet-50) in torchvision's layout
+    (``.pth``) and a seeded BERT of its text tower (BERT-base) in Hugging
+    Face's (``.pt``, wrapped in ``state_dict``), each made by the port's
+    own export of a seeded tower."""
+    import os
+
+    from clip_lite_torch.models.bert import BertModel
+    from clip_lite_torch.models.image_encoder import torchvision_resnet_state_dict
+    from clip_lite_torch.models.pretrained import export_hf_bert_state_dict
+    from clip_lite_torch.models.resnet import RESNETS
+    from clip_lite_torch.ops.layers import init_weights
+
+    vis_cfg, txt_cfg = cfg.MODEL.VISUAL, cfg.MODEL.TEXTUAL
+    h = txt_cfg.HIDDEN_SIZE
+    gen = torch.Generator().manual_seed(42)
+    tower = init_weights(RESNETS[vis_cfg.NETWORK_NAME](width=vis_cfg.WIDTH), gen)
+    with torch.no_grad():
+        for b in tower.buffers():
+            b.uniform_(0.5, 1.5, generator=gen)
+    vis = os.path.join(root, "resnet50_torchvision.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                torchvision_resnet_state_dict(tower).items()}, vis)
+    txt = os.path.join(root, "bert_base_hf.pt")
+    torch.save({"state_dict": export_hf_bert_state_dict(init_weights(BertModel(
+        vocab_size=txt_cfg.VOCAB_SIZE, hidden_size=h, num_heads=max(1, h // 64),
+        intermediate_size=4 * h, num_hidden_layers=txt_cfg.NUM_HIDDEN_LAYERS),
+        gen))}, txt)
+    return vis, txt
+
+
+def phase_matrix() -> dict:
+    """Phase 13: the rest of the model matrix on the card at full width,
+    AMP bf16, batch 128, MATRIX_STEPS steps each on seeded uint8 batches
+    (K3's fused pass a step): (a) vgg16 at 224 px with the flagship BERT-12
+    at S = 30, then its kernels' step against the twins' (phase 10a's
+    parity); (b) the
+    glove mode through the CLI; (c) the sbert mode (768-d
+    caption_encodings) with ResNet-50; (d) finetune_sbert, ResNet-50 and
+    BERT-base loaded by apply_pretrained_weights from seeded torchvision-
+    and HF-layout files, checked equal to the files' tensors on the card
+    before the first step; (e) zoo::wrn_40_2 at 32 px with BERT-12."""
+    import shutil
+    import tempfile
+
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.engine import create_train_state
+    from clip_lite_torch.factories import OptimizerFactory
+    from clip_lite_torch.models import pretrained
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_matrix_")
+    try:
+        # (a) vgg16 + BERT-12.
+        cfg = Config(str(FLAGSHIP), VGG16 + MATRIX_SIZES)
+        state = create_train_state(cfg, device="cuda")
+        if state.model.image_encoder.feature_size != 1000:
+            raise AssertionError("vgg16 emits its classifier's 1000 features")
+        out["a"] = matrix_steps("a", cfg, state, np.random.default_rng(43))
+        matrix_check("a", cfg, out["a"]["launches"], MATRIX_STEPS, True, True)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["a"]["parity"] = matrix_vgg_parity()
+
+        # (b) glove through the CLI.
+        out["b"] = matrix_glove_cli(root)
+        matrix_check("b", Config(str(FLAGSHIP), GLOVE + MATRIX_SIZES),
+                     out["b"]["launches"], MATRIX_STEPS, False, False)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) sbert: precomputed sentence vectors.
+        cfg = Config(str(FLAGSHIP), SBERT + MATRIX_SIZES)
+        state = create_train_state(cfg, device="cuda")
+        out["c"] = matrix_steps("c", cfg, state, np.random.default_rng(44))
+        matrix_check("c", cfg, out["c"]["launches"], MATRIX_STEPS, False, True)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) finetune_sbert from local files.
+        cfg = Config(str(FLAGSHIP), FINETUNE + MATRIX_SIZES)
+        vis, txt = matrix_pretrained_files(root, cfg)
+        cfg = Config(str(FLAGSHIP), FINETUNE + MATRIX_SIZES + [
+            "MODEL.VISUAL.PRETRAINED", True, "MODEL.VISUAL.PRETRAINED_PATH", vis,
+            "MODEL.TEXTUAL.PRETRAINED", True,
+            "MODEL.TEXTUAL.PRETRAINED_PATH", txt])
+        state = create_train_state(cfg, device="cuda")
+        t0 = time.perf_counter()
+        pretrained.apply_pretrained_weights(state.model, cfg)
+        state.optimizer = OptimizerFactory.from_config(cfg, state.model)
+        load_s = time.perf_counter() - t0
+        files = {"image_encoder.backbone": pretrained.import_torch_resnet_state_dict(
+                     pretrained.load_torch_state_dict(vis)),
+                 "text_encoder.transformer": pretrained.import_hf_bert_state_dict(
+                     pretrained.load_torch_state_dict(txt),
+                     cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS)}
+        on_card = state.model.state_dict()
+        unequal = [f"{prefix}.{k}" for prefix, sd in files.items()
+                   for k, t in sd.items()
+                   if not torch.equal(on_card[f"{prefix}.{k}"].cpu(), t)]
+        n_tensors = sum(len(sd) for sd in files.values())
+        log(f"matrix (d): apply_pretrained_weights loaded {n_tensors} tensors "
+            f"(ResNet-50 torchvision, BERT-base HF) in {load_s} s; on the card "
+            f"{n_tensors - len(unequal)} of them equal the files'")
+        if unequal or not n_tensors:
+            raise AssertionError(f"matrix (d): {len(unequal)} tensors differ "
+                                 f"from the files: {unequal[:5]}")
+        del files, on_card
+        out["d"] = matrix_steps("d", cfg, state, np.random.default_rng(45))
+        out["d"]["tensors_loaded"] = n_tensors
+        matrix_check("d", cfg, out["d"]["launches"], MATRIX_STEPS, True, True)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) a zoo tower at its CIFAR input.
+        cfg = Config(str(FLAGSHIP), WRN_40_2 + MATRIX_SIZES)
+        state = create_train_state(cfg, device="cuda")
+        out["e"] = matrix_steps("e", cfg, state, np.random.default_rng(46))
+        matrix_check("e", cfg, out["e"]["launches"], MATRIX_STEPS, True, True)
+        del state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"matrix: phase 13 in {time.perf_counter() - phase_t0} s")
+    return out
+
+
 def crop_kernel_only() -> int:
     """``--crop-kernel``: phase 10d's records, then crop_resize_flip_u8
     alone (native_kernel_alone), its row printed as one JSON line."""
@@ -4408,6 +4907,9 @@ def main() -> int:
         "--ranks", action="store_true",
         help="run phases 1, 2 and 12 (multi-GPU training) alone")
     parser.add_argument(
+        "--matrix", action="store_true",
+        help="run phases 1, 2 and 13 (the model matrix) alone")
+    parser.add_argument(
         "--crop-kernel", action="store_true",
         help="build decode_crop.cu, check and time crop_resize_flip_u8 alone "
              "on phase 10d's records and print its row, nothing else (to "
@@ -4438,6 +4940,10 @@ def main() -> int:
         phase_build()
         phase_ranks()
         return 0
+    if args.matrix:
+        phase_build()
+        phase_matrix()
+        return 0
     phase_build()
     phase_attention()
     inference = phase_main_path()
@@ -4464,6 +4970,9 @@ def main() -> int:
     quality = phase_quality(training)
     ranks = {f"ranks_{name}": run["launches"]
              for name, run in phase_ranks()["runs"].items()}
+    # Phase 13's runs, counted by range name as the ranks'.
+    matrix = {f"matrix_{run}": result["launches"]
+              for run, result in phase_matrix().items()}
     cli = {"cli_host_loader": data["a"]["launches"],
            "cli_resumed": data["c"]["launches"],
            "cli_device_cache": data["b"]["launches"],
@@ -4496,7 +5005,9 @@ def main() -> int:
                        quality["switched"]["attention_fwd"],
                    "quality_cluster_training":
                        quality["clusters"]["attention_fwd"],
-                   **{k: n["K1 attention_fwd"] for k, n in ranks.items()}}
+                   **{k: n["K1 attention_fwd"] for k, n in ranks.items()},
+                   **{k: n["K1 attention_fwd"] for k, n in matrix.items()
+                      if n["K1 attention_fwd"]}}
     k2_launches = {"training": training["launches"]["attention_bwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"],
@@ -4509,7 +5020,9 @@ def main() -> int:
                        quality["switched"]["attention_bwd"],
                    "quality_cluster_training":
                        quality["clusters"]["attention_bwd"],
-                   **{k: n["K2 attention_bwd"] for k, n in ranks.items()}}
+                   **{k: n["K2 attention_bwd"] for k, n in ranks.items()},
+                   **{k: n["K2 attention_bwd"] for k, n in matrix.items()
+                      if n["K2 attention_bwd"]}}
     k3_fused_launches = {
         "uint8_training": uint8["launches"]["augment_normalize"],
         "ssl_visual_training": ssl["launches"]["K3 augment_normalize_u8"],
@@ -4519,7 +5032,9 @@ def main() -> int:
            if n["augment_normalize"]},
         "quality_cache_training": quality["normal"]["augment_normalize"],
         "quality_switched_native": quality["switched"]["augment_normalize"],
-        **{k: n["K3 augment_normalize_u8"] for k, n in ranks.items()}}
+        **{k: n["K3 augment_normalize_u8"] for k, n in ranks.items()},
+        **{k: n["K3 augment_normalize_u8"] for k, n in matrix.items()
+           if n["K3 augment_normalize_u8"]}}
     k3_launches = {"uint8_eval": uint8["launches"]["normalize"],
                    **{k: n["normalize"] for k, n in cli.items()
                       if n["normalize"]},

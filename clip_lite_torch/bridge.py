@@ -15,8 +15,10 @@ renamed:
   ``embedding``, LN/BN ``scale``       -> ``weight``
   BN ``mean`` / ``var``                -> ``running_mean`` / ``running_var``
 
-BERT's fused ``qkv`` (H, 3H) is an ordinary Dense.  Every leaf must be
-used exactly once and every port key filled, with matching shapes.
+BERT's fused ``qkv`` (H, 3H) is an ordinary Dense; grouped convs keep
+flax's (kh, kw, Cin / groups, Cout), torch's (Cout, Cin / groups, kh, kw).
+The glove table is ``text_encoder/embedding/embedding``.  Every leaf must
+be used exactly once and every port key filled, with matching shapes.
 
 :func:`jax_path` goes the other way for one key: the JAX package's dotted
 path of a port parameter, so that a path regex written for the JAX
@@ -30,6 +32,7 @@ tree in the JAX package).
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -37,9 +40,11 @@ import torch
 from torch import nn
 
 from clip_lite_torch.config import Config
+from clip_lite_torch.models import zoo
 from clip_lite_torch.models.bert import BertEmbeddings, BertLayer
 from clip_lite_torch.models.mpnet import MPNetModel
 from clip_lite_torch.models.resnet import ConvBN
+from clip_lite_torch.models.vgg import VGG
 from clip_lite_torch.ops.layers import BatchNorm, LayerNorm
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
@@ -49,8 +54,10 @@ _WRAPPER_LEVELS = {"BatchNorm_0", "LayerNorm_0"}
 # The port's norm layers held by these modules are flax's own in the JAX
 # package, with no wrapper level in their path; all others are the
 # package's wrappers around flax's, one ``BatchNorm_0``/``LayerNorm_0``
-# level deeper.  MPNet's layers are BertLayers.
-_FLAX_NORM_OWNERS = (ConvBN, BertEmbeddings, BertLayer, MPNetModel)
+# level deeper.  MPNet's layers are BertLayers.  VGG and the model zoo
+# hold flax's BatchNorm directly.
+_FLAX_NORM_OWNERS = (ConvBN, BertEmbeddings, BertLayer, MPNetModel, VGG,
+                     zoo.ConvBN, zoo.WRNBlock, zoo.WideResNet)
 _COLLECTIONS = ("params", "batch_stats")
 
 
@@ -88,18 +95,20 @@ def _convert(variables: dict, expected: Dict[str, tuple]) -> Dict[str, torch.Ten
             if name not in _LEAF_NAMES:
                 raise KeyError(f"{collection}/{'/'.join(path)}: unknown leaf")
             key = ".".join(mods + [_LEAF_NAMES[name]])
-            arr = np.asarray(leaf, np.float32)
-            if name == "kernel":
-                arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+            with warnings.catch_warnings():  # read-only arrays: copied below
+                warnings.simplefilter("ignore", UserWarning)
+                t = torch.from_numpy(np.asarray(leaf, np.float32))
+            if name == "kernel":  # torch's transposing copy is numpy's 4x
+                t = t.t() if t.ndim == 2 else t.permute(3, 2, 0, 1)
             if key in out:
                 raise KeyError(f"{collection}/{'/'.join(path)}: {key} filled twice")
             if key not in expected:
                 raise KeyError(f"{collection}/{'/'.join(path)} maps to {key}, "
                                "which the port model does not have")
-            if arr.shape != expected[key]:
-                raise ValueError(f"{key}: shape {arr.shape} from "
+            if tuple(t.shape) != expected[key]:
+                raise ValueError(f"{key}: shape {tuple(t.shape)} from "
                                  f"{'/'.join(path)}, port wants {expected[key]}")
-            out[key] = torch.from_numpy(arr.copy())  # C order, 0-d kept
+            out[key] = t.clone(memory_format=torch.contiguous_format)
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f"port keys with no JAX leaf: {missing}")

@@ -7,9 +7,7 @@ index), so that the port's items are the JAX package's for the same seed.
 Here: the pretraining datasets ``RandomDataset``, ``CocoCaptionsDataset``
 (CLRec records, through the Python path or, with ``native_pipeline``, the
 native JPEG batch path of ``data/native.py``) and ``JsonDataset``
-(ALBEF-style json over image files) in the ``train_sbert`` mode, and the
-downstream eval
-datasets (VOC07, iNaturalist 2018, ImageNet, COCO and Flickr30k
+(ALBEF-style json over image files), and the downstream eval datasets (VOC07, iNaturalist 2018, ImageNet, COCO and Flickr30k
 retrieval, the gender-labelled COCO subset).  Image files are decoded by
 :func:`~clip_lite_torch.data.readers.read_image`.  Like the JAX package's
 Python path, an item's image is float32 whatever the transforms: without
@@ -25,8 +23,16 @@ of the same image.
 ``CocoCaptionsClusteredDataset`` pairs each item with a hard negative
 from its caption cluster, for the training CLI's cluster curriculum.
 
-Not here yet, raising with their item of ROADMAP Queue 1: the ``glove``
-and ``sbert`` modes (item 7(c)).
+The text side of an item follows the dataset's ``mode`` (DATA.NAME), as
+in the JAX package: ``train_sbert`` gives ``input_ids`` and
+``attention_mask`` from the Hugging Face (or hashing) tokenizer;
+``glove`` gives ``caption_tokens`` (``<start>``, the words' ids from the
+word dictionary at ``word_dict_path``, ``<eos>``, cut to
+``max_caption_length`` and padded with ``<pad>``), ``noitpac_tokens`` (the
+same ids reversed) and ``caption_lengths``; ``sbert`` gives
+``caption_encodings``, a record's precomputed 768-d sentence vector (one
+row drawn where it holds several).  Only ``train_sbert`` makes the SSL
+views, and only it takes the native batch path.
 """
 
 from __future__ import annotations
@@ -43,7 +49,16 @@ import numpy as np
 
 from clip_lite_torch.data import transforms as T
 from clip_lite_torch.data.readers import CocoCaptionsRecordReader, read_image
-from clip_lite_torch.data.tokenizers import get_hf_tokenizer
+from clip_lite_torch.data.tokenizers import GloveTokenizer, get_hf_tokenizer
+
+MODES = ("train_sbert", "glove", "sbert")
+
+
+def _pad_tokens(ids: List[int], length: int, pad: int) -> np.ndarray:
+    out = np.full((length,), pad, np.int32)
+    ids = ids[:length]
+    out[: len(ids)] = ids
+    return out
 
 
 class Dataset:
@@ -79,11 +94,10 @@ class CaptionDatasetBase(Dataset):
                  visual_self_supervised: bool = False,
                  textual_self_supervised: bool = False,
                  vocab_size: Optional[int] = None,
-                 seq_buckets: Optional[Sequence[int]] = None):
-        if mode != "train_sbert":
-            raise NotImplementedError(
-                f"the {mode!r} dataset mode lands with the rest of the model "
-                "matrix (ROADMAP Queue 1, item 7(c))")
+                 seq_buckets: Optional[Sequence[int]] = None,
+                 word_dict_path: Optional[str] = None):
+        if mode not in MODES:
+            raise ValueError(f"Unknown dataset mode {mode!r}")
         self.mode = mode
         self.visual_self_supervised = visual_self_supervised
         self.textual_self_supervised = textual_self_supervised
@@ -105,9 +119,22 @@ class CaptionDatasetBase(Dataset):
         self.caption_transform = T.Compose(
             [T.NormalizeCaption(max_caption_length)])
         self.tokenizer_name = tokenizer_name
-        self.tokenizer = get_hf_tokenizer(
-            tokenizer_name, max_length=max_caption_length,
-            vocab_size=vocab_size)
+        if mode == "glove":
+            # Without the dictionary's file every word is <unk>, as in JAX.
+            self.tokenizer = (
+                GloveTokenizer(word_dict_path)
+                if word_dict_path and os.path.exists(word_dict_path)
+                else GloveTokenizer(word_dict={w: i for i, w in enumerate(
+                    ["<pad>", "<start>", "<eos>", "<unk>"])}))
+            self.padding_idx = self.tokenizer.token_to_id("<pad>")
+            self.glove_pipeline = T.Compose([
+                T.NormalizeCaption(max_caption_length),
+                T.TokenizeCaption(self.tokenizer),
+                T.TruncateCaptionTokens(max_caption_length)])
+        else:
+            self.tokenizer = get_hf_tokenizer(
+                tokenizer_name, max_length=max_caption_length,
+                vocab_size=vocab_size)
 
     def _tokenize(self, caption: str) -> Tuple[np.ndarray, np.ndarray]:
         enc = self.tokenizer(caption, padding="max_length", truncation=True,
@@ -121,25 +148,40 @@ class CaptionDatasetBase(Dataset):
         """The item, drawing from ``rng`` in the JAX ``_prepare``'s order:
         the caption, the SSL caption (redrawn while it equals the first),
         the image transform, the caption transforms, the SSL image's own
-        transform draw."""
-        if isinstance(captions, str):
-            captions = [captions]
-        if self.use_single_caption or len(captions) == 1:
-            caption = captions[0]
+        transform draw.  In the sbert mode ``captions`` is the item's
+        sentence vector itself."""
+        if self.mode == "sbert":
+            caption = captions
         else:
-            caption = captions[int(rng.integers(len(captions)))]
+            if isinstance(captions, str):
+                captions = [captions]
+            if self.use_single_caption or len(captions) == 1:
+                caption = captions[0]
+            else:
+                caption = captions[int(rng.integers(len(captions)))]
         aug_caption = caption
         if self.textual_self_supervised and isinstance(captions, list) \
                 and any(c != caption for c in captions):
             while aug_caption == caption:
                 aug_caption = captions[int(rng.integers(len(captions)))]
         out = self.image_transform(image=image, caption=caption, rng=rng)
+        item = {"image_id": np.int64(image_id),
+                "image": np.asarray(out["image"], np.float32)}
+        if self.mode == "sbert":
+            item["caption_encodings"] = np.asarray(caption, np.float32)
+            return item
+        if self.mode == "glove":
+            tokens = self.glove_pipeline(caption=out.get("caption", caption),
+                                         rng=rng)["caption"]
+            n = self.max_caption_length
+            item.update(
+                caption_tokens=_pad_tokens(tokens, n, self.padding_idx),
+                noitpac_tokens=_pad_tokens(tokens[::-1], n, self.padding_idx),
+                caption_lengths=np.int64(len(tokens)))
+            return item
         caption = self.caption_transform(
             caption=out.get("caption", caption), rng=rng)["caption"]
-        ids, mask = self._tokenize(caption)
-        item = {"image_id": np.int64(image_id),
-                "image": np.asarray(out["image"], np.float32),
-                "input_ids": ids, "attention_mask": mask}
+        item["input_ids"], item["attention_mask"] = self._tokenize(caption)
         if self.textual_self_supervised:
             aug = self.caption_transform(caption=aug_caption, rng=rng)["caption"]
             item["aug_input_ids"], item["aug_attention_mask"] = \
@@ -162,7 +204,7 @@ class CaptionDatasetBase(Dataset):
         without buckets).  Padding carries attention_mask 0, so the text
         tower's outputs at real tokens do not change; only the shape
         does."""
-        if not self.seq_buckets:
+        if not self.seq_buckets or "attention_mask" not in batch:
             return batch
         longest = max(int(np.max(np.sum(batch[k], axis=1)))
                       for k in ("attention_mask", "aug_attention_mask")
@@ -183,7 +225,8 @@ class CaptionDatasetBase(Dataset):
     def caption_max_token_lengths(self) -> Optional[np.ndarray]:
         """Per item, the longest tokenized length of its candidate captions
         (the choice is random per epoch), for the loader's length-grouped
-        shuffle; None where no cheap scan exists."""
+        shuffle; None where no cheap scan exists (and outside the
+        ``train_sbert`` mode)."""
         return None
 
 
@@ -212,9 +255,14 @@ class RandomDataset(CaptionDatasetBase):
         rng = self._rng(idx)
         image = rng.integers(0, 256, (self.image_size, self.image_size, 3),
                              dtype=np.uint8)
-        return self._prepare(idx, image, list(self.CAPTIONS), rng)
+        captions = list(self.CAPTIONS)
+        if self.mode == "sbert":
+            captions = rng.normal(size=(768,)).astype(np.float32)
+        return self._prepare(idx, image, captions, rng)
 
     def caption_max_token_lengths(self) -> Optional[np.ndarray]:
+        if self.mode != "train_sbert":
+            return None
         bound = max(self._caption_token_length(c) for c in self.CAPTIONS)
         return np.full(self.length, bound, np.int32)
 
@@ -249,6 +297,8 @@ class JsonDataset(CaptionDatasetBase):
         return self._prepare(idx, read_image(ann["image"]), captions, rng)
 
     def caption_max_token_lengths(self) -> Optional[np.ndarray]:
+        if self.mode != "train_sbert":
+            return None
         out = np.empty(len(self.ann), np.int32)
         for i, ann in enumerate(self.ann):
             caps = ann["caption"]
@@ -280,6 +330,9 @@ class CocoCaptionsDataset(CaptionDatasetBase):
         self.crop_size = crop_size
         self.native_pipeline = bool(native_pipeline)
         self.device = None
+        if self.native_pipeline and self.mode != "train_sbert":
+            raise ValueError(f"DATA.NATIVE_PIPELINE tokenizes for train_sbert; "
+                             f"the {self.mode!r} mode takes the Python path")
         if self.native_pipeline:
             from clip_lite_torch.data import native
             from clip_lite_torch.eval_utils import resolve_device
@@ -327,10 +380,21 @@ class CocoCaptionsDataset(CaptionDatasetBase):
     def __getitem__(self, idx: int):
         rng = self._rng(idx)
         rec = self.reader[idx]
-        return self._prepare(rec["image_id"], rec["image"], rec["captions"],
-                             rng)
+        captions = rec["captions"]
+        if self.mode == "sbert":
+            captions = rec.get("caption_encodings")
+            if captions is None:
+                raise ValueError(
+                    "sbert mode needs records with precomputed "
+                    "'caption_encodings' (run scripts/coco_preprocess.py "
+                    "--mode sbert)")
+            if isinstance(captions, np.ndarray) and captions.ndim == 2:
+                captions = captions[int(rng.integers(len(captions)))]
+        return self._prepare(rec["image_id"], rec["image"], captions, rng)
 
     def caption_max_token_lengths(self) -> Optional[np.ndarray]:
+        if self.mode != "train_sbert":
+            return None
         out = np.empty(len(self.reader), np.int32)
         for i in range(len(self.reader)):
             out[i] = max(self._caption_token_length(c)

@@ -1,7 +1,8 @@
 """Tokenizers: a Hugging Face tokenizer when one is cached locally, else a
-deterministic hashing tokenizer with BERT's special-token contract.
+deterministic hashing tokenizer with BERT's special-token contract; and
+the word-dictionary tokenizer of the glove text mode.
 
-Own copy of the JAX package's ``HashingTokenizer`` and
+Own copy of the JAX package's ``GloveTokenizer``, ``HashingTokenizer`` and
 ``get_hf_tokenizer``: the same captions give the same ids in both
 packages.  ``transformers`` is optional and never reaches the network.
 """
@@ -9,6 +10,7 @@ packages.  ``transformers`` is optional and never reaches the network.
 from __future__ import annotations
 
 import hashlib
+import json
 import logging
 import re
 from typing import List, Optional
@@ -20,6 +22,41 @@ _WORD_RE = re.compile(r"[a-z0-9]+(?:'[a-z]+)?")
 
 def simple_word_tokenize(text: str) -> List[str]:
     return _WORD_RE.findall(text.lower())
+
+
+class GloveTokenizer:
+    """A word dictionary's tokenizer (``word_dict.json``, from
+    ``scripts/generate_word_dict.py``, or ``word_dict`` itself): word ->
+    id, an unknown word -> ``<unk>``; the specials ``<start>``, ``<eos>``,
+    ``<unk>`` and ``<pad>`` are appended, in that order, where the
+    dictionary lacks them."""
+
+    def __init__(self, word_dict_path: Optional[str] = None,
+                 word_dict: Optional[dict] = None):
+        if word_dict is None:
+            with open(word_dict_path) as f:
+                word_dict = json.load(f)
+        self.word_dict = word_dict
+        for special in ("<start>", "<eos>", "<unk>", "<pad>"):
+            if special not in self.word_dict:
+                self.word_dict[special] = len(self.word_dict)
+
+    def __len__(self) -> int:
+        return len(self.word_dict)
+
+    def token_to_id(self, token: str) -> int:
+        return self.word_dict.get(token, self.word_dict["<unk>"])
+
+    def encode(self, caption: str) -> List[int]:
+        return [self.token_to_id(w) for w in simple_word_tokenize(caption)]
+
+    def decode(self, ids: List[int]) -> str:
+        rev = {v: k for k, v in self.word_dict.items()}
+        return " ".join(rev.get(i, "<unk>") for i in ids)
+
+    @property
+    def pad_id(self) -> int:
+        return self.word_dict["<pad>"]
 
 
 class HashingTokenizer:

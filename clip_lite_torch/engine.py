@@ -85,8 +85,7 @@ def _check_supported(config: Config) -> None:
     if config.PARALLEL.STEPS_PER_CALL > 1:
         raise NotImplementedError(
             "PARALLEL.STEPS_PER_CALL > 1 folds steps into one XLA program; "
-            "the port runs one step per call (ROADMAP Queue 3, deliberate "
-            "differences)")
+            "the port runs one step per call (ROADMAP Queue 1, item 12)")
     if config.PARALLEL.ZERO1 and world_size() == 1:
         # As the JAX package does on a one-device mesh (train.py:164-167).
         logger.warning("PARALLEL.ZERO1 on one rank shards nothing; using the "

@@ -6,7 +6,9 @@ The counterpart of the JAX package's ``eval_utils.py``.  Every eval
 captions through :class:`EncoderBundle`: tower, projection head, then L2
 normalisation, in fixed-size batches with the tail padded.  The weights
 come from a checkpoint of either package (a full one or a climax
-snapshot), from a port state_dict, or are seeded.
+snapshot), from a port state_dict, or are seeded.  The text tower's input
+follows MODEL.TEXTUAL.NAME, as in the JAX package: token ids and masks, a
+glove word dictionary's ids, or (sbert) precomputed sentence vectors.
 """
 
 from __future__ import annotations
@@ -89,8 +91,20 @@ class EncoderBundle:
 
     @torch.inference_mode()
     def _txt_fn(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        batch = {"input_ids": torch.from_numpy(ids).long().to(self.device),
-                 "attention_mask": torch.from_numpy(mask).long().to(self.device)}
+        ids = torch.from_numpy(ids).long().to(self.device)
+        if self.config.MODEL.TEXTUAL.NAME == "glove":
+            batch = {"caption_tokens": ids}
+        else:
+            batch = {"input_ids": ids,
+                     "attention_mask": torch.from_numpy(mask).long().to(
+                         self.device)}
+        return self._finish(self.model.encode_text(batch),
+                            self.model.project_text)
+
+    @torch.inference_mode()
+    def _vec_fn(self, vectors: np.ndarray) -> np.ndarray:
+        batch = {"caption_encodings": torch.from_numpy(
+            np.ascontiguousarray(vectors, np.float32)).to(self.device)}
         return self._finish(self.model.encode_text(batch),
                             self.model.project_text)
 
@@ -109,12 +123,35 @@ class EncoderBundle:
         return np.concatenate(outs, axis=0)
 
     def encode_texts(self, texts: List[str], tokenizer) -> np.ndarray:
-        """Captions -> (N, D) fp32, tokenized to DATA.MAX_CAPTION_LENGTH."""
-        enc = tokenizer(list(texts), padding="max_length", truncation=True,
-                        max_length=self.config.DATA.MAX_CAPTION_LENGTH)
-        ids = np.asarray(enc["input_ids"], np.int32)
-        mask = np.asarray(enc["attention_mask"], np.int32)
+        """Captions -> (N, D) fp32, tokenized to DATA.MAX_CAPTION_LENGTH:
+        by ``tokenizer``'s call, or in the glove mode a ``GloveTokenizer``'s
+        ``encode`` (no ``<start>``/``<eos>``, as the JAX bundle takes it)
+        cut and padded with ``<pad>``.  The sbert mode encodes sentence
+        vectors instead (:meth:`encode_caption_encodings`)."""
+        seq = self.config.DATA.MAX_CAPTION_LENGTH
+        mode = self.config.MODEL.TEXTUAL.NAME
+        if mode == "sbert":
+            raise ValueError(
+                "the sbert text mode takes precomputed sentence vectors "
+                "(encode_caption_encodings); captions need a "
+                "SentenceTransformer model, which the port does not have")
+        if mode == "glove":
+            pad = tokenizer.pad_id
+            ids = np.full((len(texts), seq), pad, np.int32)
+            for i, t in enumerate(texts):
+                enc = tokenizer.encode(t)[:seq]
+                ids[i, : len(enc)] = enc
+            mask = (ids != pad).astype(np.int32)
+        else:
+            enc = tokenizer(list(texts), padding="max_length", truncation=True,
+                            max_length=seq)
+            ids = np.asarray(enc["input_ids"], np.int32)
+            mask = np.asarray(enc["attention_mask"], np.int32)
         return _chunked(self._txt_fn, self.batch_size, ids, mask)
+
+    def encode_caption_encodings(self, vectors: np.ndarray) -> np.ndarray:
+        """The sbert mode's (N, 768) sentence vectors -> (N, D) fp32."""
+        return _chunked(self._vec_fn, self.batch_size, np.asarray(vectors))
 
 
 def _chunked(fn: Callable, batch_size: int, *arrays) -> np.ndarray:

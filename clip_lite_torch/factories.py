@@ -48,6 +48,7 @@ class TextualHeadFactory:
             fused_attention=_C.MODEL.TEXTUAL.FUSED_ATTENTION,
             transformer_dropout=_C.MODEL.TEXTUAL.DROPOUT,
             hidden_size=_C.MODEL.TEXTUAL.HIDDEN_SIZE,
+            train_embeddings=_C.MODEL.TEXTUAL.TRAIN_EMBEDDINGS,
         )
 
 
@@ -136,13 +137,14 @@ class LRSchedulerFactory:
 class TokenizerFactory:
     @classmethod
     def from_config(cls, config: Config):
-        from clip_lite_torch.data.tokenizers import get_hf_tokenizer
+        from clip_lite_torch.data.tokenizers import (
+            GloveTokenizer,
+            get_hf_tokenizer,
+        )
 
         _C = config
         if _C.MODEL.TEXTUAL.NAME == "glove":
-            raise NotImplementedError(
-                "the GloVe tokenizer lands with the glove text mode (ROADMAP "
-                "Queue 1, the rest of the model matrix)")
+            return GloveTokenizer(_C.MODEL.TEXTUAL.WORD_DICT_PATH)
         return get_hf_tokenizer(_C.MODEL.TEXTUAL.NETWORK_NAME,
                                 max_length=_C.DATA.MAX_CAPTION_LENGTH,
                                 vocab_size=_C.MODEL.TEXTUAL.VOCAB_SIZE)
@@ -190,7 +192,9 @@ class PretrainingDatasetFactory:
     """The pretraining dataset of MODEL.NAME: ``captions`` (CLRec records;
     with DATA.NATIVE_PIPELINE its batches are decoded on ``device``),
     ``random``, or ``json`` (DATA.JSON_FILES_TRAIN or _VAL, the val split
-    at half its entries, as in the JAX package)."""
+    at half its entries, as in the JAX package), in the text mode
+    DATA.NAME; the glove mode's word dictionary is
+    MODEL.TEXTUAL.WORD_DICT_PATH."""
 
     @classmethod
     def from_config(cls, config: Config, split: str = "train",
@@ -217,6 +221,9 @@ class PretrainingDatasetFactory:
             percentage=_C.DATA.USE_PERCENTAGE,
             max_caption_length=_C.DATA.MAX_CAPTION_LENGTH,
             image_transform=_build_transform_pipeline(_C, split),
+            # The JAX factory drops this, so that its glove items are all
+            # <unk> (ROADMAP Queue 3).
+            word_dict_path=_C.MODEL.TEXTUAL.WORD_DICT_PATH,
         )
         if name == "captions":
             kwargs["native_pipeline"] = _C.DATA.NATIVE_PIPELINE

@@ -1,9 +1,12 @@
 """Image tower wrapper, the counterpart of the JAX package's
 ``models/image_encoder.py``: a registered backbone by name, classifier
-chopped.  ``frozen`` keeps the backbone in eval mode with no gradients;
-``bn_mode`` ``sync`` takes the BatchNorm statistics over the ranks.
-Only the ResNets are registered yet; VGG and the model zoo are queued in
-ROADMAP.md (Queue 1).
+chopped.  The registry holds the ResNets (their classifier chopped, at
+``width``), the VGGs (which keep their classifier and emit 1000 features,
+as in the JAX package) and the model zoo's backbones as ``zoo::<name>``.
+``frozen`` keeps the backbone in eval mode with no gradients; ``bn_mode``
+``sync`` takes the BatchNorm statistics over the ranks, for the ResNets
+and VGGs: the zoo towers keep theirs per rank, as the JAX registry drops
+their ``bn_axis_name``.
 
 :func:`detectron2_backbone_state_dict` exports a ResNet tower for
 Detectron2, as the JAX package's function of that name does: the
@@ -13,16 +16,20 @@ Detectron2's stem/res2..res5 convention.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from clip_lite_torch.models.resnet import RESNETS, ResNet
-from clip_lite_torch.ops.layers import BatchNorm
+from clip_lite_torch.models.vgg import VGGS
+from clip_lite_torch.models.zoo import zoo_backbones
+from clip_lite_torch.ops.layers import BatchNorm, StepRNG
 
 BACKBONES: Dict[str, Any] = dict(RESNETS)
+BACKBONES.update(VGGS)
+BACKBONES.update(zoo_backbones())
 
 
 class ImageEncoder(nn.Module):
@@ -38,11 +45,14 @@ class ImageEncoder(nn.Module):
         if bn_mode not in ("local", "sync"):
             raise ValueError(f"Unknown BN_MODE {bn_mode!r}")
         self.frozen = frozen
-        self.backbone = BACKBONES[img_enc_net](width=width,
-                                               compute_dtype=compute_dtype)
-        for module in self.backbone.modules():
-            if isinstance(module, BatchNorm):
-                module.sync = bn_mode == "sync"  # statistics over the ranks
+        kwargs = {"width": width} if img_enc_net in RESNETS else {}
+        self.backbone = BACKBONES[img_enc_net](compute_dtype=compute_dtype,
+                                               **kwargs)
+        self.takes_rng = img_enc_net in VGGS  # the classifier's dropout
+        if not img_enc_net.startswith("zoo::"):
+            for module in self.backbone.modules():
+                if isinstance(module, BatchNorm):
+                    module.sync = bn_mode == "sync"  # over the ranks
         self.feature_size = self.backbone.feature_size
         if frozen:
             self.backbone.requires_grad_(False)
@@ -53,7 +63,12 @@ class ImageEncoder(nn.Module):
             self.backbone.eval()
         return self
 
-    def forward(self, image: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor,
+                rng: Optional[StepRNG] = None) -> torch.Tensor:
+        """``rng``: the step's draws, which VGG's dropout needs in
+        training."""
+        if self.takes_rng:
+            return self.backbone(image, rng=rng)
         return self.backbone(image)
 
 

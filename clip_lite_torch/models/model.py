@@ -31,10 +31,12 @@ class VLInfoModel(nn.Module):
                 prior_noise: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Dict[str, Any]:
         """``{"loss", "loss_components"}`` for a batch of ``image``
-        (B, H, W, 3), ``input_ids`` and ``attention_mask`` (B, L), the
+        (B, H, W, 3) and the text tower's input (``input_ids`` and
+        ``attention_mask`` (B, L); ``caption_tokens`` (B, L) in the glove
+        mode; ``caption_encodings`` (B, 768) in the sbert mode), the
         components detached (``models/model.py:29-70`` of the JAX
-        package).  After the pair, a ``neg_image`` goes through the image
-        tower and ``neg_input_ids``/``neg_attention_mask`` through the text
+        package).  In the ``train_sbert`` mode only, after the pair, a
+        ``neg_image`` goes through the image tower and ``neg_input_ids``/``neg_attention_mask`` through the text
         tower (the cluster curriculum's hard negatives), then an
         ``aug_image`` and ``aug_input_ids``/``aug_attention_mask`` (the SSL
         views), in that order; in training each pass moves the image
@@ -43,21 +45,25 @@ class VLInfoModel(nn.Module):
         step's draws, ``prior_noise`` an optional replacement for the prior
         terms' noise."""
         with scope("image_encoder"):
-            image_features = self.image_encoder(batch["image"])
+            image_features = self.image_encoder(batch["image"], rng=rng)
         with scope("text_encoder"):
             text_features = self.text_encoder(batch, rng=rng)
         neg_image_features = neg_text_features = None
+        aug_image_features = aug_text_features = None
+        if self.text_encoder.mode != "train_sbert":
+            batch = {}  # as in the JAX model, no negatives or views here
         if "neg_input_ids" in batch:
             with scope("image_encoder"):
-                neg_image_features = self.image_encoder(batch["neg_image"])
+                neg_image_features = self.image_encoder(batch["neg_image"],
+                                                        rng=rng)
             with scope("text_encoder"):
                 neg_text_features = self.text_encoder(
                     {"input_ids": batch["neg_input_ids"],
                      "attention_mask": batch["neg_attention_mask"]}, rng=rng)
-        aug_image_features = aug_text_features = None
         if "aug_image" in batch:
             with scope("image_encoder"):
-                aug_image_features = self.image_encoder(batch["aug_image"])
+                aug_image_features = self.image_encoder(batch["aug_image"],
+                                                        rng=rng)
         if "aug_input_ids" in batch:
             with scope("text_encoder"):
                 aug_text_features = self.text_encoder(

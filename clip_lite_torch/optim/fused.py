@@ -48,6 +48,24 @@ _BUFFERS = {"trace": "trace", "nu": "nu", "slow_params": "slow"}
 _FIELDS = (*_BUFFERS, "count", "la_count")
 
 
+# The CPU's norm of a float32 tensor sums its squares in one accumulator:
+# 0.9% off at 1e8 elements (VGG's fc1).  Longer tensors go by chunks.
+_CPU_NORM_CHUNK = 1 << 16
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all ``tensors`` together, a 0-d tensor on their
+    device: one ``_foreach_norm`` launch, the CPU's long tensors split
+    into chunks first."""
+    parts = []
+    for t in tensors:
+        if t.device.type == "cpu" and t.numel() > _CPU_NORM_CHUNK:
+            parts.extend(t.reshape(-1).split(_CPU_NORM_CHUNK))
+        else:
+            parts.append(t)
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(parts)))
+
+
 class _Group:
     def __init__(self, lr: float, wd: float):
         self.lr, self.wd = lr, wd
@@ -116,8 +134,7 @@ class FusedOptimizer:
         ``optimizer`` range of a trace."""
         grads = {id(p): (p.grad if p.grad is not None else torch.zeros_like(p))
                  for g in self.groups for p in g.params}
-        norms = torch._foreach_norm(list(grads.values()))
-        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        gnorm = global_norm(list(grads.values()))
         if self.clip_norm and self.clip_norm > 0:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-16),
                                 max=1.0)

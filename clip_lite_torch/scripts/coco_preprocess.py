@@ -14,8 +14,11 @@ it is then encoded as JPEG at ``--jpeg-quality`` by PIL, where the JAX
 script encodes with OpenCV: the records' images decode to the JAX
 script's pixels (``tests/test_torch_coco_preprocess.py``).
 
-Modes: ``train_sbert`` and ``glove`` store the caption strings; ``sbert``
-(precomputed caption embeddings) lands with ROADMAP Queue 1, item 7.
+Modes: ``train_sbert`` and ``glove`` store the caption strings.
+``sbert`` would add each record's ``caption_encodings`` from a
+SentenceTransformer model, which neither the port nor its machines have,
+so it raises; the sbert datasets read such records wherever they come
+from (``data/datasets.py``).
 
 Usage:
     python -m clip_lite_torch.scripts.coco_preprocess \\
@@ -64,9 +67,10 @@ def maybe_resize(image: np.ndarray, short_edge: int) -> np.ndarray:
 def main(args) -> str:
     """Write the records; returns the path of the CLRec file."""
     if args.mode == "sbert":
-        raise NotImplementedError("--mode sbert (precomputed caption "
-                                  "embeddings) lands with ROADMAP Queue 1, "
-                                  "item 7; use train_sbert or glove")
+        raise NotImplementedError(
+            "--mode sbert encodes the captions with a SentenceTransformer "
+            "model, and none is available here (no sentence-transformers, no "
+            "network); use train_sbert or glove")
     reader = CocoCaptionsDirReader(args.data_root, args.split)
     os.makedirs(args.output_dir, exist_ok=True)
     out = os.path.join(args.output_dir,

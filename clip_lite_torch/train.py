@@ -34,11 +34,18 @@ from that checkpoint and starts the batch source at its iteration; with
 ``switch`` it takes new batch sources at an iteration (the cluster
 curriculum's switch).
 
+With ``MODEL.VISUAL.PRETRAINED``/``MODEL.TEXTUAL.PRETRAINED`` and their
+``PRETRAINED_PATH`` the towers start from local files
+(``models/pretrained.py``), loaded after the seeded initialisation, the
+optimizer built on them (the JAX ``train.py:215-220``).  Any visual tower
+of the registry (ResNet, VGG, ``zoo::<name>``) and text mode (``glove``,
+``sbert``, ``train_sbert``, ``finetune_sbert``) trains; the glove and
+sbert modes through the host loader only.
+
 ``main`` refuses what the port does not have yet, naming its item of
-ROADMAP Queue 1: pretrained weights (item 7(d)) and
-``PARALLEL.STEPS_PER_CALL > 1`` (item 8(c)); and
-the SSL terms on the native batch path without the device cache, which
-makes no augmented views (ROADMAP Queue 3).
+ROADMAP Queue 1: ``PARALLEL.STEPS_PER_CALL > 1``; and the SSL terms on
+the native batch path without the device cache, which makes no augmented
+views (ROADMAP Queue 3).
 
 Run (synthetic smoke, on the CPU; ``--profile-dir DIR`` writes the
 trace to ``DIR/trace.json.gz``, which ``utils/trace.py`` parses):
@@ -64,7 +71,12 @@ from clip_lite_torch.engine import (
 )
 from clip_lite_torch.factories import (
     NegativeSamplingDatasetFactory,
+    OptimizerFactory,
     PretrainingDatasetFactory,
+)
+from clip_lite_torch.models.pretrained import (
+    apply_pretrained_weights,
+    pretrained_requested,
 )
 from clip_lite_torch.utils.checkpointing import CheckpointManager, peek_iteration
 from clip_lite_torch.parallel.collectives import COUNTS
@@ -281,10 +293,9 @@ def _check_supported(_C: Config, _A) -> None:
     if _C.DATA.DEVICE_CACHE and \
             _C.DATA.CACHE_PLACEMENT not in ("sharded", "replicated"):
         raise ValueError(f"Unknown placement {_C.DATA.CACHE_PLACEMENT!r}")
-    if (_C.MODEL.VISUAL.PRETRAINED and _C.MODEL.VISUAL.PRETRAINED_PATH) or \
-            (_C.MODEL.TEXTUAL.PRETRAINED and _C.MODEL.TEXTUAL.PRETRAINED_PATH):
-        raise NotImplementedError("pretrained weights from local files land "
-                                  "with ROADMAP Queue 1, item 7(d)")
+    if _C.DATA.DEVICE_CACHE and _C.DATA.NAME != "train_sbert":
+        raise ValueError(f"DATA.DEVICE_CACHE holds token ids: the "
+                         f"{_C.DATA.NAME!r} mode takes the host loader")
     if _C.DATA.NATIVE_PIPELINE and not _C.DATA.DEVICE_CACHE and (
             _C.MODEL.VISUAL.SELF_SUPERVISED or _C.MODEL.TEXTUAL.SELF_SUPERVISED):
         raise NotImplementedError(
@@ -292,9 +303,9 @@ def _check_supported(_C: Config, _A) -> None:
             "(the JAX package's native path trains without them): use "
             "DATA.DEVICE_CACHE for visual SSL, or the Python path")
     if steps_per_call > 1:
-        raise NotImplementedError("PARALLEL.STEPS_PER_CALL > 1 (the step "
-                                  "as one captured program) lands with "
-                                  "ROADMAP Queue 1, item 8(c)")
+        raise NotImplementedError("PARALLEL.STEPS_PER_CALL > 1 (several "
+                                  "steps a call) lands with ROADMAP Queue "
+                                  "1, item 12")
 
 
 def init_dataloaders(_C: Config, _A, device, kind: str = "normal") -> tuple:
@@ -370,6 +381,11 @@ def main(_A) -> TrainState:
         batches = infinite_batches(train_loader, start_iteration)
 
     state = create_train_state(_C, device=device)
+    if pretrained_requested(_C):
+        apply_pretrained_weights(state.model, _C)
+        # The update's buffers start from the loaded weights, as the JAX
+        # CLI's tx.init(params) after the splice.
+        state.optimizer = OptimizerFactory.from_config(_C, state.model)
     n_params = sum(p.numel() for p in state.model.parameters())
     logger.info("Model: %s + %s | %.2fM params", _C.MODEL.VISUAL.NETWORK_NAME,
                 _C.MODEL.TEXTUAL.NAME, n_params / 1e6)

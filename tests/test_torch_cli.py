@@ -131,14 +131,19 @@ REFUSALS = {
     "clusters": (["DATA.NEGATIVE_SAMPLING", "clusters",
                   "DATA.NEGATIVE_SAMPLING_START_ITERATION", 1], (),
                  "cluster.py", FileNotFoundError),
+    # Pretrained towers load (tests/test_torch_pretrained.py): a file that
+    # is not there is named.
     "pretrained": (["MODEL.VISUAL.PRETRAINED", True,
-                    "MODEL.VISUAL.PRETRAINED_PATH", "r50.npz"], (), "item 7"),
-    "steps_per_call": (["PARALLEL.STEPS_PER_CALL", 2], (), r"item 8\(c\)"),
+                    "MODEL.VISUAL.PRETRAINED_PATH", "r50.npz"], (), "r50.npz",
+                   FileNotFoundError),
+    "steps_per_call": (["PARALLEL.STEPS_PER_CALL", 2], (), "item 12"),
     # The native path runs (tests/test_torch_native.py), on JPEG records
     # only: this corpus holds ndarray images.
     "native_pipeline": (["DATA.NATIVE_PIPELINE", True], (), "JPEG records",
                         TypeError),
-    "glove": (["DATA.NAME", "glove"], (), "item 7"),
+    # The glove and sbert modes train through the host loader
+    # (tests/test_torch_pretrained.py): the device cache holds token ids.
+    "glove": (["DATA.NAME", "glove"] + CACHE, (), "host loader", ValueError),
     # SSL runs (tests/test_torch_ssl.py), but not on the native batch path
     # without the device cache: that path makes no augmented views.
     "ssl": (["MODEL.VISUAL.SELF_SUPERVISED", True, "DATA.NATIVE_PIPELINE",

@@ -298,7 +298,15 @@ def test_slice_jax_paths_and_decay_sets_agree(mpnet_reference, mpnet_port_run):
 
 
 def test_text_modes_without_data_layer_raise():
-    for mode in ("glove", "sbert"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            PretrainingModelFactory.from_config(
+    """The glove and sbert modes (ported with their data layer) build their
+    own towers whatever NETWORK_NAME says, MPNet's here, as the JAX
+    package's do; a mode that is none of the four raises."""
+    for mode, width in (("glove", 300), ("sbert", 768)):
+        with torch.device("meta"):  # GloVe's 400,002 x 300 table
+            model = PretrainingModelFactory.from_config(
                 Config(FLAGSHIP, MPNET + ["MODEL.TEXTUAL.NAME", mode]))
+        assert model.text_encoder.feature_size == width
+        assert not hasattr(model.text_encoder, "transformer")
+    with pytest.raises(ValueError, match="skipthought"):
+        PretrainingModelFactory.from_config(
+            Config(FLAGSHIP, MPNET + ["MODEL.TEXTUAL.NAME", "skipthought"]))
