@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
 (``--crop-kernel`` runs phases 1, 2 and 10d's crop kernel alone, and
 prints its row; ``--native`` runs phases 1, 2 and 10d alone;
 ``--quality`` phases 1, 2 and 11; ``--ranks`` phases 1, 2 and 12;
-``--matrix`` phases 1, 2 and 13.)
+``--matrix`` phases 1, 2 and 13; ``--clip`` phases 1, 2 and 14.)  The
+whole run logs each phase's seconds as it ends, and all of them before
+the kernels line.
 
 Phases; any failure raises and exits non-zero, and no phase's error is
 caught:
@@ -86,7 +88,12 @@ caught:
    The uint8 path (fs_tpu_tuned + DATA.DEVICE_CACHE, 512 tiles): 3 steps
    with a checkpoint after step 2, then a fresh state resumed there: its
    step 3 sees the same cache batch and the same augmented images (K3's
-   fused pass) bit for bit.  Launch counts set to 0 just before each run
+   fused pass) bit for bit.  (f) PARALLEL.STEPS_PER_CALL 2: (c)'s 10 steps
+   through train_loop as 5 calls of two eager steps, (c)'s state bit for
+   bit; the seconds a call beside (c)'s a step.  (g) OPTIM.FUSED false:
+   checkpoint_5 written again in the optax chain's layout (``{inner_state,
+   slow_params, step_count}``), a fresh state resumed from it to step 10,
+   (b)'s state bit for bit.  Launch counts set to 0 just before each run
    and read just after.
 7. Training parity on the card: from one state, one step with
    FUSED_ATTENTION true (K1/K2) and one with false (plain attention),
@@ -168,10 +175,11 @@ caught:
    two batches, then a checkpoint), K1 12 a step and 24 a sweep, K2 12 a
    step, checkpoint_6 and _12 written, finite losses; the CLI's median
    step over steps 3-5 (start to start) beside the loader's batches/s
-   and phase 6's step; (C) A resumed from its checkpoint_6 to 12: the
-   batches of steps 7-12 equal A's (image_id, input_ids, attention_mask,
-   and images to the byte), and the final state equals A's bit for bit
-   (A and C run under deterministic algorithms); an EncoderBundle from
+   and phase 6's step; (C) A resumed from its checkpoint_6 to 12 at
+   PARALLEL.STEPS_PER_CALL 2 (three calls of two steps): the batches of
+   steps 7-12 equal A's (image_id, input_ids, attention_mask, and images
+   to the byte), and the final state equals A's bit for bit (A and C run
+   under deterministic algorithms); an EncoderBundle from
    A's checkpoint_12 encodes as A's live weights do; (B) fs_tpu_tuned with DATA.DEVICE_CACHE: the cache
    built through load_host from the train dataset (512 tiles of 256 px;
    its build seconds and bytes), K3's fused pass once a step, K1/K2 as in
@@ -189,7 +197,7 @@ caught:
    each CLI's main as ``python -m clip_lite_torch.<cli>`` runs it, K1's
    count set to 0 just before and read just after each: retrieval (K1 12
    x 10 caption batches), zero-shot (12), bias_eda --prompt (12 x 2),
-   linear_clf --frozen (20 steps of 64) and a fine-tune (5 steps), voc_clf
+   linear_clf --frozen (10 steps of 64) and a fine-tune (5 steps), voc_clf
    (20 classes x 4 costs x 3 folds of the port's SVM, float64 on the
    card) and voc_det (the Detectron2 export).  Checks: every recall and
    top-1 a percentage, K1's launches and the tensor-core route, finite
@@ -226,8 +234,8 @@ caught:
    and libjpeg decodes.  nvJPEG's time a batch of 128 records.  The
    loader alone, native against the Python path on the same records
    (batches/s).  Then the CLI, each run with the counts set to 0 just
-   before and read just after: (A) configs/fs_native_input.yaml, 20 steps
-   of 128, val sweeps at 10 and 20; the same with the decode replaced by
+   before and read just after: (A) configs/fs_native_input.yaml, 12 steps
+   of 128, a val sweep at 10; the same with the decode replaced by
    a fixed tile tensor (A0: what the decode costs the step) and with
    every batch the first one again (A1: what reading the records and
    tokenizing cost it); (B) configs/fs_tpu_tuned.yaml + DATA.DEVICE_CACHE, the
@@ -318,10 +326,26 @@ caught:
    peak memory, the losses and grad norms (all
    finite) and the launches, each kernel's count checked exactly and every
    K1/K2 launch on its route.
-14. One JSON line listing every kernel (K3's standalone and fused entry
-   points each with their own launches, and crop_resize_flip_u8, which
-   replaces the JAX core's host C++ and no TPU kernel); then the device
-   line last.
+14. The CLIP comparison, ``python -m clip_lite_torch.retrieval
+   --weight-init clip`` as it runs (retrieval's main), on a seeded CLIP
+   directory at openai/clip-vit-base-patch32's published widths (vision
+   768 wide, 12 layers, 12 heads, patch 32 at 224 px; text 512 wide, 12
+   layers, 8 heads, 77 positions, vocab 49,408; projection 512; fp32 Flax
+   msgpack written by the port's writer, a synthetic byte-level vocabulary
+   and merges) over a COCO tree of CLIP_ITEMS (256) seeded JPEGs with one
+   caption each, batch 128, the counts set to 0 just before and read just
+   after.  Checks: K1 launched 12 x 2 times at S = 50 (vision, zero key
+   bias) and 12 x 2 at S = 77 (text, the causal and padding mask as the
+   full bias), none on the tensor cores (fp32); finite unit-norm (256,
+   512) embeddings; recalls in percent; the same model through the plain
+   attention on the same inputs within CLIP_TOL (1e-5) of them.  Then
+   images/s and captions/s of the towers alone, and K1 at both shapes
+   against its plain version with its times, the plain version's,
+   ``scaled_dot_product_attention``'s and the bound.
+15. One JSON line listing every kernel (K3's standalone and fused entry
+   points each with their own launches, crop_resize_flip_u8, which
+   replaces the JAX core's host C++ and no TPU kernel, and K1's rows at
+   the CLIP towers' shapes); then the device line last.
 """
 
 import functools
@@ -2188,9 +2212,11 @@ def phase_data_cli(float_step: dict) -> dict:
         del state_a
         gc.collect()
 
-        # (C) A resumed from its first checkpoint, to the end.
-        c_args = args("c", FLAGSHIP, same_bits, ["--resume-from", os.path.join(
-            ckpt_a, f"checkpoint_{DATA_SAVE}.msgpack")])
+        # (C) A resumed from its first checkpoint, to the end, at two steps
+        # a call.
+        c_args = args("c", FLAGSHIP, same_bits + ["PARALLEL.STEPS_PER_CALL", 2],
+                      ["--resume-from", os.path.join(
+                          ckpt_a, f"checkpoint_{DATA_SAVE}.msgpack")])
         state_c, rec_c = run("c", c_args, keep_batches=resumed)
         expect("c", cfg_a, rec_c, DATA_STEPS - DATA_SAVE)
         same = sorted(rec_c["batches"]) == list(resumed) and all(
@@ -2198,8 +2224,8 @@ def phase_data_cli(float_step: dict) -> dict:
             for i in resumed
             for k in ("image_id", "input_ids", "attention_mask", "image"))
         d_ac = distance(final_a, state_tensors(state_c))
-        log(f"data (c): resumed at {DATA_SAVE}: batches of steps "
-            f"{DATA_SAVE + 1}-{DATA_STEPS} equal "
+        log(f"data (c): resumed at {DATA_SAVE}, PARALLEL.STEPS_PER_CALL 2: "
+            f"batches of steps {DATA_SAVE + 1}-{DATA_STEPS} equal "
             f"(A's) {same}; the final state at max |difference| {d_ac} from A's")
         if not same or d_ac != 0.0:
             raise AssertionError("the resumed CLI run left run A's stream or "
@@ -2337,7 +2363,7 @@ VOC_CLASSES = ("aeroplane bicycle bird boat bottle bus car cat chair cow "
                "train tvmonitor").split()
 EVAL_COCO, EVAL_VOC, EVAL_GENDER = 256, 256, 128
 EVAL_IMAGENET = (10, 32, 16)  # classes, train and val images a class
-PROBE_STEPS, FINETUNE_STEPS, PROBE_BATCH = 20, 5, 64
+PROBE_STEPS, FINETUNE_STEPS, PROBE_BATCH = 10, 5, 64
 # The SVM on the card against the same solver on the CPU (both float64, both
 # at their optimum to a gradient 1e-10 of its start): decision values.
 SVM_REL_TOL = 1e-6
@@ -2770,7 +2796,7 @@ def phase_eval_cli() -> dict:
 # The native phase: a COCO-layout tree of JPEGs made into CLRec records by
 # the port's coco_preprocess; the decode's bars against the twin per JPEG
 # kind; CLI steps a run.
-NATIVE_STEPS = 20
+NATIVE_STEPS = 12
 # nvJPEG's tiles against the twin's at the same (full) resolution, per
 # image: the decoders' IDCT and chroma upsampling differ.
 DECODE_BARS = dict(mean_abs=1.0, psnr_db=40.0)
@@ -3822,12 +3848,14 @@ def phase_checkpoint() -> dict:
     from clip_lite_torch.data.device_cache import DeviceDataCache
     from clip_lite_torch.data.tokenizers import HashingTokenizer
     from clip_lite_torch.engine import (
-        create_train_state, make_eval_step, make_train_step, metrics_to_floats)
+        create_train_state, make_eval_step, make_scanned_train_step,
+        metrics_to_floats)
     from clip_lite_torch.eval_utils import EncoderBundle
     from clip_lite_torch.ops.attention import (
         attention_backward, fused_short_attention)
     from clip_lite_torch.ops.normalize import augment_normalize_u8, normalize_u8
     from clip_lite_torch.train import train_loop
+    from clip_lite_torch.utils import msgpack_io
     from clip_lite_torch.utils.checkpointing import (
         CheckpointManager, peek_iteration)
 
@@ -3852,11 +3880,11 @@ def phase_checkpoint() -> dict:
         return out
 
     def loop(name, cfg, state, source, steps, manager=None, **kw):
-        """train_loop with each step timed between syncs of the training
-        stream (not of the checkpoints' side stream), noting whether a
-        write was in flight as it began; returns the state, the records
-        and the last batch."""
-        train_step, records, last = make_train_step(cfg), [], {}
+        """train_loop with each call (PARALLEL.STEPS_PER_CALL steps) timed
+        between syncs of the training stream (not of the checkpoints' side
+        stream), noting whether a write was in flight as it began; returns
+        the state, the records and the last batch."""
+        train_step, records, last = make_scanned_train_step(cfg), [], {}
 
         def step(st, batch):
             torch.cuda.current_stream().synchronize()
@@ -3873,7 +3901,8 @@ def phase_checkpoint() -> dict:
             return st, metrics
 
         state = train_loop(state, step, source, steps, log_every=10 ** 6,
-                           manager=manager, **kw)
+                           manager=manager, steps_per_call=max(
+                               1, cfg.PARALLEL.STEPS_PER_CALL), **kw)
         return state, records, last["batch"]
 
     # Bit for bit between runs: deterministic algorithms.  By default the
@@ -4006,6 +4035,39 @@ def phase_checkpoint() -> dict:
             del state, manager
             gc.collect()
             shutil.rmtree(os.path.join(root, "b"))
+
+            # (g) OPTIM.FUSED false: checkpoint_5 written again in the optax
+            # chain's layout, resumed from there to step 10: (b)'s state.
+            cfg_g = Config(str(FLAGSHIP), ["OPTIM.FUSED", False])
+            state = create_train_state(cfg_g, device="cuda")
+            writer = CheckpointManager(os.path.join(root, "g_chain"),
+                                       async_writes=False, state=state)
+            writer.load(kept5)
+            chain5 = writer.step(5)
+            layout = sorted(msgpack_io.read(chain5)["state"]["opt_state"])
+            if layout != ["inner_state", "slow_params", "step_count"]:
+                raise AssertionError(f"the chain's checkpoint holds {layout}")
+            del state, writer
+            state = create_train_state(cfg_g, device="cuda")
+            manager = CheckpointManager(os.path.join(root, "g"), keep_recent=1,
+                                        state=state)
+            state, _, _ = counted(
+                "g", lambda: loop("g", cfg_g, state, iter(batches[5:]),
+                                  TRAIN_STEPS, manager, resume_from=chain5,
+                                  **cadence),
+                attention_fwd=n_layers * 6, attention_bwd=n_layers * 5)
+            d_bg = distance(final_b, state_tensors(state))
+            log(f"checkpoint (g): OPTIM.FUSED false, checkpoint_5 in the optax "
+                f"chain's layout (opt_state {layout}, "
+                f"{os.path.getsize(chain5)} bytes) resumed to step 10: max "
+                f"|difference| {d_bg} from (b), resumed from the fused layout")
+            if d_bg != 0.0:
+                raise AssertionError("the chain layout's resume differs from "
+                                     "the fused layout's")
+            del state, manager
+            gc.collect()
+            shutil.rmtree(os.path.join(root, "g"))
+            shutil.rmtree(os.path.join(root, "g_chain"))
             os.remove(kept5)
 
             # (c) The same 10 steps, no checkpoints.
@@ -4017,6 +4079,27 @@ def phase_checkpoint() -> dict:
             final_c = state_tensors(state)
             counters_c = (state.step, state.optimizer.count,
                           state.optimizer.la_count)
+            del state
+            gc.collect()
+
+            # (f) The same 10 steps at PARALLEL.STEPS_PER_CALL 2 (5 calls of
+            # two eager steps): (c)'s state bit for bit.
+            cfg_f = Config(str(FLAGSHIP), ["PARALLEL.STEPS_PER_CALL", 2])
+            state = create_train_state(cfg_f, device="cuda")
+            state, calls_f, _ = counted(
+                "f", lambda: loop("f", cfg_f, state, iter(batches),
+                                  TRAIN_STEPS),
+                attention_fwd=n_layers * TRAIN_STEPS,
+                attention_bwd=n_layers * TRAIN_STEPS)
+            d_cf = distance(final_c, state_tensors(state))
+            per_call = [r["seconds"] for r in calls_f[1:]]
+            log(f"checkpoint (f): {TRAIN_STEPS} steps at STEPS_PER_CALL 2, "
+                f"{len(calls_f)} calls; max |difference| {d_cf} from (c)'s "
+                f"one step a call; s a call (calls 2-{len(calls_f)}) "
+                f"{per_call}, median {statistics.median(per_call)} against "
+                f"(c)'s s a step {statistics.median(r['seconds'] for r in steps_c[2:])}")
+            if d_cf != 0.0 or (state.step, state.optimizer.count) != (10, 10):
+                raise AssertionError("two steps a call differ from one")
             del state
             gc.collect()
             torch.cuda.empty_cache()
@@ -4120,7 +4203,8 @@ def phase_checkpoint() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, sync_save_s=sync_s, load_s=load_s,
-                bundle_s=bundle_s, distances=(d_ab, d_ac))
+                bundle_s=bundle_s, distances=(d_ab, d_ac),
+                call_s=statistics.median(per_call))
 
 
 RANKS_STEPS, RANKS_TRAIN, RANKS_VAL, RANKS_TILE = 4, 256, 128, 256
@@ -4875,6 +4959,337 @@ def phase_matrix() -> dict:
     return out
 
 
+CLIP_ITEMS = 256  # phase 14's images and captions, encoded at BATCH
+CLIP_TOL = 1e-5  # the embeddings through K1 against the plain attention
+
+
+def write_clip_dir(path: str, rng: np.random.Generator) -> dict:
+    """A seeded CLIP directory at openai/clip-vit-base-patch32's published
+    widths, in what transformers' FlaxCLIPModel and CLIPTokenizerFast
+    read: ``config.json`` (the defaults: vision 768 wide, 12 layers, 12
+    heads, patch 32 at 224 px; text 512 wide, 12 layers, 8 heads, 77
+    positions, vocab 49,408; projection 512), ``flax_model.msgpack``
+    (N(0, 0.02) weights in Flax's layout, written by the port's msgpack
+    writer), a synthetic byte-level ``vocab.json`` and ``merges.txt``
+    (the 512 byte symbols, 48,894 merges of letter runs, then the start
+    and end tokens at 49,406 and 49,407) and ``special_tokens_map.json``.
+    Returns the directory's config."""
+    import os
+
+    from clip_lite_torch.data.tokenizers import bytes_to_unicode
+    from clip_lite_torch.models.clip import (
+        PROJECTION_DIM, TEXT_DEFAULTS, VISION_DEFAULTS)
+    from clip_lite_torch.utils import msgpack_io
+
+    text, vision = dict(TEXT_DEFAULTS), dict(VISION_DEFAULTS)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "clip", "projection_dim": PROJECTION_DIM,
+                   "text_config": {}, "vision_config": {}}, f)
+
+    def w(*shape, scale=0.02):
+        return (rng.standard_normal(shape, dtype=np.float32) * scale)
+
+    def dense(n_in, n_out, bias=True):
+        out = {"kernel": w(n_in, n_out)}
+        if bias:
+            out["bias"] = np.zeros(n_out, np.float32)
+        return out
+
+    def norm(d):
+        return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
+
+    def encoder(cfg):
+        d, inner = cfg["hidden_size"], cfg["intermediate_size"]
+        return {"layers": {str(i): {
+            "self_attn": {p: dense(d, d) for p in ("q_proj", "k_proj",
+                                                   "v_proj", "out_proj")},
+            "layer_norm1": norm(d), "layer_norm2": norm(d),
+            "mlp": {"fc1": dense(d, inner), "fc2": dense(inner, d)}}
+            for i in range(cfg["num_hidden_layers"])}}
+
+    dt, dv, p = text["hidden_size"], vision["hidden_size"], vision["patch_size"]
+    n_pos = (vision["image_size"] // p) ** 2 + 1
+    params = {
+        "text_model": {
+            "embeddings": {
+                "token_embedding": {"embedding": w(text["vocab_size"], dt)},
+                "position_embedding": {"embedding": w(
+                    text["max_position_embeddings"], dt)}},
+            "encoder": encoder(text), "final_layer_norm": norm(dt)},
+        "vision_model": {
+            "embeddings": {"class_embedding": w(dv),
+                           "patch_embedding": {"kernel": w(p, p, 3, dv)},
+                           "position_embedding": {"embedding": w(n_pos, dv)}},
+            "pre_layrnorm": norm(dv), "encoder": encoder(vision),
+            "post_layernorm": norm(dv)},
+        "text_projection": dense(dt, PROJECTION_DIM, bias=False),
+        "visual_projection": dense(dv, PROJECTION_DIM, bias=False),
+        "logit_scale": np.asarray(2.6592, np.float32)}
+    msgpack_io.write(os.path.join(path, "flax_model.msgpack"), params)
+
+    chars = list(bytes_to_unicode().values())
+    tokens = chars + [c + "</w>" for c in chars]
+    letters, merges, frontier = "abcdefghijklmnopqrstuvwxyz", [], [""]
+    n_merges = text["vocab_size"] - len(tokens) - 2
+    while len(merges) < n_merges:
+        grown = []
+        for a in (frontier if frontier != [""] else letters):
+            for b in letters:
+                for tail in (b, b + "</w>"):
+                    if len(merges) < n_merges:
+                        merges.append((a, tail))
+                        grown.append(a + tail)
+        frontier = [t for t in grown if not t.endswith("</w>")]
+    tokens += [a + b for a, b in merges] + ["<|startoftext|>", "<|endoftext|>"]
+    vocab = {t: i for i, t in enumerate(tokens)}
+    if len(vocab) != text["vocab_size"]:
+        raise AssertionError(f"synthetic vocab of {len(vocab)} tokens")
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
+    with open(os.path.join(path, "special_tokens_map.json"), "w") as f:
+        json.dump({"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+                   "pad_token": "<|endoftext|>",
+                   "unk_token": "<|endoftext|>"}, f)
+    return dict(text=text, vision=vision, n_params=sum(
+        x.size for x in _leaves(params)))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield np.asarray(tree)
+
+
+def write_clip_coco(root: str, rng: np.random.Generator) -> str:
+    """A COCO retrieval tree of CLIP_ITEMS seeded 320 x 256 JPEGs, one
+    caption each (captions of 3-35 words, some over 77 tokens)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    coco = os.path.join(root, "coco")
+    os.makedirs(os.path.join(coco, "val2017"))
+    os.makedirs(os.path.join(coco, "annotations"))
+    texts = captions(rng, CLIP_ITEMS)
+    with open(os.path.join(coco, "annotations", "captions_val2017.json"),
+              "w") as f:
+        json.dump({"annotations": [{"image_id": i + 1, "caption": c}
+                                   for i, c in enumerate(texts)]}, f)
+    yy, xx = np.mgrid[0:256, 0:320].astype(np.float32)
+    params = [(rng.uniform(0.01, 0.08, 6), rng.uniform(0, 6, 3))
+              for _ in range(CLIP_ITEMS)]
+
+    def save(i):
+        f, ph = params[i]
+        img = np.stack([np.sin(xx * f[c] + ph[c]) * np.cos(yy * f[3 + c])
+                        for c in range(3)], -1)
+        Image.fromarray(((img + 1) * 127.5).astype(np.uint8)).save(
+            os.path.join(coco, "val2017", f"{i + 1:012d}.jpg"), "JPEG",
+            quality=90)
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        list(pool.map(save, range(CLIP_ITEMS)))
+    return coco
+
+
+def clip_k1_row(name: str, qkv: torch.Tensor, bias: torch.Tensor,
+                nh: int) -> dict:
+    """K1 at one of the CLIP towers' shapes, fp32: against its plain
+    version (TOLS), its times as a caller pays them and on the device
+    alone, the host's enqueue, the plain version's and
+    ``scaled_dot_product_attention``'s (with the full bias as its float
+    mask, or no mask for the zero key bias), and the bound."""
+    from clip_lite_torch.ops.attention import (
+        attention_forward, attention_reference)
+
+    b, s, three_h = qkv.shape
+    h, hd = three_h // 3, 64
+    full = bias.ndim == 4
+    err = (attention_forward(qkv, bias, nh)
+           - attention_reference(qkv, bias, nh)).abs().max().item()
+    if not err <= TOLS[torch.float32]["atol"]:
+        raise AssertionError(f"K1 {name}: max|kernel-plain| {err}")
+    copies = l2_spilling_copies(qkv, bias)
+
+    def fwd(x, m):
+        return attention_forward(x, m, nh)
+
+    def library(x, m):
+        q, k, v = x.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v,
+                                              attn_mask=m if full else None)
+
+    row = dict(shape=[b, s, three_h], heads=nh,
+               bias="full" if full else "key", max_abs_err=err,
+               ms=time_ms(fwd, copies), ms_device=device_ms(fwd, copies),
+               host_ms=enqueue_ms(fwd, copies),
+               plain_ms=time_ms(lambda x, m: attention_reference(x, m, nh),
+                                copies),
+               library_ms=time_ms(library, copies),
+               library_ms_device=device_ms(library, copies),
+               **bound(qkv.nbytes + bias.nbytes + b * s * h * 4,
+                       4 * b * nh * s * s * hd, torch.float32))
+    log(f"K1 {name} fp32 at qkv {tuple(qkv.shape)}, {nh} heads, "
+        f"{row['bias']} bias: {json.dumps(row)}")
+    del copies
+    return row
+
+
+def phase_clip() -> dict:
+    """Phase 14: ``python -m clip_lite_torch.retrieval --weight-init clip``
+    on a seeded CLIP directory at ViT-B/32's widths over a COCO tree of
+    CLIP_ITEMS images and captions, batch BATCH, the counts set to 0 just
+    before and read just after; then the towers alone and K1 at their
+    shapes."""
+    import os
+    import shutil
+    import tempfile
+
+    from clip_lite_torch import retrieval
+    from clip_lite_torch.models.clip import ClipLayer, text_bias
+    from clip_lite_torch.ops.attention import fused_short_attention
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_clip_")
+    bundle_cls = retrieval.ClipComparisonBundle
+    real = {n: getattr(bundle_cls, n)
+            for n in ("encode_texts", "encode_image_batches")}
+    seen = {}
+
+    def recording(name):
+        def wrapped(self, data, *args):
+            torch.cuda.synchronize()
+            before, t0 = fused_short_attention.launches, time.perf_counter()
+            if name == "encode_image_batches":
+                data = list(data)  # the loader's batches, kept for the twin
+            out = real[name](self, data, *args)
+            torch.cuda.synchronize()
+            seen[name] = dict(out=out, data=data, bundle=self,
+                              seconds=time.perf_counter() - t0,
+                              launches=fused_short_attention.launches - before)
+            return out
+        return wrapped
+
+    try:
+        rng = np.random.default_rng(14)
+        t0 = time.perf_counter()
+        clip_dir = os.path.join(root, "clip-vit-base-patch32")
+        cfg = write_clip_dir(clip_dir, rng)
+        coco = write_clip_coco(root, rng)
+        log(f"clip: a seeded CLIP directory ({cfg['n_params']} parameters, "
+            f"{os.path.getsize(os.path.join(clip_dir, 'flax_model.msgpack'))} "
+            f"bytes of Flax msgpack) and a COCO tree of {CLIP_ITEMS} JPEGs "
+            f"written in {time.perf_counter() - t0} s")
+        for n in real:
+            setattr(bundle_cls, n, recording(n))
+        args = retrieval.parser.parse_args([str(a) for a in (
+            "--serialization-dir", os.path.join(root, "out"),
+            "--cpu-workers", os.cpu_count() or 1, "--weight-init", "clip",
+            "--checkpoint-path", clip_dir, "--batch-size", BATCH,
+            "--config-override", "DATA.ROOT", coco)])
+        fused_short_attention.launches = fused_short_attention.tc_launches = 0
+        t0 = time.perf_counter()
+        recalls = retrieval.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"attention_fwd": fused_short_attention.launches,
+                    "attention_fwd_tc": fused_short_attention.tc_launches}
+    finally:
+        for n, fn in real.items():
+            setattr(bundle_cls, n, fn)
+    try:
+        text, image = seen["encode_texts"], seen["encode_image_batches"]
+        batches = math.ceil(CLIP_ITEMS / BATCH)
+        by_shape = {"S=77 (text)": text["launches"],
+                    "S=50 (vision)": image["launches"]}
+        log(f"clip: the CLI in {wall} s: {json.dumps(recalls)}; launches "
+            f"{launches}, by shape {by_shape}; encodes (with the loader's "
+            f"JPEG decode for the images) {text['seconds']} s and "
+            f"{image['seconds']} s")
+        want = {"S=77 (text)": cfg["text"]["num_hidden_layers"] * batches,
+                "S=50 (vision)": cfg["vision"]["num_hidden_layers"] * batches}
+        if by_shape != want or launches != {
+                "attention_fwd": sum(want.values()), "attention_fwd_tc": 0}:
+            raise AssertionError(f"K1 launches {launches}, by shape "
+                                 f"{by_shape}, expected {want}, none on the "
+                                 "tensor cores (fp32)")
+        for name, emb in (("text", text["out"]), ("image", image["out"])):
+            norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1).max())
+            if emb.shape != (CLIP_ITEMS, 512) or not np.isfinite(emb).all() \
+                    or norm_err > 1e-5:
+                raise AssertionError(f"clip {name} embeddings {emb.shape}, "
+                                     f"norms off 1 by {norm_err}")
+        if not all(0.0 <= v <= 100.0 for v in recalls.values()):
+            raise AssertionError(f"recalls {recalls}")
+
+        # The same model through the plain attention, on the same inputs.
+        bundle = text["bundle"]
+        layers = [m for m in bundle.model.modules() if isinstance(m, ClipLayer)]
+        for layer in layers:
+            layer.fused_attention = "false"
+        plain = {"text": bundle.encode_texts(text["data"]),
+                 "image": bundle.encode_image_batches(image["data"])}
+        for layer in layers:
+            layer.fused_attention = "auto"
+        errors = {k: float(np.abs(plain[k] - seen[n]["out"]).max())
+                  for k, n in (("text", "encode_texts"),
+                               ("image", "encode_image_batches"))}
+        log(f"clip: max |K1 - plain| over the unit-norm embeddings "
+            f"{errors} (tol {CLIP_TOL})")
+        if max(errors.values()) > CLIP_TOL:
+            raise AssertionError(f"clip embeddings: {errors}")
+
+        # The towers alone: images on the card, captions tokenized.
+        model = bundle.model
+        images = torch.cat([torch.as_tensor(b["image"]) for b in image["data"]]
+                           ).to("cuda", torch.float32)
+        enc = bundle.tokenizer(text["data"])
+        ids = torch.from_numpy(enc["input_ids"]).cuda()
+        mask = torch.from_numpy(enc["attention_mask"]).cuda()
+        rates = {}
+        with torch.no_grad():
+            for name, fn in (
+                    ("images_per_s", lambda i: model.get_image_features(
+                        images[i:i + BATCH])),
+                    ("captions_per_s", lambda i: model.get_text_features(
+                        ids[i:i + BATCH], mask[i:i + BATCH]))):
+                fn(0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    for i in range(0, CLIP_ITEMS, BATCH):
+                        fn(i)
+                torch.cuda.synchronize()
+                rates[name] = 3 * CLIP_ITEMS / (time.perf_counter() - t0)
+        log(f"clip: the towers alone at batch {BATCH}, fp32: {rates}")
+
+        # K1 at the towers' shapes, on seeded inputs.
+        g = torch.Generator(device="cuda").manual_seed(14)
+        vision_qkv = torch.randn(BATCH, 50, 3 * 768, device="cuda", generator=g)
+        text_qkv = torch.randn(BATCH, 77, 3 * 512, device="cuda", generator=g)
+        rows = {"clip_vision": clip_k1_row(
+                    "clip vision", vision_qkv,
+                    torch.zeros(BATCH, 50, device="cuda"), 12),
+                "clip_text": clip_k1_row(
+                    "clip text", text_qkv, text_bias(mask[:BATCH], 8), 8)}
+        rows["clip_vision"]["launches"] = image["launches"]
+        rows["clip_text"]["launches"] = text["launches"]
+        del seen, text, image, bundle, model, images, layers
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"clip: phase 14 in {time.perf_counter() - phase_t0} s")
+    return dict(launches=launches["attention_fwd"], recalls=recalls,
+                errors=errors, rates=rates, rows=rows)
+
+
 def crop_kernel_only() -> int:
     """``--crop-kernel``: phase 10d's records, then crop_resize_flip_u8
     alone (native_kernel_alone), its row printed as one JSON line."""
@@ -4910,6 +5325,9 @@ def main() -> int:
         "--matrix", action="store_true",
         help="run phases 1, 2 and 13 (the model matrix) alone")
     parser.add_argument(
+        "--clip", action="store_true",
+        help="run phases 1, 2 and 14 (retrieval --weight-init clip) alone")
+    parser.add_argument(
         "--crop-kernel", action="store_true",
         help="build decode_crop.cu, check and time crop_resize_flip_u8 alone "
              "on phase 10d's records and print its row, nothing else (to "
@@ -4944,35 +5362,55 @@ def main() -> int:
         phase_build()
         phase_matrix()
         return 0
-    phase_build()
-    phase_attention()
-    inference = phase_main_path()
-    attn = phase_attention_training()
-    training = phase_training()
-    flagship_trace = phase_trace(training)
-    ckpt = phase_checkpoint()
-    phase_training_parity()
-    full = phase_attention_training(full_bias=True)
-    mpnet_inference = phase_main_path(MPNET, "MPNet inference")
-    mpnet_training = phase_training(MPNET, "MPNet training")
+    if args.clip:
+        phase_build()
+        phase_clip()
+        return 0
+    script_t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(label, fn, *a):
+        """``fn(*a)``, its seconds kept under ``label``."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[label] = time.perf_counter() - t0
+        log(f"phase {label}: {seconds[label]} s")
+        return out
+
+    timed("2", phase_build)
+    timed("3", phase_attention)
+    inference = timed("4", phase_main_path)
+    attn = timed("5", phase_attention_training)
+    training = timed("6", phase_training)
+    flagship_trace = timed("6a", phase_trace, training)
+    ckpt = timed("6b", phase_checkpoint)
+    timed("7", phase_training_parity)
+    full = timed("8 (K1/K2)", phase_attention_training, True)
+    mpnet_inference = timed("8 (inference)", phase_main_path, MPNET,
+                            "MPNet inference")
+    mpnet_training = timed("8 (training)", phase_training, MPNET,
+                           "MPNet training")
     log(f"MPNet against BERT, same run, batch {BATCH}: training step "
         f"{mpnet_training['step_s']} s against {training['step_s']} s, "
         f"captions/s {mpnet_inference['captions_per_s']} against "
         f"{inference['captions_per_s']}, peak {mpnet_training['peak_mib']} MiB "
         f"against {training['peak_mib']} MiB")
-    phase_training_parity(MPNET, name="MPNet training parity")
-    norm = phase_normalize()
-    uint8 = phase_uint8_training(training)
-    ssl = phase_ssl(training, flagship_trace)
-    data = phase_data_cli(training)
-    nat = phase_native(training, data["a"]["step_s"])
-    evals = phase_eval_cli()
-    quality = phase_quality(training)
+    timed("8 (parity)", phase_training_parity, MPNET, "MPNet training parity")
+    norm = timed("9", phase_normalize)
+    uint8 = timed("10", phase_uint8_training, training)
+    ssl = timed("10a", phase_ssl, training, flagship_trace)
+    data = timed("10b", phase_data_cli, training)
+    nat = timed("10d", phase_native, training, data["a"]["step_s"])
+    evals = timed("10c", phase_eval_cli)
+    quality = timed("11", phase_quality, training)
     ranks = {f"ranks_{name}": run["launches"]
-             for name, run in phase_ranks()["runs"].items()}
+             for name, run in timed("12", phase_ranks)["runs"].items()}
     # Phase 13's runs, counted by range name as the ranks'.
     matrix = {f"matrix_{run}": result["launches"]
-              for run, result in phase_matrix().items()}
+              for run, result in timed("13", phase_matrix).items()}
+    clip = timed("14", phase_clip)
+    log(f"phase seconds: {json.dumps(seconds)}; the script so far "
+        f"{time.perf_counter() - script_t0} s after phase 1")
     cli = {"cli_host_loader": data["a"]["launches"],
            "cli_resumed": data["c"]["launches"],
            "cli_device_cache": data["b"]["launches"],
@@ -5007,7 +5445,8 @@ def main() -> int:
                        quality["clusters"]["attention_fwd"],
                    **{k: n["K1 attention_fwd"] for k, n in ranks.items()},
                    **{k: n["K1 attention_fwd"] for k, n in matrix.items()
-                      if n["K1 attention_fwd"]}}
+                      if n["K1 attention_fwd"]},
+                   "clip_retrieval": clip["launches"]}
     k2_launches = {"training": training["launches"]["attention_bwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"],
@@ -5069,7 +5508,9 @@ def main() -> int:
              replaces="clip_lite_tpu/ops/attention.py:95",
              launches=sum(k1_launches.values()), launches_by_path=k1_launches,
              **attention_row("k1", attn, "key bias"),
-             full_bias=attention_row("k1", full, "full bias")),
+             full_bias=attention_row("k1", full, "full bias"),
+             # fp32 at the CLIP towers' shapes (phase 14), CUDA-core route.
+             **clip["rows"]),
         dict(name="attention_bwd (K2)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_bwd.cu",
              replaces="clip_lite_tpu/ops/attention.py:122",

@@ -82,10 +82,6 @@ class TrainState:
 
 
 def _check_supported(config: Config) -> None:
-    if config.PARALLEL.STEPS_PER_CALL > 1:
-        raise NotImplementedError(
-            "PARALLEL.STEPS_PER_CALL > 1 folds steps into one XLA program; "
-            "the port runs one step per call (ROADMAP Queue 1, item 12)")
     if config.PARALLEL.ZERO1 and world_size() == 1:
         # As the JAX package does on a one-device mesh (train.py:164-167).
         logger.warning("PARALLEL.ZERO1 on one rank shards nothing; using the "
@@ -244,6 +240,45 @@ def make_train_step(config: Config) -> Callable:
     return train_step
 
 
+def make_scanned_train_step(config: Config,
+                            train_step: Optional[Callable] = None) -> Callable:
+    """``PARALLEL.STEPS_PER_CALL`` (K) train steps a call, the counterpart
+    of the JAX package's ``make_scanned_train_step`` (``engine.py:186-210``
+    there): ``step(state, batches, prior_noise=None, aug_draws=None) ->
+    (state, metrics)`` runs ``train_step`` (by default
+    :func:`make_train_step`'s) on each of the K ``batches`` in turn,
+    eagerly (JAX's ``lax.scan`` compiles them into one program; here
+    nothing is compiled or captured), and returns the K-step mean of every
+    metric but ``grad_norm``, which is the last step's.  ``prior_noise``
+    and ``aug_draws``, where given, hold one entry a step (and are passed
+    by keyword; a ``train_step`` taking ``(state, batch)`` alone serves
+    without them).  Each step draws
+    by its own step count, as JAX's key is folded by ``state.step`` inside
+    the scan, so a call of K steps gives the bits of K calls of one.  With
+    K = 1 this is the train step itself."""
+    k = max(1, config.PARALLEL.STEPS_PER_CALL)
+    train_step = train_step or make_train_step(config)
+    if k == 1:
+        return train_step
+
+    def scanned(state: TrainState, batches, prior_noise=None, aug_draws=None):
+        if len(batches) != k:
+            raise ValueError(f"a call takes {k} batches, got {len(batches)}")
+        steps = []
+        for i, batch in enumerate(batches):
+            given = {} if prior_noise is None else {"prior_noise": prior_noise[i]}
+            if aug_draws is not None:
+                given["aug_draws"] = aug_draws[i]
+            state, metrics = train_step(state, batch, **given)
+            steps.append(metrics)
+        out = {name: torch.stack([m[name].float() for m in steps]).mean()
+               for name in steps[0]}
+        out["grad_norm"] = steps[-1]["grad_norm"]
+        return state, out
+
+    return scanned
+
+
 def make_eval_step(config: Config) -> Callable:
     """``eval_step(state, batch, index=0, prior_noise=None) -> components``:
     the loss components under eval-mode norms and no dropout (the val
@@ -275,5 +310,5 @@ def metrics_to_floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 
 __all__ = ["TrainState", "create_train_state", "load_jax_tree",
-           "make_train_step", "make_eval_step", "metrics_to_floats",
-           "to_jax_tree"]
+           "make_eval_step", "make_scanned_train_step", "make_train_step",
+           "metrics_to_floats", "to_jax_tree"]

@@ -29,6 +29,20 @@ la_count}``, the first three following the params tree (``nu`` empty for
 SGD, ``slow_params`` empty without Lookahead), the counters int32 0-d
 arrays with JAX's meaning (both 0 before the first step; the sync runs
 when ``la_count % k == 0`` after the increment).
+
+Under ``OPTIM.FUSED: false`` the JAX package trains with the optax chain
+of its ``optim/__init__.py:86-129`` and its checkpoints hold the chain's
+state; the port keeps its one fused optimizer, whose update is the
+chain's (the JAX ``tests/test_optim.py::test_fused_matches_chain``), and
+reads and writes that layout instead (:func:`chain_state`,
+:func:`fused_fields`), so either package resumes the other's file.
+flax serializes the chain as ``{"0": ..., "1": ..., ...}``, one entry a
+part (:func:`chain_parts`), wrapped under Lookahead as ``{"inner_state":
+<chain>, "slow_params": <tree>, "step_count": int32}``.  The buffers map
+as the JAX ``parallel/zero1.py::zero1_state_from_optax`` maps them:
+``trace`` is SGD's ``trace`` or Adam's ``mu``, ``nu`` Adam's ``nu``, the
+chain's counts (Adam's and the schedule's) both ``count``, and
+Lookahead's ``step_count`` ``la_count``.
 """
 
 from __future__ import annotations
@@ -46,6 +60,98 @@ _ADAM_BETAS, _ADAM_EPS = (0.9, 0.999), 1e-8
 # FusedOptState's fields, and the _Group buffer behind each tree.
 _BUFFERS = {"trace": "trace", "nu": "nu", "slow_params": "slow"}
 _FIELDS = (*_BUFFERS, "count", "la_count")
+
+
+def chain_parts(optim) -> Tuple[str, ...]:
+    """The parts of the optax chain that the JAX package builds from the
+    ``OPTIM`` node ``optim`` under ``FUSED: false``, in order: ``clip``
+    (``clip_by_global_norm``, when ``CLIP_GRAD_NORM`` > 0), then for SGD
+    ``decay`` (``add_decayed_weights`` with its mask, when
+    ``WEIGHT_DECAY`` is non-zero) and ``trace`` (the momentum, when
+    ``SGD_MOMENTUM`` is non-zero), for AdamW ``adam`` then ``decay``, and
+    last ``schedule`` (``scale_by_group_lr``)."""
+    parts = ["clip"] if optim.CLIP_GRAD_NORM and optim.CLIP_GRAD_NORM > 0 \
+        else []
+    decay = ["decay"] if optim.WEIGHT_DECAY else []
+    if optim.OPTIMIZER_NAME == "adamw":
+        parts += ["adam", *decay]
+    else:
+        parts += [*decay, *(["trace"] if optim.SGD_MOMENTUM else [])]
+    return (*parts, "schedule")
+
+
+# Each part's state as flax serializes it: its keys, and the fused field
+# each key holds (None: the empty state of the decay's mask).
+_PART_KEYS = {"clip": {}, "decay": {"inner_state": None},
+              "trace": {"trace": "trace"},
+              "adam": {"count": "count", "mu": "trace", "nu": "nu"},
+              "schedule": {"count": "count"}}
+_LOOKAHEAD_KEYS = {"inner_state": None, "slow_params": "slow_params",
+                   "step_count": "la_count"}
+
+
+def chain_state(fused: dict, parts: Tuple[str, ...], lookahead: bool) -> dict:
+    """The ``FusedOptState`` tree ``fused`` in the layout of the optax
+    chain of ``parts`` (:func:`chain_parts`), wrapped in Lookahead's state
+    when ``lookahead``: the tree the JAX package's checkpoints hold under
+    ``OPTIM.FUSED: false``.  Leaves are ``fused``'s, not copies."""
+    chain = {str(i): {key: {} if field is None else fused[field]
+                      for key, field in _PART_KEYS[part].items()}
+             for i, part in enumerate(parts)}
+    if not lookahead:
+        return chain
+    return {"inner_state": chain, "slow_params": fused["slow_params"],
+            "step_count": fused["la_count"]}
+
+
+def fused_fields(tree, parts: Tuple[str, ...], adam: bool,
+                 lookahead: bool) -> dict:
+    """The fused optimizer's fields (``trace``, ``nu``, ``slow_params``,
+    ``count``, ``la_count``) from an optimizer state of either layout: a
+    ``FusedOptState`` tree, or the optax chain's of ``parts`` (wrapped in
+    Lookahead's when ``lookahead``).  A buffer the chain does not keep
+    (SGD without momentum) is ``{}``.  Raises a ValueError for a state of
+    another layout or another OPTIM config."""
+    found = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+    if isinstance(tree, dict) and set(tree) == set(_FIELDS):
+        holds = {"nu": adam, "slow_params": lookahead}
+        for field in _BUFFERS:
+            if bool(tree[field]) != holds.get(field, True):
+                raise ValueError(
+                    f"opt_state.{field} does not fit this optimizer (AdamW "
+                    f"{adam}, Lookahead {lookahead}): the checkpoint was "
+                    "written under another OPTIM config")
+        return tree
+    fields = {"trace": {}, "nu": {}, "slow_params": {}}
+    chain = tree
+    if lookahead:
+        if not isinstance(tree, dict) or set(tree) != set(_LOOKAHEAD_KEYS):
+            raise ValueError(
+                f"the optimizer state holds {found}: neither the fused "
+                f"optimizer's {list(_FIELDS)} nor Lookahead's "
+                f"{sorted(_LOOKAHEAD_KEYS)}; the checkpoint was written "
+                "under another OPTIM config")
+        chain = tree["inner_state"]
+        fields["slow_params"] = tree["slow_params"]
+        fields["la_count"] = tree["step_count"]
+    expected = {str(i): set(_PART_KEYS[part]) for i, part in enumerate(parts)}
+    if not isinstance(chain, dict) or {k: set(v) if isinstance(v, dict)
+                                       else None for k, v in chain.items()
+                                       } != expected:
+        got = ({k: sorted(v) if isinstance(v, dict) else type(v).__name__
+                for k, v in chain.items()} if isinstance(chain, dict)
+               else type(chain).__name__)
+        raise ValueError(
+            f"the optimizer state holds the chain {got}, where this "
+            f"optimizer's config gives {list(parts)} (keys "
+            f"{ {k: sorted(v) for k, v in expected.items()} }): the "
+            "checkpoint was written under another OPTIM config")
+    for i, part in enumerate(parts):
+        for key, field in _PART_KEYS[part].items():
+            if field is not None:
+                fields[field] = chain[str(i)][key]
+    fields.setdefault("la_count", fields["count"])
+    return fields
 
 
 # The CPU's norm of a float32 tensor sums its squares in one accumulator:
@@ -95,6 +201,9 @@ class FusedOptimizer:
         self.clip_norm = _O.CLIP_GRAD_NORM
         self.lookahead = bool(_O.LOOKAHEAD.USE)
         self.la_k, self.la_alpha = _O.LOOKAHEAD.STEPS, _O.LOOKAHEAD.ALPHA
+        # jax_state writes the optax chain's layout under FUSED false.
+        self.chain_parts = chain_parts(_O)
+        self.chain_layout = not _O.FUSED
         self.schedule_fn = schedule_fn
         self.count = 0     # schedule step counter
         self.la_count = 0  # Lookahead counter
@@ -198,56 +307,58 @@ class FusedOptimizer:
 
     def jax_state(self, to_tree: Callable[[Dict[str, torch.Tensor]], dict]
                   ) -> dict:
-        """The state as the JAX package's ``FusedOptState`` tree; ``to_tree``
-        maps buffers keyed by parameter name onto the params tree
-        (``bridge.to_jax_params``).  The buffers are the live tensors'
-        views, not copies."""
+        """The state as the JAX package's ``FusedOptState`` tree, or under
+        ``OPTIM.FUSED: false`` as its optax chain's (:func:`chain_state`);
+        ``to_tree`` maps buffers keyed by parameter name onto the params
+        tree (``bridge.to_jax_params``).  The buffers are the live
+        tensors' views, not copies."""
         tree = {field: to_tree(self._by_name(attr)) if self._holds(field)
                 else {} for field, attr in _BUFFERS.items()}
         tree["count"] = np.asarray(self.count, np.int32)
         tree["la_count"] = np.asarray(self.la_count, np.int32)
-        return tree
+        if not self.chain_layout:
+            return tree
+        return chain_state(tree, self.chain_parts, self.lookahead)
 
     @torch.no_grad()
     def load_jax_state(self, tree: dict,
                        from_tree: Callable[[dict], Dict[str, torch.Tensor]]
                        ) -> None:
-        """Copy a ``FusedOptState`` tree into the buffers and counters, in
-        place; ``from_tree`` maps a params-like tree onto tensors keyed by
-        parameter name (``bridge.from_jax_params``).  Raises for any other
-        layout, among them the optax chain's state that the JAX package
-        writes under ``OPTIM.FUSED: false``: the port has only the fused
-        optimizer (``factories.OptimizerFactory``)."""
-        if not isinstance(tree, dict) or set(tree) != set(_FIELDS):
-            found = sorted(tree) if isinstance(tree, dict) else type(tree)
-            raise ValueError(
-                f"the optimizer state holds {found}, not the fused "
-                f"optimizer's {list(_FIELDS)}; a JAX run with OPTIM.FUSED "
-                "false writes the optax chain's state, which the port (fused "
-                "optimizer only) cannot resume")
+        """Copy an optimizer state, a ``FusedOptState`` tree or the optax
+        chain's (:func:`fused_fields`, whatever ``OPTIM.FUSED`` says), into
+        the buffers and counters, in place; ``from_tree`` maps a
+        params-like tree onto tensors keyed by parameter name
+        (``bridge.from_jax_params``).  Raises for a state of another
+        layout or OPTIM config."""
+        fields = fused_fields(tree, self.chain_parts, self.adam,
+                              self.lookahead)
         for field, attr in _BUFFERS.items():
-            if bool(tree[field]) != self._holds(field):
-                raise ValueError(
-                    f"opt_state.{field} does not fit this optimizer (AdamW "
-                    f"{self.adam}, Lookahead {self.lookahead}): the checkpoint "
-                    "was written under another OPTIM config")
-            if tree[field]:
-                values = from_tree(tree[field])
+            if fields[field]:
+                values = from_tree(fields[field])
                 for g in self.groups:
                     for p, b in zip(g.params, getattr(g, attr)):
                         b.copy_(values[self.names[id(p)]])
-        self.count = int(tree["count"])
-        self.la_count = int(tree["la_count"])
+        self.count = int(fields["count"])
+        self.la_count = int(fields["la_count"])
 
 
-def slow_params_from_state(optimizer: FusedOptimizer
-                           ) -> Optional[Dict[str, torch.Tensor]]:
-    """The Lookahead slow weights by parameter name, or None without
-    Lookahead: the counterpart of the JAX package's
-    ``optim/lookahead.py::slow_params_from_state``.  Only callers that ask
-    for the slow weights use it: evals take the fast ones
-    (``eval_utils.EncoderBundle``), as the JAX package's do."""
-    return optimizer.slow_state() if optimizer.lookahead else None
+def slow_params_from_state(state) -> Optional[dict]:
+    """The Lookahead slow weights, or None without Lookahead: the
+    counterpart of the JAX package's ``optim/lookahead.py::
+    slow_params_from_state``.  ``state`` is an optimizer (the slow weights
+    by parameter name) or a stored optimizer state of either layout, a
+    ``FusedOptState`` tree or the optax chain's wrapped in Lookahead's
+    (the slow params tree as stored).  Only callers that ask for the slow
+    weights use it: evals take the fast ones (``eval_utils.EncoderBundle``),
+    as the JAX package's do."""
+    if not isinstance(state, dict):
+        return state.slow_state() if state.lookahead else None
+    if set(state) == set(_LOOKAHEAD_KEYS):
+        return state["slow_params"]
+    if set(state) == set(_FIELDS):
+        return state["slow_params"] or None
+    return None
 
 
-__all__ = ["FusedOptimizer", "slow_params_from_state"]
+__all__ = ["FusedOptimizer", "chain_parts", "chain_state", "fused_fields",
+           "slow_params_from_state"]

@@ -43,7 +43,7 @@ from torch import nn
 
 from clip_lite_torch.optim import make_decays_fn, make_lr_fn
 from clip_lite_torch.optim.fused import _ADAM_BETAS, _ADAM_EPS, _BUFFERS, \
-    _FIELDS
+    chain_parts, chain_state, fused_fields
 from clip_lite_torch.parallel.collectives import (
     all_gather,
     all_reduce_,
@@ -72,6 +72,8 @@ class Zero1Optimizer:
         self.clip_norm = _O.CLIP_GRAD_NORM
         self.lookahead = bool(_O.LOOKAHEAD.USE)
         self.la_k, self.la_alpha = _O.LOOKAHEAD.STEPS, _O.LOOKAHEAD.ALPHA
+        self.chain_parts = chain_parts(_O)
+        self.chain_layout = not _O.FUSED
         self.schedule_fn = schedule_fn
         self.count = 0
         self.la_count = 0
@@ -196,30 +198,27 @@ class Zero1Optimizer:
 
     def jax_state(self, to_tree: Callable[[Dict[str, torch.Tensor]], dict]
                   ) -> dict:
-        """The replicated ``FusedOptState`` tree of the fused optimizer,
-        from the gathered slices (a collective)."""
+        """The replicated ``FusedOptState`` tree of the fused optimizer (the
+        optax chain's layout under ``OPTIM.FUSED: false``, as the fused
+        optimizer's), from the gathered slices (a collective)."""
         tree = {field: to_tree(self._by_name(self._gather(self._buffer(attr))))
                 if self._holds(field) else {}
                 for field, attr in _BUFFERS.items()}
         tree["count"] = np.asarray(self.count, np.int32)
         tree["la_count"] = np.asarray(self.la_count, np.int32)
-        return tree
+        if not self.chain_layout:
+            return tree
+        return chain_state(tree, self.chain_parts, self.lookahead)
 
     @torch.no_grad()
     def load_jax_state(self, tree: dict,
                        from_tree: Callable[[dict], Dict[str, torch.Tensor]]
                        ) -> None:
-        """Take this rank's slices of a ``FusedOptState`` tree (written at
-        any world size)."""
-        if not isinstance(tree, dict) or set(tree) != set(_FIELDS):
-            found = sorted(tree) if isinstance(tree, dict) else type(tree)
-            raise ValueError(f"the optimizer state holds {found}, not the "
-                             f"fused optimizer's {list(_FIELDS)}")
+        """Take this rank's slices of a ``FusedOptState`` tree or the optax
+        chain's (``optim.fused.fused_fields``), written at any world
+        size."""
+        tree = fused_fields(tree, self.chain_parts, self.adam, self.lookahead)
         for field, attr in _BUFFERS.items():
-            if bool(tree[field]) != self._holds(field):
-                raise ValueError(
-                    f"opt_state.{field} does not fit this optimizer (AdamW "
-                    f"{self.adam}, Lookahead {self.lookahead})")
             if tree[field]:
                 values = from_tree(tree[field])
                 flat = torch.cat([torch.as_tensor(values[n]).reshape(-1)

@@ -11,9 +11,14 @@ where the downstream config's DATA.ROOT is the COCO or Flickr30k
 directory (``DownstreamDatasetFactory`` keys on its trailing name).  The
 last line printed is the recalls as JSON.
 
-``--weight-init clip`` (an OpenAI CLIP model from a local Hugging Face
-directory, through transformers' Flax CLIP in the JAX package) raises: the
-card's machine has no transformers (ROADMAP Queue 1, item 6(b)).
+``--weight-init clip --checkpoint-path <dir>`` scores an OpenAI CLIP model
+from a local Hugging Face directory instead (``config.json``, the Flax
+weights ``flax_model.msgpack`` or its sharded index, ``vocab.json``,
+``merges.txt``, and ``special_tokens_map.json`` or
+``tokenizer_config.json``), on the same images from the same loader:
+:class:`ClipComparisonBundle`, the port's own towers and tokenizer in
+place of the JAX package's transformers ones (``models/clip.py``,
+``data/tokenizers.py::ClipBPETokenizer``).
 """
 
 from __future__ import annotations
@@ -23,10 +28,14 @@ from typing import List, Tuple
 
 import numpy as np
 
+import torch
+
 from clip_lite_torch.config import Config
 from clip_lite_torch.data.pipeline import DataLoader
+from clip_lite_torch.data.tokenizers import ClipBPETokenizer
 from clip_lite_torch.eval_utils import EncoderBundle, itm_eval, resolve_device
 from clip_lite_torch.factories import DownstreamDatasetFactory, TokenizerFactory
+from clip_lite_torch.models.clip import load_clip_model
 from clip_lite_torch.utils.common import (
     check_one_card,
     common_parser,
@@ -39,11 +48,12 @@ parser.add_argument("--pretrain-config", default=None,
                          "(required with --weight-init vlinfo).")
 parser.add_argument("--pretrain-config-override", nargs="*", default=[])
 parser.add_argument("--checkpoint-path", required=True,
-                    help="A checkpoint of either package (msgpack).")
+                    help="vlinfo: a checkpoint of either package (msgpack); "
+                         "clip: a local Hugging Face CLIP model directory.")
 parser.add_argument("--weight-init", default="vlinfo",
                     choices=["vlinfo", "clip"],
-                    help="vlinfo: score the checkpoint; clip: an OpenAI CLIP "
-                         "model (not ported: ROADMAP Queue 1, item 6(b)).")
+                    help="Score a checkpoint, or an OpenAI CLIP model for a "
+                         "side-by-side comparison.")
 parser.add_argument("--split", default="val")
 parser.add_argument("--batch-size", type=int, default=128)
 
@@ -63,15 +73,53 @@ def score_retrieval(bundle: EncoderBundle, images: np.ndarray,
     return itm_eval(sims, sims.T, txt2img, img2txt), image_embeds, text_embeds
 
 
+class ClipComparisonBundle:
+    """An OpenAI CLIP model from a local Hugging Face directory, scored
+    through the same ``itm_eval`` tables: the JAX package's
+    ``retrieval.py:48-95``, on the port's CLIP towers (K1 in both) and
+    tokenizer.  Embeddings are the projected features, L2-normalized in
+    float32 numpy as there; images come as the vlinfo path's (NHWC float32
+    from the downstream loader: identical preprocessing for both
+    models)."""
+
+    def __init__(self, model_path: str, batch_size: int = 128,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.model = load_clip_model(model_path, self.device)
+        self.tokenizer = ClipBPETokenizer(model_path)
+        self.batch_size = batch_size
+
+    @staticmethod
+    def _l2(x: np.ndarray) -> np.ndarray:
+        return x / np.clip(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12,
+                           None)
+
+    @torch.no_grad()
+    def encode_texts(self, texts: List[str], tokenizer=None) -> np.ndarray:
+        """``tokenizer`` is ignored: CLIP takes its own, at 77 tokens."""
+        out = []
+        for i in range(0, len(texts), self.batch_size):
+            enc = self.tokenizer(list(texts[i:i + self.batch_size]))
+            out.append(self.model.get_text_features(
+                torch.from_numpy(enc["input_ids"]).to(self.device),
+                torch.from_numpy(enc["attention_mask"]).to(self.device)
+            ).cpu().numpy())
+        return self._l2(np.concatenate(out))
+
+    @torch.no_grad()
+    def encode_image_batches(self, batches) -> np.ndarray:
+        out = []
+        for batch in batches:
+            images = torch.as_tensor(batch["image"]).to(self.device,
+                                                        torch.float32)
+            out.append(self.model.get_image_features(images).cpu().numpy())
+        return self._l2(np.concatenate(out))
+
+
 def main(_A) -> dict:
     check_one_card(_A)
     device = resolve_device(_A.device)
-    if _A.weight_init == "clip":
-        raise NotImplementedError(
-            "--weight-init clip scores an OpenAI CLIP model through "
-            "transformers, which the card's machine does not have (ROADMAP "
-            "Queue 1, item 6(b))")
-    if not _A.pretrain_config:
+    if _A.weight_init == "vlinfo" and not _A.pretrain_config:
         parser.error("--pretrain-config is required for vlinfo")
     _C_down = Config(_A.config, list(_A.config_override))
     logger = common_setup(_C_down, _A, job_type="retrieval")
@@ -80,10 +128,15 @@ def main(_A) -> dict:
     loader = DataLoader(dataset, _A.batch_size, shuffle=False,
                         drop_last=False, num_workers=_A.cpu_workers,
                         background=False)
-    _C = Config(_A.pretrain_config, list(_A.pretrain_config_override))
-    tokenizer = TokenizerFactory.from_config(_C)
-    bundle = EncoderBundle(_C, _A.checkpoint_path, batch_size=_A.batch_size,
-                           device=device)
+    if _A.weight_init == "clip":
+        tokenizer = None
+        bundle = ClipComparisonBundle(_A.checkpoint_path, _A.batch_size,
+                                      device)
+    else:
+        _C = Config(_A.pretrain_config, list(_A.pretrain_config_override))
+        tokenizer = TokenizerFactory.from_config(_C)
+        bundle = EncoderBundle(_C, _A.checkpoint_path,
+                               batch_size=_A.batch_size, device=device)
 
     logger.info("Encoding %d captions...", len(dataset.text))
     text_embeds = bundle.encode_texts(dataset.text, tokenizer)
@@ -97,7 +150,7 @@ def main(_A) -> dict:
     return result
 
 
-__all__ = ["main", "parser", "score_retrieval"]
+__all__ = ["ClipComparisonBundle", "main", "parser", "score_retrieval"]
 
 
 if __name__ == "__main__":

@@ -20,19 +20,25 @@ and ``PARALLEL.ZERO1`` shards the optimizer's state (its
 ``train.py:125-167, 224-260``); the val sweep's means are over all ranks.
 
 ``train_loop`` is the loop (lines 282-371 of the JAX ``train.py``) over
-any batch source.  Per iteration: one train step; every ``log_every``
-iterations the metrics come to the host, go to the log with the timer's
-stats and peak device memory, and to the metrics writer; with a
-``profile_dir``, a trace of five steps after the first three
-(``utils/trace.py``; the JAX ``train.py:294-325``); every
-``checkpoint_every`` iterations a validation sweep (when val batches are
-given) writes the mean loss components, and its mean ``total_loss`` is
-the metric of the checkpoint then written; in the last 20% of training a
-model-only climax snapshot every ``climax_freq`` iterations; at the end a
-final checkpoint.  With ``resume_from`` the loop first restores the state
-from that checkpoint and starts the batch source at its iteration; with
-``switch`` it takes new batch sources at an iteration (the cluster
-curriculum's switch).
+any batch source.  Per call: ``PARALLEL.STEPS_PER_CALL`` (K) train steps
+(``engine.make_scanned_train_step``: K eager steps over K batches, the
+K-step mean of the metrics), the iteration advanced by K; each cadence
+fires when the call crossed one of its boundaries (``crossed_interval``),
+as the JAX loop's: every ``log_every`` iterations the metrics come to
+the host, go to the log with the timer's stats and peak device memory,
+and to the metrics writer; with a ``profile_dir``, a trace of five calls
+after the first three (``utils/trace.py``; the JAX ``train.py:294-325``);
+every ``checkpoint_every`` iterations a validation sweep (when val
+batches are given) writes the mean loss components, and its mean
+``total_loss`` is the metric of the checkpoint then written; in the last
+20% of training a model-only climax snapshot every ``climax_freq``
+iterations; at the end a final checkpoint.  As in the JAX loop, a K
+that does not divide ``NUM_ITERATIONS`` runs past it: the last call
+takes the run to the next multiple of K, and the final checkpoint, named
+``NUM_ITERATIONS``, holds that state.  With ``resume_from`` the loop
+first restores the state from that checkpoint and starts the batch
+source at its iteration; with ``switch`` it takes new batch sources at
+an iteration (the cluster curriculum's switch).
 
 With ``MODEL.VISUAL.PRETRAINED``/``MODEL.TEXTUAL.PRETRAINED`` and their
 ``PRETRAINED_PATH`` the towers start from local files
@@ -42,9 +48,9 @@ of the registry (ResNet, VGG, ``zoo::<name>``) and text mode (``glove``,
 ``sbert``, ``train_sbert``, ``finetune_sbert``) trains; the glove and
 sbert modes through the host loader only.
 
-``main`` refuses what the port does not have yet, naming its item of
-ROADMAP Queue 1: ``PARALLEL.STEPS_PER_CALL > 1``; and the SSL terms on
-the native batch path without the device cache, which makes no augmented
+``main`` refuses what the JAX CLI refuses (ZeRO-1, ``DATA.SEQ_BUCKETS``
+and the device cache with K > 1, among others), and the SSL terms on the
+native batch path without the device cache, which makes no augmented
 views (ROADMAP Queue 3).
 
 Run (synthetic smoke, on the CPU; ``--profile-dir DIR`` writes the
@@ -66,6 +72,7 @@ from clip_lite_torch.engine import (
     TrainState,
     create_train_state,
     make_eval_step,
+    make_scanned_train_step,
     make_train_step,
     metrics_to_floats,
 )
@@ -135,10 +142,15 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
                manager: Optional[CheckpointManager] = None,
                resume_from: Optional[str] = None,
                profile_dir: Optional[str] = None,
-               switch: Optional[Tuple[int, Callable[[int], Sources]]] = None
-               ) -> TrainState:
+               switch: Optional[Tuple[int, Callable[[int], Sources]]] = None,
+               steps_per_call: int = 1) -> TrainState:
     """Train from ``state.step`` up to ``num_iterations`` steps, taking one
     batch of ``batches`` per step, and return the state.
+
+    With ``steps_per_call`` K > 1, ``train_step`` takes a list of K
+    batches a call (``engine.make_scanned_train_step``), the iteration
+    moves by K a call and the cadences go by ``crossed_interval``; the
+    last call may run past ``num_iterations``, as the JAX loop does.
 
     ``val_batches`` is iterated afresh at each sweep (a list, or a loader).
     With a ``manager`` (whose ``state`` checkpointable becomes ``state``)
@@ -148,7 +160,7 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
     checkpoint, in place, and starts ``batches`` at the stored iteration
     through its ``set_start`` (``DeviceDataCache`` has one); a source
     without one must already begin at that iteration.  With a
-    ``profile_dir`` the steps after the first ``PROFILE_AFTER`` run under
+    ``profile_dir`` the calls after the first ``PROFILE_AFTER`` run under
     the profiler, ``PROFILE_STEPS`` of them (fewer where the run ends
     first), the last of the first ``PROFILE_AFTER`` in its warm-up, and
     their trace goes to ``profile_dir/trace.json.gz``.  With ``switch``,
@@ -169,11 +181,21 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
             batches.set_start(iteration)
         logger.info("Resumed from %s at iteration %d", resume_from, iteration)
     batches = iter(batches)
+    k = steps_per_call
+
+    def next_input():
+        """The next call's input: a batch, or a list of K (the JAX
+        ``next_train_input``)."""
+        if k == 1:
+            return next(batches)
+        return [next(batches) for _ in range(k)]
+
     timer = Timer(start_from=iteration + 1, total_iterations=num_iterations)
-    batch = next(batches) if iteration < num_iterations else None
-    profiler, first_traced = None, iteration + PROFILE_AFTER + 1
+    batch = next_input() if iteration < num_iterations else None
+    # The iteration at the end of the first traced call.
+    profiler, first_traced = None, iteration + (PROFILE_AFTER + 1) * k
     while iteration < num_iterations:
-        iteration += 1
+        iteration += k
         if switch is not None and iteration >= switch[0]:
             logger.info("Switching to clustered hard-negative sampling "
                         "(iteration %d)", iteration)
@@ -181,26 +203,26 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
                 batches.close()
             batches, val_batches = switch[1](iteration)
             batches = iter(batches)
-            batch = next(batches)
+            batch = next_input()
             switch = None
-        if profile_dir and iteration == first_traced - 1 \
-                and first_traced <= num_iterations:
-            profiler = start_trace(state.device)  # this step is its warm-up
+        if profile_dir and iteration == first_traced - k \
+                and first_traced - k < num_iterations:
+            profiler = start_trace(state.device)  # this call is its warm-up
         if profiler is not None and iteration == first_traced:
             record_trace(profiler, state.device)
         timer.tic()
         state, metrics = train_step(state, batch)
         if iteration < num_iterations:
             with scope("next_batch"):
-                batch = next(batches)  # the host fetch overlaps the step
+                batch = next_input()  # the host fetch overlaps the step
         if profiler is not None and (
-                iteration == first_traced + PROFILE_STEPS - 1
-                or iteration == num_iterations):
+                iteration == first_traced + (PROFILE_STEPS - 1) * k
+                or iteration >= num_iterations):
             path = stop_trace(profiler, profile_dir, state.device)
             profiler = None
             logger.info("Profiler trace written to %s (steps %d..%d)", path,
                         first_traced, iteration)
-        log_now = crossed_interval(iteration, log_every)
+        log_now = crossed_interval(iteration, log_every, k)
         if log_now:
             metrics = metrics_to_floats(metrics)
         timer.toc()
@@ -212,7 +234,7 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
                         device_mem_usage_mb(state.device))
             if writer is not None:
                 writer.write(iteration, metrics, split="train")
-        if crossed_interval(iteration, checkpoint_every):
+        if crossed_interval(iteration, checkpoint_every, k):
             metric = None
             if val_batches is not None and eval_step is not None:
                 metric = _validate(state, eval_step, val_batches, iteration,
@@ -222,11 +244,13 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
                 manager.step(iteration, metric=metric)
         # Dense climax snapshots in the last 20% of training.
         if manager is not None and iteration / num_iterations > 0.8 \
-                and crossed_interval(iteration, climax_freq):
+                and crossed_interval(iteration, climax_freq, k):
             manager.checkpointables["state"] = state
             manager.climax_step(iteration)
     if manager is not None:
-        # A final checkpoint, so that a short run always leaves one.
+        # A final checkpoint, so that a short run always leaves one; named
+        # num_iterations even where the last call ran past it (the JAX
+        # loop's manager.step(NUM_ITERATIONS)).
         manager.checkpointables["state"] = state
         manager.step(num_iterations)
         manager.wait()
@@ -272,8 +296,8 @@ def _validate(state: TrainState, eval_step: Callable, val_batches: Iterable,
 
 
 def _check_supported(_C: Config, _A) -> None:
-    """The JAX CLI's refusals (its ``train.py:168-180``), then what the
-    port does not have yet."""
+    """The JAX CLI's refusals (its ``train.py:168-180``), then the native
+    path's with the SSL terms."""
     steps_per_call = max(1, _C.PARALLEL.STEPS_PER_CALL)
     use_clusters = "clusters" in _C.DATA.NEGATIVE_SAMPLING
     if _C.PARALLEL.ZERO1 and steps_per_call > 1:
@@ -302,10 +326,6 @@ def _check_supported(_C: Config, _A) -> None:
             "DATA.NATIVE_PIPELINE makes no augmented views for the SSL terms "
             "(the JAX package's native path trains without them): use "
             "DATA.DEVICE_CACHE for visual SSL, or the Python path")
-    if steps_per_call > 1:
-        raise NotImplementedError("PARALLEL.STEPS_PER_CALL > 1 (several "
-                                  "steps a call) lands with ROADMAP Queue "
-                                  "1, item 12")
 
 
 def init_dataloaders(_C: Config, _A, device, kind: str = "normal") -> tuple:
@@ -402,15 +422,19 @@ def main(_A) -> TrainState:
         streams.append(infinite_batches(train, iteration))
         return streams[-1], val
 
+    # The step is this module's make_train_step, which callers may wrap to
+    # observe each step, K of them a call.
     try:
         state = train_loop(
-            state, make_train_step(_C), batches, _C.OPTIM.NUM_ITERATIONS,
+            state, make_scanned_train_step(_C, make_train_step(_C)), batches,
+            _C.OPTIM.NUM_ITERATIONS,
             log_every=_A.log_every, eval_step=make_eval_step(_C),
             val_batches=val_loader, writer=writer,
             checkpoint_every=_A.checkpoint_every, climax_freq=_A.climax_freq,
             manager=manager, resume_from=_A.resume_from,
             profile_dir=_A.profile_dir,
-            switch=None if switch_at is None else (switch_at, clustered))
+            switch=None if switch_at is None else (switch_at, clustered),
+            steps_per_call=max(1, _C.PARALLEL.STEPS_PER_CALL))
     finally:
         writer.close()
         for stream in streams:  # the loaders' producer threads stop

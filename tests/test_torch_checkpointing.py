@@ -55,7 +55,11 @@ from clip_lite_torch.eval_utils import EncoderBundle
 from clip_lite_torch.factories import PretrainingModelFactory
 from clip_lite_torch.ops.image_ops import AugDraws
 from clip_lite_torch.ops.layers import BatchNorm, init_weights
-from clip_lite_torch.optim.fused import FusedOptimizer, slow_params_from_state
+from clip_lite_torch.optim.fused import (
+    FusedOptimizer,
+    chain_state,
+    slow_params_from_state,
+)
 from clip_lite_torch.train import train_loop
 from clip_lite_torch.utils import checkpointing as ckpt_mod
 from clip_lite_torch.utils import msgpack_io
@@ -505,13 +509,26 @@ def test_port_checkpoint_loads_in_jax(jax_state, port_checkpoint, tmp_path):
 
 
 def test_fused_opt_state_only(jax_state, jax_checkpoint, tmp_path):
-    """An optax chain's opt state (OPTIM.FUSED false in the JAX package) and
-    a state of another optimizer config raise, naming why."""
+    """The optax chain's opt state (what the JAX package writes under
+    OPTIM.FUSED false) loads as the fused one does, whatever the port's
+    OPTIM.FUSED; a chain or a fused state of another optimizer config
+    raises, naming why."""
     state = create_train_state(_port_config(), device="cpu")
     tree = msgpack_io.read(jax_checkpoint)["state"]
-    chain = dict(tree, opt_state={"0": {}, "1": tree["opt_state"]["trace"]})
-    with pytest.raises(ValueError, match="OPTIM.FUSED false"):
-        load_jax_tree(state, chain)
+    fused = create_train_state(_port_config(), device="cpu")
+    load_jax_tree(fused, tree)
+    chain = dict(tree, opt_state=chain_state(
+        tree["opt_state"], state.optimizer.chain_parts, True))
+    assert set(chain["opt_state"]) == {"inner_state", "slow_params",
+                                       "step_count"}
+    load_jax_tree(state, chain)
+    for attr in ("trace", "slow"):
+        _assert_state_dicts_equal(state.optimizer._by_name(attr),
+                                  fused.optimizer._by_name(attr))
+    assert (state.optimizer.count, state.optimizer.la_count) == (7, 4)
+    other = dict(tree, opt_state={"0": {}, "1": tree["opt_state"]["trace"]})
+    with pytest.raises(ValueError, match="another OPTIM config"):
+        load_jax_tree(state, other)
     adam = create_train_state(_port_config("OPTIM.OPTIMIZER_NAME", "adamw"),
                               device="cpu")
     with pytest.raises(ValueError, match="another OPTIM config"):

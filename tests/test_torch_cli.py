@@ -136,7 +136,10 @@ REFUSALS = {
     "pretrained": (["MODEL.VISUAL.PRETRAINED", True,
                     "MODEL.VISUAL.PRETRAINED_PATH", "r50.npz"], (), "r50.npz",
                    FileNotFoundError),
-    "steps_per_call": (["PARALLEL.STEPS_PER_CALL", 2], (), "item 12"),
+    # Several steps a call run (tests/test_torch_steps_per_call.py), through
+    # the host loader: the device cache refuses them, as the JAX CLI does.
+    "steps_per_call": (["PARALLEL.STEPS_PER_CALL", 2] + CACHE, (),
+                       "STEPS_PER_CALL > 1", ValueError),
     # The native path runs (tests/test_torch_native.py), on JPEG records
     # only: this corpus holds ndarray images.
     "native_pipeline": (["DATA.NATIVE_PIPELINE", True], (), "JPEG records",

@@ -13,14 +13,17 @@ checkpoint of a tiny flagship (ResNet-18 at width 8, two BERT layers of
 * voc_clf: features within 1e-4, the mAP within 0.1 points of JAX's
   (sklearn there, the port's own SVM here); where a class's chosen cost
   differs, both CV APs are printed;
-* every CLI runs on CUDA by default and raises without it; ``--weight-init
-  clip`` raises naming its ROADMAP item.
+* every CLI runs on CUDA by default and raises without it;
+* retrieval ``--weight-init clip`` on a tiny random CLIP directory gives
+  the JAX CLI's JSON (transformers' Flax CLIP there, the port's towers
+  and tokenizer here), recalls exactly.
 """
 
 import json
 import logging
 import os
 import pickle
+import shutil
 
 import jax
 import numpy as np
@@ -45,6 +48,7 @@ from clip_lite_tpu.factories import OptimizerFactory as JOptimizerFactory
 from clip_lite_tpu.factories import PretrainingModelFactory as JModelFactory
 from clip_lite_tpu.utils import checkpointing as jckpt
 from clip_lite_torch import eval_utils
+from test_torch_clip import write_clip_dir
 from test_torch_downstream_data import (
     CROP,
     write_coco,
@@ -303,8 +307,22 @@ def test_svm_map_fits_where_its_caller_says(monkeypatch):
     assert got == 100.0
 
 
-def test_clip_weight_init_raises_naming_its_item(setup, tmp_path):
+def test_clip_weight_init_raises_naming_its_item(setup, tmp_path, capsys):
+    """``--weight-init clip`` on a tiny random CLIP directory
+    (tests/test_torch_clip.py's, 32 px images): the port's JSON is the JAX
+    CLI's (transformers' FlaxCLIPModel and CLIPTokenizerFast), recalls
+    exactly; a directory without Flax weights raises, naming the files."""
+    clip_dir = write_clip_dir(str(tmp_path / "clip"))
+    flags = ("--weight-init", "clip", "--checkpoint-path", clip_dir)
+    ours, theirs = _run_both(retrieval, jretrieval, setup, tmp_path,
+                             setup["coco"], *flags, ckpt=False)
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == ours == theirs
+    bare = tmp_path / "config_only"
+    bare.mkdir()
+    shutil.copy(os.path.join(clip_dir, "config.json"), bare)
     args = retrieval.parser.parse_args(_argv(
-        setup, tmp_path, setup["coco"], "--weight-init", "clip"))
-    with pytest.raises(NotImplementedError, match=r"item 6\(b\)"):
+        setup, tmp_path, setup["coco"], "--weight-init", "clip",
+        "--checkpoint-path", str(bare), ckpt=False))
+    with pytest.raises(FileNotFoundError, match="flax_model.msgpack"):
         retrieval.main(args)

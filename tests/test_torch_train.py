@@ -53,6 +53,7 @@ from clip_lite_torch.config import Config
 from clip_lite_torch.engine import (
     create_train_state,
     make_eval_step,
+    make_scanned_train_step,
     make_train_step,
     metrics_to_floats,
 )
@@ -444,8 +445,13 @@ def test_metrics_writer_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(reference, caplog):
-    with pytest.raises(NotImplementedError):
-        make_train_step(Config(FLAGSHIP, TRAIN + ["PARALLEL.STEPS_PER_CALL", 2]))
+    # PARALLEL.STEPS_PER_CALL 2: two steps a call over a list of two batches
+    # (tests/test_torch_steps_per_call.py holds them against JAX's scan).
+    k2 = Config(FLAGSHIP, TRAIN + ["PARALLEL.STEPS_PER_CALL", 2])
+    k2_state, k2_metrics = make_scanned_train_step(k2)(
+        create_train_state(k2, device="cpu"), reference["batches"][:2])
+    assert k2_state.step == 2 and np.isfinite(
+        float(k2_metrics["total_loss"]))
     # PARALLEL.ZERO1 on one rank: the replicated update and a warning, as
     # the JAX package does on a one-device mesh.
     tuned = Config(os.path.join(ROOT, "configs", "fs_tpu_tuned.yaml"), TRAIN)

@@ -243,6 +243,28 @@ def two_ranks(rank, world, workdir):
     _host_files(rank, world, workdir)
 
 
+# -- two ranks, two steps a call ------------------------------------------
+def steps_per_call_ranks(rank, world, workdir):
+    """The tiny flagship with the test's overrides (PARALLEL.STEPS_PER_CALL
+    2): two calls, each over this rank's shard of two global batches."""
+    from clip_lite_torch.engine import make_scanned_train_step, \
+        metrics_to_floats
+    from clip_lite_torch.parallel.mesh import shard_batch
+
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    cfg, state = _state(inputs["overrides"], inputs)
+    step = make_scanned_train_step(cfg)
+    batches = [shard_batch(b) for b in inputs["batches"]]
+    metrics = []
+    for i in range(0, len(batches), 2):
+        state, m = step(state, batches[i:i + 2],
+                        prior_noise=[inputs["noise"]] * 2)
+        metrics.append(metrics_to_floats(m))
+    _save(workdir, "steps_per_call", rank, dict(
+        metrics=metrics, step=state.step,
+        state_dict={k: v.clone() for k, v in state.model.state_dict().items()}))
+
+
 class IdDataset:
     """32 items, each its index as ``image_id`` and a few pixels."""
 
