@@ -22,9 +22,11 @@ caught:
    nvcc per source, all started together (decode_crop.cu links nvJPEG);
    each kernel's registers from ptxas, and no variant may spill.
 3. K1 (attention forward) against its plain PyTorch version at the
-   flagship text batch, in fp32 and bf16; the kernel's, the plain
-   version's and the library call's times; the least time the card could
-   take (bytes over 3.35 TB/s or operations over the peak rate).
+   flagship text batch, in fp32 (the launch counted on the 3xTF32 route)
+   and bf16; the kernel's, the plain version's and the library call's
+   times, in fp32 beside the CUDA-core kernel's (fp32 training's route)
+   on the same inputs in turns; the least time the card could take (bytes
+   over 3.35 TB/s or operations over the peak rate).
 4. Inference main path: the flagship model (configs/fs_bs1024_ni250k.yaml:
    ResNet-50 at 224 px, BERT-12/768 over 30 tokens, 2048-d projection
    heads, AMP bf16) with seeded random weights, as an EncoderBundle on the
@@ -41,10 +43,11 @@ caught:
    also against the float64 evaluation of the same function, where each
    kernel's max error may be at most twice its plain version's (a bar
    that does not depend on the order of sums); the mask's keep fraction
-   and its dependence on the seed; times and bounds, and in bf16 the
-   tensor-core route timed in turns with the CUDA-core route on the same
-   inputs, each as a caller pays it and on the device alone (the card
-   held busy while the host enqueues).
+   and its dependence on the seed; times and bounds, and where a kernel's
+   route is not the CUDA cores' (bf16; fp32 K1, the 3xTF32 route) that
+   route timed in turns with the CUDA-core route on the same inputs, each
+   as a caller pays it and on the device alone (the card held busy while
+   the host enqueues).
 6. Training main path: the flagship at full width (dropout 0.1, SGD +
    Lookahead, warmup-cosine) with seeded weights, 10 steps of 128 seeded
    pairs through the engine and the train loop, then one eval sweep.
@@ -101,7 +104,8 @@ caught:
    every layer's QKV weight gradient agree, in fp32 (AMP off) and in
    bf16; and with the image tower kept in fp32, the bf16 step through
    K1/K2 lies no further from the fp32 step than the plain bf16 step
-   does, within a factor.
+   does, within a factor.  Every K1/K2 launch of a step on its route (fp32:
+   K1 and K2 on the CUDA cores).
 8. MPNet's text tower (the flagship with MODEL.TEXTUAL.NETWORK_NAME
    microsoft/mpnet-base), which runs K1 and K2 under a full
    (B, NH, S, S) bias: first K1 and K2 with that bias (a relative bias
@@ -336,16 +340,18 @@ caught:
    caption each, batch 128, the counts set to 0 just before and read just
    after.  Checks: K1 launched 12 x 2 times at S = 50 (vision, zero key
    bias) and 12 x 2 at S = 77 (text, the causal and padding mask as the
-   full bias), none on the tensor cores (fp32); finite unit-norm (256,
+   full bias), all 48 on the 3xTF32 route (fp32); finite unit-norm (256,
    512) embeddings; recalls in percent; the same model through the plain
    attention on the same inputs within CLIP_TOL (1e-5) of them.  Then
    images/s and captions/s of the towers alone, and K1 at both shapes
-   against its plain version with its times, the plain version's,
-   ``scaled_dot_product_attention``'s and the bound.
+   against its plain version (and within four times its distance from
+   float64) with its times beside the CUDA-core kernel's in turns, the
+   plain version's, ``scaled_dot_product_attention``'s and the bound.
 15. One JSON line listing every kernel (K3's standalone and fused entry
-   points each with their own launches, crop_resize_flip_u8, which
-   replaces the JAX core's host C++ and no TPU kernel, and K1's rows at
-   the CLIP towers' shapes); then the device line last.
+   points each with their own launches, fp32 K1's 3xTF32 route with its
+   rows at the CLIP towers' shapes and the flagship's S = 30,
+   crop_resize_flip_u8, which replaces the JAX core's host C++ and no TPU
+   kernel); then the device line last.
 """
 
 import functools
@@ -565,10 +571,13 @@ def bound(n_bytes: int, n_ops: int, dtype: torch.dtype) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_attention() -> None:
-    """K1 at the flagship text batch: (128, 30, 2304), 12 heads of 64."""
+def phase_attention() -> dict:
+    """K1 at the flagship text batch: (128, 30, 2304), 12 heads of 64; in
+    fp32 the 3xTF32 route and the CUDA-core kernel (fp32 training's route)
+    in turns (A B B A), ``host_ms`` the wrapper's.  Returns the fp32 row
+    of the 3xTF32 route."""
     from clip_lite_torch.ops.attention import (
-        attention_reference, fused_short_attention)
+        _launch_fwd, attention_reference, fused_short_attention)
 
     b, s, nh, hd = BATCH, 30, 12, 64
     h = nh * hd
@@ -579,28 +588,60 @@ def phase_attention() -> None:
         q, k, v = qkv.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask4)
 
+    # The fp32 routes timed through the same launcher, so that their host
+    # paths match.
+    def cuda_core(qkv):
+        return _launch_fwd(qkv, bias, nh, 0.0, 0, None, "cuda_core")
+
+    def tf32x3(qkv):
+        return _launch_fwd(qkv, bias, nh, 0.0, 0, None, "tf32x3")
+
+    row = None
     for dtype in (torch.float32, torch.bfloat16):
         qkv = qkv32.to(dtype)
+        before = fused_short_attention.tf32x3_launches
         out = fused_short_attention(qkv, bias, nh)
+        on_route = fused_short_attention.tf32x3_launches - before
         ref = attention_reference(qkv, bias, nh)
         lib = library(qkv).transpose(1, 2).reshape(b, s, h)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         lib_err = (lib.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+        if on_route != (dtype == torch.float32):
+            raise AssertionError(f"K1 {dtype} at S = {s}: {on_route} launches "
+                                 "on the 3xTF32 route")
         copies = l2_spilling_copies(qkv)
-        ms = time_ms(lambda x: fused_short_attention(x, bias, nh), copies)
-        plain_ms = time_ms(lambda x: attention_reference(x, bias, nh), copies)
-        library_ms = time_ms(library, copies)
+
+        def fwd(x):
+            return fused_short_attention(x, bias, nh)
+
         item = qkv.element_size()
         n_bytes = qkv.numel() * item + bias.numel() * 4 + b * s * h * item
         n_ops = 4 * b * nh * s * s * hd  # two products, 2 operations a MAC
         least = bound(n_bytes, n_ops, dtype)
+        times = {}
+        if dtype == torch.float32:
+            turns = (tf32x3, cuda_core, cuda_core, tf32x3)
+            t = [time_ms(f, copies) for f in turns]
+            d = [device_ms(f, copies) for f in turns]
+            times = dict(ms=(t[0] + t[3]) / 2, ms_cuda_core=(t[1] + t[2]) / 2,
+                         ms_device=(d[0] + d[3]) / 2,
+                         ms_cuda_core_device=(d[1] + d[2]) / 2,
+                         host_ms=enqueue_ms(fwd, copies))
+        else:
+            times = dict(ms=time_ms(fwd, copies))
+        times.update(plain_ms=time_ms(lambda x: attention_reference(x, bias, nh),
+                                      copies),
+                     library_ms=time_ms(library, copies))
         log(f"K1 {str(dtype).replace('torch.', '')}: max|kernel-plain| {err} "
-            f"(tol {TOLS[dtype]}), max|library-plain| {lib_err}; kernel {ms} "
-            f"ms, plain {plain_ms} ms, library {library_ms} ms, bound "
-            f"{least['bound_ms']} ms ({least['bound_by']}: {n_bytes} bytes, "
-            f"{n_ops} operations)")
+            f"(tol {TOLS[dtype]}), max|library-plain| {lib_err}; "
+            f"{json.dumps(times)}; bound {least['bound_ms']} ms "
+            f"({least['bound_by']}: {n_bytes} bytes, {n_ops} operations)")
+        if dtype == torch.float32:
+            row = dict(shape=[b, s, 3 * h], heads=nh, bias="key",
+                       max_abs_err=err, launches=on_route, **times, **least)
+    return row
 
 
 def captions(rng: np.random.Generator, n: int) -> list:
@@ -628,20 +669,33 @@ def text_tower(cfg, model) -> str:
             f"{model.text_encoder.transformer.hidden_size}")
 
 
-def check_routes(cfg, seq: int, launches: dict) -> None:
+def check_routes(cfg, seq: int, launches: dict, training: bool = False) -> None:
     """Every K1 and K2 launch of a main path took the route that
-    attention_route picks for its compute type and caption length (the
-    tensor cores for bf16 at S <= 64)."""
+    attention_route picks for its kernel, compute type and caption length,
+    and for fp32 K1 whether it ``training`` (the tensor cores for bf16 at S
+    <= 64; for fp32 K1 at S <= 80 outside training the 3xTF32 kernel): all
+    of them on that route's count (``<kernel>_tc``, ``<kernel>_tf32x3``),
+    none on another's."""
     from clip_lite_torch.factories import compute_dtype
     from clip_lite_torch.ops.attention import attention_route
 
-    on_tc = attention_route(compute_dtype(cfg), seq) == "tensor_core"
-    for kernel in ("attention_fwd", "attention_bwd"):
-        if kernel in launches and launches[f"{kernel}_tc"] != (
-                launches[kernel] if on_tc else 0):
-            raise AssertionError(f"{kernel}: {launches[f'{kernel}_tc']} of "
-                                 f"{launches[kernel]} launches on the tensor-core "
-                                 f"route, expected {'all' if on_tc else 'none'}")
+    for kernel, name in (("forward", "attention_fwd"),
+                         ("backward", "attention_bwd")):
+        if name not in launches:
+            continue
+        route = attention_route(compute_dtype(cfg), seq, kernel, training)
+        for other, key in (("tensor_core", f"{name}_tc"),
+                           ("tf32x3", f"{name}_tf32x3")):
+            if key not in launches:
+                if route == other:
+                    raise AssertionError(f"{name}: the {other} route's "
+                                         "launches were not counted")
+                continue
+            want = launches[name] if route == other else 0
+            if launches[key] != want:
+                raise AssertionError(f"{name}: {launches[key]} of "
+                                     f"{launches[name]} launches on the {other} "
+                                     f"route, expected {want} ({route})")
 
 
 def phase_main_path(overrides=(), name: str = "main path") -> dict:
@@ -675,12 +729,14 @@ def phase_main_path(overrides=(), name: str = "main path") -> dict:
 
     fused_short_attention.launches = 0
     fused_short_attention.tc_launches = 0
+    fused_short_attention.tf32x3_launches = 0
     t0 = time.perf_counter()
     recalls, img_emb, txt_emb = score_retrieval(bundle, images, texts, tok,
                                                 txt2img, img2txt)
     wall = time.perf_counter() - t0
     launches = {"attention_fwd": fused_short_attention.launches,
-                "attention_fwd_tc": fused_short_attention.tc_launches}
+                "attention_fwd_tc": fused_short_attention.tc_launches,
+                "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches}
     log(f"{name}: score_retrieval of {N_ITEMS} images + {N_ITEMS} captions "
         f"in {wall} s; launches {launches}; recalls "
         f"{json.dumps({k: float(v) for k, v in recalls.items()})}")
@@ -751,8 +807,9 @@ def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
     """K1 and K2 on ``qkv`` (128, S, 2304), output gradient ``g``, bias
     (B, S) or (B, NH, S, S), dropout ``rate`` from Philox(``seed``)
     (``keep``, its mask, for the plain versions): ms of the kernels on
-    their route, and in bf16 of the CUDA-core route on the same inputs in
-    turns (A B B A), each as a caller pays it (``ms``, :func:`time_ms`)
+    their route, and where that is not the CUDA-core route (bf16; fp32 K1)
+    of the CUDA-core route on the same inputs in turns (A B B A), each as a
+    caller pays it (``ms``, :func:`time_ms`)
     and on the device alone (``ms_device``, :func:`device_ms`); the
     host's ms to enqueue one call of the wrapper; the plain versions; the
     library call (``scaled_dot_product_attention`` with the bool of real
@@ -761,7 +818,8 @@ def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
     memory (``l2_spilling_copies``)."""
     from clip_lite_torch.ops.attention import (
         _launch_bwd, _launch_fwd, attention_backward,
-        attention_backward_reference, attention_forward, attention_reference)
+        attention_backward_reference, attention_forward, attention_reference,
+        attention_route)
 
     b, s, three_h = qkv.shape
     nh, hd = 12, 64
@@ -797,21 +855,22 @@ def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
     # kernels launched directly.
     def fwd(cuda_core: bool):
         if cuda_core:
-            return lambda x, _, m: _launch_fwd(x, m, nh, rate, seed, None, False)
+            return lambda x, _, m: _launch_fwd(x, m, nh, rate, seed, None,
+                                               "cuda_core")
         return lambda x, _, m: attention_forward(x, m, nh, dropout_rate=rate,
                                                  seed=seed)
 
     def bwd(cuda_core: bool):
         if cuda_core:
             return lambda x, y, m: _launch_bwd(x, m, y, nh, rate, seed, None,
-                                               False)
+                                               "cuda_core")
         return lambda x, y, m: attention_backward(x, m, y, nh, dropout_rate=rate,
                                                   seed=seed)
 
-    def turns(make) -> dict:
+    def turns(make, kernel: str) -> dict:
         times = dict(host_ms=enqueue_ms(make(False), copies))
         for key, timer in (("ms", time_ms), ("ms_device", device_ms)):
-            if dtype != torch.bfloat16:  # one route: the CUDA cores
+            if attention_route(dtype, s, kernel) == "cuda_core":  # one route
                 times[key] = timer(make(False), copies)
                 continue
             t = [timer(make(c), copies) for c in (False, True, True, False)]
@@ -824,7 +883,7 @@ def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
                     library_ms_device=device_ms(fn, inputs))
 
     k1 = dict(
-        **turns(fwd),
+        **turns(fwd, "forward"),
         plain_ms=time_ms(lambda x, _, m: attention_reference(x, m, nh, rate, keep),
                          copies),
         **library(library_fwd, lib_inputs),
@@ -832,7 +891,7 @@ def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
         **bound(qkv.numel() * item + bias.numel() * 4 + b * s * h * item,
                 4 * b * nh * s * s * hd, dtype))
     k2 = dict(
-        **turns(bwd),
+        **turns(bwd, "backward"),
         plain_ms=time_ms(lambda x, y, m: attention_backward_reference(
             x, m, y, nh, rate, keep), copies),
         **(library(lambda o, x, y, m: torch.autograd.grad(
@@ -1043,6 +1102,7 @@ def phase_training(overrides=(), name: str = "training") -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_short_attention.launches = fused_short_attention.tc_launches = 0
+    fused_short_attention.tf32x3_launches = 0
     attention_backward.launches = attention_backward.tc_launches = 0
     t0 = time.perf_counter()
     state = train_loop(state, checked_step, iter(batches), TRAIN_STEPS,
@@ -1053,6 +1113,7 @@ def phase_training(overrides=(), name: str = "training") -> dict:
     launches = {"attention_fwd": fused_short_attention.launches,
                 "attention_bwd": attention_backward.launches}
     routes = {"attention_fwd_tc": fused_short_attention.tc_launches,
+              "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches,
               "attention_bwd_tc": attention_backward.tc_launches}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for i, rec in enumerate(steps):
@@ -1123,7 +1184,7 @@ def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
     from clip_lite_torch.engine import (
         create_train_state, make_train_step, metrics_to_floats)
 
-    runs, state_dict, batch = {}, None, None
+    runs, state_dict, batch, launches = {}, None, None, {}
     for kind in ("float32", "bfloat16", "text_bf16"):
         for flag in ("true", "false"):
             cfg = Config(str(FLAGSHIP), list(overrides) + [
@@ -1143,7 +1204,13 @@ def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
                 for module in state.model.modules():
                     if module not in text and hasattr(module, "compute_dtype"):
                         module.compute_dtype = torch.float32
+            before = attention_counts()
             state, metrics = make_train_step(cfg)(state, batch)
+            counts = {k: v - before[k] for k, v in attention_counts().items()}
+            if flag == "true" and not counts["attention_fwd"]:
+                raise AssertionError(f"{name} {kind}: K1 never launched")
+            check_routes(cfg, cfg.DATA.MAX_CAPTION_LENGTH, counts, training=True)
+            launches[f"{kind} {flag}"] = counts
             layers = state.model.text_encoder.transformer
             grads = [getattr(layers, n).qkv.weight.grad.float().clone()
                      for n in layers.layer_names]
@@ -1151,7 +1218,7 @@ def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
                 grads.append(layers.relative_attention_bias.weight.grad.clone())
             runs[kind, flag] = (metrics_to_floats(metrics), grads)
             log(f"{name} {kind}, FUSED_ATTENTION {flag}, batch "
-                f"{PARITY_BATCH}: {runs[kind, flag][0]}")
+                f"{PARITY_BATCH}: {runs[kind, flag][0]}; launches {counts}")
             del state, layers, grads
             torch.cuda.empty_cache()
     out = {kind: parity(runs[kind, "true"], runs[kind, "false"])
@@ -1176,7 +1243,21 @@ def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
             "as far from fp32 as the plain attention's")
     out["bf16_vs_float32"] = {f"{kind} {flag}": got
                               for (kind, flag), got in floor.items()}
+    out["launches"] = launches
     return out
+
+
+def attention_counts() -> dict:
+    """K1's and K2's launches so far, and on each route but the CUDA
+    cores', under check_routes' names."""
+    from clip_lite_torch.ops.attention import (
+        attention_backward, fused_short_attention)
+
+    return {"attention_fwd": fused_short_attention.launches,
+            "attention_fwd_tc": fused_short_attention.tc_launches,
+            "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches,
+            "attention_bwd": attention_backward.launches,
+            "attention_bwd_tc": attention_backward.tc_launches}
 
 
 def kernel_counters() -> dict:
@@ -1688,6 +1769,7 @@ def phase_uint8_training(float_step: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     normalize_u8.launches = augment_normalize_u8.launches = 0
     fused_short_attention.launches = fused_short_attention.tc_launches = 0
+    fused_short_attention.tf32x3_launches = 0
     attention_backward.launches = attention_backward.tc_launches = 0
     t0 = time.perf_counter()
     state = train_loop(state, checked_step, iter(cache), TRAIN_STEPS,
@@ -1700,6 +1782,7 @@ def phase_uint8_training(float_step: dict) -> dict:
                 "attention_fwd": fused_short_attention.launches,
                 "attention_bwd": attention_backward.launches}
     routes = {"attention_fwd_tc": fused_short_attention.tc_launches,
+              "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches,
               "attention_bwd_tc": attention_backward.tc_launches}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     hook.remove()
@@ -2138,6 +2221,7 @@ def phase_data_cli(float_step: dict) -> dict:
             for k in counters.values():
                 k.launches = 0
             fused_short_attention.tc_launches = 0
+            fused_short_attention.tf32x3_launches = 0
             attention_backward.tc_launches = 0
             t0 = time.perf_counter()
             state = cli.main(a)
@@ -2146,6 +2230,7 @@ def phase_data_cli(float_step: dict) -> dict:
             record["launches"] = {n: k.launches for n, k in counters.items()}
             record["launches"].update(
                 attention_fwd_tc=fused_short_attention.tc_launches,
+                attention_fwd_tf32x3=fused_short_attention.tf32x3_launches,
                 attention_bwd_tc=attention_backward.tc_launches)
             cli.make_train_step = real_make_step
             metrics = [json.loads(line) for line in open(os.path.join(
@@ -2609,12 +2694,14 @@ def phase_eval_cli() -> dict:
             args = module.parser.parse_args(argv)
             fused_short_attention.launches = 0
             fused_short_attention.tc_launches = 0
+            fused_short_attention.tf32x3_launches = 0
             t0 = time.perf_counter()
             result = module.main(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {"attention_fwd": fused_short_attention.launches,
-                        "attention_fwd_tc": fused_short_attention.tc_launches}
+                        "attention_fwd_tc": fused_short_attention.tc_launches,
+                        "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches}
             out["launches"][name], out["seconds"][name] = \
                 launches["attention_fwd"], wall
             log(f"eval ({name}): {json.dumps(result)} in {wall} s; launches "
@@ -3305,6 +3392,7 @@ def phase_native(float_step: dict, host_step: float) -> dict:
             for k in counters.values():
                 k.launches = 0
             fused_short_attention.tc_launches = 0
+            fused_short_attention.tf32x3_launches = 0
             attention_backward.tc_launches = 0
             t0 = time.perf_counter()
             cli.main(a)
@@ -3313,6 +3401,7 @@ def phase_native(float_step: dict, host_step: float) -> dict:
             record["launches"] = {n: k.launches for n, k in counters.items()}
             record["launches"].update(
                 attention_fwd_tc=fused_short_attention.tc_launches,
+                attention_fwd_tf32x3=fused_short_attention.tf32x3_launches,
                 attention_bwd_tc=attention_backward.tc_launches)
             record["window"] = dict(window)
             cli.make_train_step = real_make_step
@@ -3562,11 +3651,13 @@ def phase_quality(float_step: dict) -> dict:
         for k in counters.values():
             k.launches = 0
         fused_short_attention.tc_launches = 0
+        fused_short_attention.tf32x3_launches = 0
         attention_backward.tc_launches = 0
 
     def read() -> dict:
         got = {n: k.launches for n, k in counters.items()}
         got.update(attention_fwd_tc=fused_short_attention.tc_launches,
+                   attention_fwd_tf32x3=fused_short_attention.tf32x3_launches,
                    attention_bwd_tc=attention_backward.tc_launches)
         return got
 
@@ -4529,13 +4620,14 @@ def matrix_batch(cfg, rng: np.random.Generator, n: int = BATCH) -> dict:
 
 
 def launch_counts() -> dict:
-    """Each kernel's launches by its trace range name, and K1's and K2's on
-    the tensor-core route."""
+    """Each kernel's launches by its trace range name, K1's and K2's on
+    the tensor-core route and K1's on the 3xTF32 route."""
     from clip_lite_torch.ops.attention import (
         attention_backward, fused_short_attention)
 
     counts = {k: c.launches for k, c in kernel_counters().items()}
     counts.update(attention_fwd_tc=fused_short_attention.tc_launches,
+                  attention_fwd_tf32x3=fused_short_attention.tf32x3_launches,
                   attention_bwd_tc=attention_backward.tc_launches)
     return counts
 
@@ -4547,6 +4639,7 @@ def zero_launch_counts() -> None:
     for c in kernel_counters().values():
         c.launches = 0
     fused_short_attention.tc_launches = attention_backward.tc_launches = 0
+    fused_short_attention.tf32x3_launches = 0
 
 
 def matrix_check(name: str, cfg, launches: dict, steps: int, attention: bool,
@@ -4566,6 +4659,7 @@ def matrix_check(name: str, cfg, launches: dict, steps: int, attention: bool,
         "attention_fwd": launches["K1 attention_fwd"],
         "attention_bwd": launches["K2 attention_bwd"],
         "attention_fwd_tc": launches["attention_fwd_tc"],
+        "attention_fwd_tf32x3": launches["attention_fwd_tf32x3"],
         "attention_bwd_tc": launches["attention_bwd_tc"]})
 
 
@@ -5100,34 +5194,57 @@ def write_clip_coco(root: str, rng: np.random.Generator) -> str:
 
 def clip_k1_row(name: str, qkv: torch.Tensor, bias: torch.Tensor,
                 nh: int) -> dict:
-    """K1 at one of the CLIP towers' shapes, fp32: against its plain
-    version (TOLS), its times as a caller pays them and on the device
-    alone, the host's enqueue, the plain version's and
-    ``scaled_dot_product_attention``'s (with the full bias as its float
-    mask, or no mask for the zero key bias), and the bound."""
+    """K1 at one of the CLIP towers' shapes, fp32, on its route (3xTF32):
+    against its plain version (TOLS) and within four times the plain
+    version's distance from the float64 evaluation plus 2^-21 of the
+    output's size (both distances kept); its times as a caller pays them
+    and on the device alone, each beside the CUDA-core kernel's on the
+    same inputs in turns (A B B A); the host's enqueue, the plain version's and
+    ``scaled_dot_product_attention``'s times (with the full bias as its
+    float mask, or no mask for the zero key bias), and the bound."""
     from clip_lite_torch.ops.attention import (
-        attention_forward, attention_reference)
+        _launch_fwd, attention_float64, attention_forward, attention_reference,
+        fused_short_attention)
 
     b, s, three_h = qkv.shape
     h, hd = three_h // 3, 64
     full = bias.ndim == 4
-    err = (attention_forward(qkv, bias, nh)
-           - attention_reference(qkv, bias, nh)).abs().max().item()
+    before = fused_short_attention.tf32x3_launches
+    out = attention_forward(qkv, bias, nh)
+    if fused_short_attention.tf32x3_launches != before + 1:
+        raise AssertionError(f"K1 {name}: not on the 3xTF32 route")
+    ref = attention_reference(qkv, bias, nh)
+    err = (out - ref).abs().max().item()
     if not err <= TOLS[torch.float32]["atol"]:
         raise AssertionError(f"K1 {name}: max|kernel-plain| {err}")
+    exact = attention_float64(qkv, bias, torch.zeros_like(out), nh)[0]
+    f64 = {k: (x.double() - exact).abs().max().item()
+           for k, x in (("kernel", out), ("plain", ref))}
+    floor = 2.0 ** -21 * exact.abs().max().item()
+    if f64["kernel"] > 4.0 * f64["plain"] + floor:
+        raise AssertionError(f"K1 {name}: distance from float64 {f64}")
+    del out, ref, exact
     copies = l2_spilling_copies(qkv, bias)
 
     def fwd(x, m):
         return attention_forward(x, m, nh)
+
+    def cuda_core(x, m):
+        return _launch_fwd(x, m, nh, 0.0, 0, None, "cuda_core")
 
     def library(x, m):
         q, k, v = x.view(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4)
         return F.scaled_dot_product_attention(q, k, v,
                                               attn_mask=m if full else None)
 
+    turns = (fwd, cuda_core, cuda_core, fwd)
+    t = [time_ms(f, copies) for f in turns]
+    d = [device_ms(f, copies) for f in turns]
     row = dict(shape=[b, s, three_h], heads=nh,
                bias="full" if full else "key", max_abs_err=err,
-               ms=time_ms(fwd, copies), ms_device=device_ms(fwd, copies),
+               float64_err=f64, ms=(t[0] + t[3]) / 2,
+               ms_cuda_core=(t[1] + t[2]) / 2, ms_device=(d[0] + d[3]) / 2,
+               ms_cuda_core_device=(d[1] + d[2]) / 2,
                host_ms=enqueue_ms(fwd, copies),
                plain_ms=time_ms(lambda x, m: attention_reference(x, m, nh),
                                 copies),
@@ -5194,12 +5311,14 @@ def phase_clip() -> dict:
             "--checkpoint-path", clip_dir, "--batch-size", BATCH,
             "--config-override", "DATA.ROOT", coco)])
         fused_short_attention.launches = fused_short_attention.tc_launches = 0
+        fused_short_attention.tf32x3_launches = 0
         t0 = time.perf_counter()
         recalls = retrieval.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"attention_fwd": fused_short_attention.launches,
-                    "attention_fwd_tc": fused_short_attention.tc_launches}
+                    "attention_fwd_tc": fused_short_attention.tc_launches,
+                    "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches}
     finally:
         for n, fn in real.items():
             setattr(bundle_cls, n, fn)
@@ -5214,11 +5333,13 @@ def phase_clip() -> dict:
             f"{image['seconds']} s")
         want = {"S=77 (text)": cfg["text"]["num_hidden_layers"] * batches,
                 "S=50 (vision)": cfg["vision"]["num_hidden_layers"] * batches}
+        n_k1 = sum(want.values())
         if by_shape != want or launches != {
-                "attention_fwd": sum(want.values()), "attention_fwd_tc": 0}:
+                "attention_fwd": n_k1, "attention_fwd_tc": 0,
+                "attention_fwd_tf32x3": n_k1}:
             raise AssertionError(f"K1 launches {launches}, by shape "
-                                 f"{by_shape}, expected {want}, none on the "
-                                 "tensor cores (fp32)")
+                                 f"{by_shape}, expected {want}, all on the "
+                                 "3xTF32 route (fp32)")
         for name, emb in (("text", text["out"]), ("image", image["out"])):
             norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1).max())
             if emb.shape != (CLIP_ITEMS, 512) or not np.isfinite(emb).all() \
@@ -5278,15 +5399,16 @@ def phase_clip() -> dict:
                     torch.zeros(BATCH, 50, device="cuda"), 12),
                 "clip_text": clip_k1_row(
                     "clip text", text_qkv, text_bias(mask[:BATCH], 8), 8)}
-        rows["clip_vision"]["launches"] = image["launches"]
-        rows["clip_text"]["launches"] = text["launches"]
+        rows["clip_vision"]["launches_at_shape"] = image["launches"]
+        rows["clip_text"]["launches_at_shape"] = text["launches"]
         del seen, text, image, bundle, model, images, layers
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"clip: phase 14 in {time.perf_counter() - phase_t0} s")
-    return dict(launches=launches["attention_fwd"], recalls=recalls,
+    return dict(launches=launches["attention_fwd"],
+                tf32x3_launches=launches["attention_fwd_tf32x3"], recalls=recalls,
                 errors=errors, rates=rates, rows=rows)
 
 
@@ -5378,13 +5500,13 @@ def main() -> int:
         return out
 
     timed("2", phase_build)
-    timed("3", phase_attention)
+    flagship_fp32 = timed("3", phase_attention)
     inference = timed("4", phase_main_path)
     attn = timed("5", phase_attention_training)
     training = timed("6", phase_training)
     flagship_trace = timed("6a", phase_trace, training)
     ckpt = timed("6b", phase_checkpoint)
-    timed("7", phase_training_parity)
+    parity = timed("7", phase_training_parity)
     full = timed("8 (K1/K2)", phase_attention_training, True)
     mpnet_inference = timed("8 (inference)", phase_main_path, MPNET,
                             "MPNet inference")
@@ -5395,7 +5517,8 @@ def main() -> int:
         f"captions/s {mpnet_inference['captions_per_s']} against "
         f"{inference['captions_per_s']}, peak {mpnet_training['peak_mib']} MiB "
         f"against {training['peak_mib']} MiB")
-    timed("8 (parity)", phase_training_parity, MPNET, "MPNet training parity")
+    mpnet_parity = timed("8 (parity)", phase_training_parity, MPNET,
+                         "MPNet training parity")
     norm = timed("9", phase_normalize)
     uint8 = timed("10", phase_uint8_training, training)
     ssl = timed("10a", phase_ssl, training, flagship_trace)
@@ -5508,9 +5631,20 @@ def main() -> int:
              replaces="clip_lite_tpu/ops/attention.py:95",
              launches=sum(k1_launches.values()), launches_by_path=k1_launches,
              **attention_row("k1", attn, "key bias"),
-             full_bias=attention_row("k1", full, "full bias"),
-             # fp32 at the CLIP towers' shapes (phase 14), CUDA-core route.
-             **clip["rows"]),
+             full_bias=attention_row("k1", full, "full bias")),
+        # fp32 K1's route: 3xTF32 on mma.sync, S <= 80.  Main keys: CLIP's
+        # text tower (phase 14: qkv (128, 77, 1536), 8 heads, the causal
+        # and padding mask as the full bias); the vision tower (S = 50,
+        # key bias) and the flagship's S = 30 (phase 3) beside it, each
+        # with the CUDA-core kernel's times on the same inputs in turns.
+        dict(name="attention_fwd_tf32x3 (K1, float32)", route="cuda",
+             source="clip_lite_torch/ops/csrc/attention_fwd.cu",
+             replaces="clip_lite_tpu/ops/attention.py:95",
+             **clip["rows"]["clip_text"],
+             launches=clip["tf32x3_launches"],
+             launches_by_path={"clip_retrieval": clip["tf32x3_launches"]},
+             clip_vision=clip["rows"]["clip_vision"],
+             flagship_s30=flagship_fp32),
         dict(name="attention_bwd (K2)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_bwd.cu",
              replaces="clip_lite_tpu/ops/attention.py:122",

@@ -309,10 +309,15 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     return {k: v.contiguous() for k, v in out.items()}
 
 
-def load_clip_model(path: str, device="cpu",
+def load_clip_model(path: str, device="cuda",
                     fused_attention: str = "auto") -> ClipModel:
     """The CLIP model of the local transformers directory ``path``
-    (``config.json`` and the Flax weights), on ``device``, in eval mode."""
+    (``config.json`` and the Flax weights), on ``device``, in eval mode:
+    the card unless the caller asks for the CPU, and an error when CUDA is
+    absent (``eval_utils.resolve_device``)."""
+    from clip_lite_torch.eval_utils import resolve_device
+
+    device = resolve_device(device)
     model = ClipModel(read_clip_config(path), fused_attention)
     model.load_state_dict(state_dict_from_flax(read_flax_weights(path)))
     return model.to(device).eval()

@@ -33,14 +33,18 @@ Dropout draws: the keep decision for element (b, h, i, j) is Philox's
 function of (seed, b, h, i, j) (``csrc/attention_common.cuh``), the same
 in K1, K2 and the CPU twin; tests may pass an explicit keep mask instead.
 
-Two routes on the card, one function: :func:`attention_route` sends
-bfloat16 at S <= ``TC_MAX_SEQ`` (64) to the tensor-core kernels
-(``attention_fwd_tc``/``attention_bwd_tc``: products on ``mma.sync``,
-every qkv and g byte read once), and float32 at any S and bfloat16 above
-64 to the CUDA-core kernels (``attention_fwd``/``attention_bwd``: fp32
-products).  float32 stays off the tensor cores, which would take it as
-TF32 and change the numbers.  The choice is by dtype and shape, never a
-fallback: a refused launch raises.
+Routes on the card, one function: :func:`attention_route` picks one for
+each kernel by dtype, S and, for float32 K1, whether K2 will take the
+output's gradient.  bfloat16 at S <= ``TC_MAX_SEQ`` (64) takes the
+tensor-core kernels (``attention_fwd_tc``/``attention_bwd_tc``: products
+on ``mma.sync``, every qkv and g byte read once).  float32 K1 at
+S <= ``TF32X3_MAX_SEQ`` (80) outside training takes the 3xTF32 kernel
+(``attention_fwd_tf32x3``: each fp32 product as three TF32 products on
+``mma.sync``, to about 2^-21 of it; plain TF32 would change the numbers).
+The rest takes the CUDA-core kernels (``attention_fwd``/``attention_bwd``:
+fp32 products): float32 K2, float32 K1 in training (K2 regenerates that
+kernel's probabilities) or above 80, and bfloat16 above 64.  The choice
+is never a fallback: a refused launch raises.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from clip_lite_torch.utils.trace import traced
 MASK_VALUE = float(np.finfo(np.float32).min) * 0.5
 MAX_SEQ = 256
 TC_MAX_SEQ = 64
+TF32X3_MAX_SEQ = 80
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -194,15 +199,22 @@ def attention_float64(qkv: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
     return out.detach(), grads[0], grads[1] if full else None
 
 
-def attention_route(dtype: torch.dtype, seq: int) -> str:
-    """The kernel a CUDA launch at compute type ``dtype`` and sequence
-    length ``seq`` takes: ``"tensor_core"`` for bfloat16 at
-    ``seq <= TC_MAX_SEQ`` (bf16 products on ``mma.sync``, a block stages
-    its head whole), else ``"cuda_core"`` (fp32 products): float32 at any
-    length, which the tensor cores would read as TF32, and bfloat16 at
-    64 < ``seq`` <= ``MAX_SEQ``."""
+def attention_route(dtype: torch.dtype, seq: int, kernel: str,
+                    training: bool = False) -> str:
+    """The route a CUDA launch of ``kernel`` (``"forward"``, K1, or
+    ``"backward"``, K2) at compute type ``dtype`` and sequence length
+    ``seq`` takes: ``"tensor_core"`` for bfloat16 at ``seq <= TC_MAX_SEQ``
+    (bf16 products on ``mma.sync``, a block stages its head whole);
+    ``"tf32x3"`` for float32 K1 at ``seq <= TF32X3_MAX_SEQ`` unless
+    ``training`` (3xTF32 products on ``mma.sync``); else ``"cuda_core"``
+    (fp32 products): float32 K2 at any length, float32 K1 in training
+    (K2 takes the gradient and regenerates this kernel's probabilities)
+    or above 80, and bfloat16 at 64 < ``seq`` <= ``MAX_SEQ``."""
     if dtype == torch.bfloat16 and seq <= TC_MAX_SEQ:
         return "tensor_core"
+    if (kernel == "forward" and dtype == torch.float32
+            and seq <= TF32X3_MAX_SEQ and not training):
+        return "tf32x3"
     return "cuda_core"
 
 
@@ -214,7 +226,10 @@ def _library(name: str) -> ctypes.CDLL:
     dropout_args = [ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
                     ctypes.c_uint64, ctypes.c_void_p]
     if name == "attention_fwd":
-        for fn in (lib.attention_fwd, lib.attention_fwd_tc):
+        lib.routes = {"cuda_core": lib.attention_fwd,
+                      "tensor_core": lib.attention_fwd_tc,
+                      "tf32x3": lib.attention_fwd_tf32x3}
+        for fn in lib.routes.values():
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + dropout_args
             fn.restype = ctypes.c_int
         lib.attention_dropout_mask.argtypes = (
@@ -222,7 +237,9 @@ def _library(name: str) -> ctypes.CDLL:
             + [ctypes.c_uint32, ctypes.c_uint64, ctypes.c_void_p])
         lib.attention_dropout_mask.restype = ctypes.c_int
     else:
-        for fn in (lib.attention_bwd, lib.attention_bwd_tc):
+        lib.routes = {"cuda_core": lib.attention_bwd,
+                      "tensor_core": lib.attention_bwd_tc}
+        for fn in lib.routes.values():
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + dropout_args
             fn.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
@@ -259,9 +276,14 @@ def _dropout_args(rate: float, seed: int):
     return 1, dropout_threshold(rate), _inv_keep(rate), int(seed)
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+_ROUTE_NAMES = {"cuda_core": "", "tensor_core": " (tensor-core route)",
+                "tf32x3": " (3xTF32 route)"}
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, kernel: str,
+              route: str = "cuda_core") -> None:
     if err:
-        raise RuntimeError(f"{what} launch failed: "
+        raise RuntimeError(f"{kernel}{_ROUTE_NAMES[route]} launch failed: "
                            + lib.kernel_error_string(err).decode())
 
 
@@ -290,16 +312,17 @@ def _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask):
 
 def _launch_fwd(qkv: torch.Tensor, mask_bias: torch.Tensor, num_heads: int,
                 rate: float, seed: int, keep_mask: Optional[torch.Tensor],
-                tc: bool) -> torch.Tensor:
-    """Launch K1 on CUDA tensors, the tensor-core kernel if ``tc`` else the
-    CUDA-core one, and count the launch.  :func:`attention_forward` picks
-    ``tc`` by :func:`attention_route`; ``chip_smoke.py`` names the
-    CUDA-core kernel to time it beside the other."""
+                route: str) -> torch.Tensor:
+    """Launch K1 on CUDA tensors on ``route`` (``"cuda_core"``,
+    ``"tensor_core"`` or ``"tf32x3"``) and count the launch.
+    :func:`attention_forward` picks the route by :func:`attention_route`;
+    ``chip_smoke.py`` names the CUDA-core kernel to time it beside the
+    others."""
     keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask)
     b, s, three_h = qkv.shape
     out = torch.empty((b, s, three_h // 3), dtype=qkv.dtype, device=qkv.device)
     lib = _library("attention_fwd")
-    launch = lib.attention_fwd_tc if tc else lib.attention_fwd
+    launch = lib.routes[route]
     with torch.cuda.device(qkv.device):
         err = launch(
             qkv.data_ptr(), mask_bias.data_ptr(),
@@ -307,19 +330,20 @@ def _launch_fwd(qkv: torch.Tensor, mask_bias: torch.Tensor, num_heads: int,
             num_heads, HEAD_DIM, _DTYPE_CODES[qkv.dtype],
             int(mask_bias.ndim == 4), *_dropout_args(rate, seed),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "K1 (tensor-core route)" if tc else "K1")
+    _raise_on(lib, err, "K1", route)
     fused_short_attention.launches += 1
-    fused_short_attention.tc_launches += tc
+    fused_short_attention.tc_launches += route == "tensor_core"
+    fused_short_attention.tf32x3_launches += route == "tf32x3"
     return out
 
 
 def _launch_bwd(qkv: torch.Tensor, mask_bias: torch.Tensor, g: torch.Tensor,
                 num_heads: int, rate: float, seed: int,
-                keep_mask: Optional[torch.Tensor], tc: bool
+                keep_mask: Optional[torch.Tensor], route: str
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch K2 on CUDA tensors (``g`` contiguous, in the type of
-    ``qkv``), the tensor-core kernel if ``tc``, and count the launch: as
-    :func:`_launch_fwd`."""
+    ``qkv``) on ``route`` (``"cuda_core"`` or ``"tensor_core"``), and
+    count the launch: as :func:`_launch_fwd`."""
     keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask)
     b, s, three_h = qkv.shape
     if g.shape != (b, s, three_h // 3) or g.device != qkv.device:
@@ -329,7 +353,7 @@ def _launch_bwd(qkv: torch.Tensor, mask_bias: torch.Tensor, g: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(mask_bias) if full else None
     lib = _library("attention_bwd")
-    launch = lib.attention_bwd_tc if tc else lib.attention_bwd
+    launch = lib.routes[route]
     with torch.cuda.device(qkv.device):
         err = launch(
             qkv.data_ptr(), mask_bias.data_ptr(), g.data_ptr(),
@@ -338,30 +362,28 @@ def _launch_bwd(qkv: torch.Tensor, mask_bias: torch.Tensor, g: torch.Tensor,
             HEAD_DIM, _DTYPE_CODES[qkv.dtype], int(full),
             *_dropout_args(rate, seed),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "K2 (tensor-core route)" if tc else "K2")
+    _raise_on(lib, err, "K2", route)
     attention_backward.launches += 1
-    attention_backward.tc_launches += tc
+    attention_backward.tc_launches += route == "tensor_core"
     return dqkv, dbias
-
-
-def _on_tensor_cores(qkv: torch.Tensor) -> bool:
-    return attention_route(qkv.dtype, qkv.shape[1]) == "tensor_core"
 
 
 @traced("K1 attention_fwd")
 def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
                       num_heads: int, *, dropout_rate: float = 0.0,
                       seed: int = 0,
-                      keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      keep_mask: Optional[torch.Tensor] = None,
+                      training: bool = False) -> torch.Tensor:
     """K1's wrapper (no autograd): the context of ``qkv`` (B, S, 3H) under
     the fp32 bias ``mask_bias``, (B, S) or (B, NH, S, S), with attention
     dropout at ``dropout_rate`` drawn from Philox(``seed``) or taken from
-    ``keep_mask``.
+    ``keep_mask``; ``training``: K2 will take the output's gradient.
 
     CPU tensors take :func:`attention_reference`.  CUDA tensors launch K1
     on the route :func:`attention_route` picks, or raise; every launch
     adds one to ``fused_short_attention.launches``, and one on the
-    tensor-core route to ``fused_short_attention.tc_launches`` too.
+    tensor-core route to ``fused_short_attention.tc_launches`` too, one on
+    the 3xTF32 route to ``fused_short_attention.tf32x3_launches``.
     """
     _check_seq(qkv, mask_bias, num_heads)
     rate = float(dropout_rate)
@@ -369,7 +391,8 @@ def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
         keep = _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask)
         return attention_reference(qkv, mask_bias, num_heads, rate, keep)
     return _launch_fwd(qkv, mask_bias, num_heads, rate, seed, keep_mask,
-                       _on_tensor_cores(qkv))
+                       attention_route(qkv.dtype, qkv.shape[1], "forward",
+                                       training))
 
 
 @traced("K2 attention_bwd")
@@ -397,7 +420,7 @@ def attention_backward(qkv: torch.Tensor, mask_bias: torch.Tensor,
         return attention_backward_reference(qkv, mask_bias, g, num_heads,
                                             rate, keep)
     return _launch_bwd(qkv, mask_bias, g, num_heads, rate, seed, keep_mask,
-                       _on_tensor_cores(qkv))
+                       attention_route(qkv.dtype, qkv.shape[1], "backward"))
 
 
 def dropout_keep_mask(seed: int, batch: int, num_heads: int, seq: int,
@@ -423,14 +446,16 @@ def dropout_keep_mask(seed: int, batch: int, num_heads: int, seq: int,
 class _FusedAttention(torch.autograd.Function):
     """K1 forward, K2 backward; saves ``qkv``, ``bias`` and the dropout
     seed (and the keep mask only when the caller gave one).  A full bias
-    gets K2's ``dbias`` as its gradient."""
+    gets K2's ``dbias`` as its gradient.  K1 launches as in training where
+    an input needs its gradient."""
 
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, rate, seed, keep_mask):
         ctx.save_for_backward(qkv, bias, keep_mask)
         ctx.args = (num_heads, rate, seed)
         return attention_forward(qkv, bias, num_heads, dropout_rate=rate,
-                                 seed=seed, keep_mask=keep_mask)
+                                 seed=seed, keep_mask=keep_mask,
+                                 training=any(ctx.needs_input_grad[:2]))
 
     @staticmethod
     def backward(ctx, g):
@@ -479,6 +504,7 @@ def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
 
 fused_short_attention.launches = 0
 fused_short_attention.tc_launches = 0
+fused_short_attention.tf32x3_launches = 0
 attention_backward.launches = 0
 attention_backward.tc_launches = 0
 
@@ -499,4 +525,4 @@ __all__ = ["fused_short_attention", "attention_forward", "attention_backward",
            "attention_reference", "attention_backward_reference",
            "attention_float64", "attention_route", "dropout_keep_mask",
            "philox_keep_mask", "resolve_fused_flag", "MASK_VALUE",
-           "TC_MAX_SEQ"]
+           "TC_MAX_SEQ", "TF32X3_MAX_SEQ"]

@@ -104,34 +104,19 @@ __device__ __forceinline__ bool keep_at(const Dropout& d, int b, int h, int i,
 // (b, h) slices whole, S padded to a multiple of 16, one warp per 16 rows.
 constexpr int kTcMaxSeq = 64;
 
-// Scores of a warp's 16-row query tile, rows i0 + g and i0 + g + 8, as kNT
-// mma accumulator tiles of 8 keys (mma.cuh's C layout) -> probabilities in
-// place, fp32: s * scale + bias (the full bias's rows from bias_bh, the
-// (S, S) block of this (b, h); else the key bias from key_bias), keys
-// j >= S out of the softmax, the row max and sum over the four lanes that
-// hold a row.  Padded rows (i >= S) see bias 0 and stay finite.
-template <int kNT, bool kFull>
-__device__ __forceinline__ void tile_softmax(float (&s)[kNT][4], const float* bias_bh,
-                                             const float* key_bias, int i0, int S,
-                                             float scale, int lane) {
-  const int g = lane >> 2, t = lane & 3;
+// The softmax of each row of a warp's accumulator tiles of scores in
+// place (keys out of the softmax hold -inf): the row max and sum over the
+// four lanes that hold a row.  kFastMath: __expf and one reciprocal a row
+// in place of expf and a division per element, each within a few ulp
+// (fp32's bars are 1e-5) and far cheaper at CLIP's text shape (PERF.md
+// section 6, the 3xTF32 route's ablation).
+template <int kNT, bool kFastMath = false>
+__device__ __forceinline__ void tile_softmax_rows(float (&s)[kNT][4]) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      const int i = i0 + g + 8 * r;
-      const int j = n * 8 + 2 * t + (e & 1);
-      float v = -INFINITY;
-      if (j < S) {
-        const float bij =
-            kFull ? (i < S ? bias_bh[(size_t)i * S + j] : 0.f) : key_bias[j];
-        v = s[n][e] * scale + bij;
-      }
-      s[n][e] = v;
-      mx[r] = fmaxf(mx[r], v);
-    }
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
   }
   float l[2] = {0.f, 0.f};
 #pragma unroll
@@ -143,7 +128,8 @@ __device__ __forceinline__ void tile_softmax(float (&s)[kNT][4], const float* bi
   for (int n = 0; n < kNT; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float x = expf(s[n][e] - mx[e >> 1]);  // exp(-inf) = 0
+      const float d = s[n][e] - mx[e >> 1];
+      const float x = kFastMath ? __expf(d) : expf(d);  // exp(-inf) = 0
       s[n][e] = x;
       l[e >> 1] += x;
     }
@@ -153,10 +139,69 @@ __device__ __forceinline__ void tile_softmax(float (&s)[kNT][4], const float* bi
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if (kFastMath) {
+    const float r[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= r[e >> 1];
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] /= l[e >> 1];
+    }
+  }
+}
+
+// Scores of a warp's 16-row query tile, rows i0 + g and i0 + g + 8, as kNT
+// mma accumulator tiles of 8 keys (mma.cuh's C layout) -> probabilities in
+// place, fp32: s * scale + bias (the full bias's rows from bias_bh, the
+// (S, S) block of this (b, h); else the key bias from key_bias), keys
+// j >= S out of the softmax, the row max and sum over the four lanes that
+// hold a row.  Padded rows (i >= S) see bias 0 and stay finite.
+template <int kNT, bool kFull>
+__device__ __forceinline__ void tile_softmax(float (&s)[kNT][4], const float* bias_bh,
+                                             const float* key_bias, int i0, int S,
+                                             float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] /= l[e >> 1];
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + 8 * (e >> 1);
+      const int j = n * 8 + 2 * t + (e & 1);
+      float v = -INFINITY;
+      if (j < S) {
+        const float bij =
+            kFull ? (i < S ? bias_bh[(size_t)i * S + j] : 0.f) : key_bias[j];
+        v = s[n][e] * scale + bij;
+      }
+      s[n][e] = v;
+    }
+  }
+  tile_softmax_rows<kNT>(s);
+}
+
+// Dropout on a warp's probabilities held as kNT accumulator tiles (rows
+// i0 + g, i0 + g + 8): kept ones scaled by inv_keep, the rest 0; padded
+// rows and keys (i or j >= S) untouched.
+template <int kNT>
+__device__ __forceinline__ void tile_dropout(float (&s)[kNT][4], const Dropout& drop,
+                                             int b, int h, int i0, int S, int NH,
+                                             int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + 8 * (e >> 1);
+      const int j = n * 8 + 2 * t + (e & 1);
+      if (i < S && j < S) {
+        s[n][e] = keep_at(drop, b, h, i, j, NH, S) ? s[n][e] * drop.inv_keep : 0.f;
+      }
+    }
   }
 }
 

@@ -28,13 +28,16 @@
 // block per (b, h) stages its q, k and v rows (S x HD each) in shared
 // memory, and nothing but the context leaves the block.
 //
-// Two routes compute that function (attention_route() in
-// clip_lite_torch/ops/attention.py picks one by dtype and S):
-//   - the CUDA-core route, attention_fwd(): fp32 products, float32 at any
-//     S and bf16 at S > 64.  It stays off the tensor cores for float32,
-//     which they would read as TF32.
+// Three routes compute that function (attention_route() in
+// clip_lite_torch/ops/attention.py picks one by dtype, S and, for
+// float32, whether K2 takes the gradient):
+//   - the CUDA-core route, attention_fwd(): fp32 products, float32 in
+//     training and at S > 80, bf16 at S > 64.
 //   - the tensor-core route, attention_fwd_tc(): bf16 at S <= 64, the
 //     products on mma.sync (below, after the CUDA-core kernel).
+//   - the 3xTF32 route, attention_fwd_tf32x3(): float32 inference at
+//     S <= 80, the products on mma.sync as three TF32 products each, to
+//     about 2^-21 of each (plain TF32 would change the numbers).
 //
 // CUDA-core route.  Layout of the work inside a block: each warp owns query rows
 // i = warp, warp + kWarps, ...; for its row it keeps q in registers, lane
@@ -221,7 +224,6 @@ attention_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
   __syncthreads();
 
   const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int i0 = (tid >> 5) * 16;
   float s[kNT][4] = {};
 #pragma unroll
@@ -238,19 +240,7 @@ attention_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
   }
   const float* bias_bh = kFull ? bias + ((size_t)b * NH + h) * S * S : nullptr;
   tile_softmax<kNT, kFull>(s, bias_bh, key_bias, i0, S, scale, lane);
-  if (drop.active) {
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + g + 8 * (e >> 1);
-        const int j = n * 8 + 2 * t + (e & 1);
-        if (i < S && j < S) {
-          s[n][e] = keep_at(drop, b, h, i, j, NH, S) ? s[n][e] * drop.inv_keep : 0.f;
-        }
-      }
-    }
-  }
+  if (drop.active) tile_dropout<kNT>(s, drop, b, h, i0, S, NH, lane);
 
   float o[8][4] = {};
 #pragma unroll
@@ -270,6 +260,290 @@ attention_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
   accum_to_tile(q_s, i0, o, lane);
   __syncthreads();
   store_rows(out + (size_t)b * S * H + (size_t)h * 64, H, q_s, S, tid, kTcThreads);
+}
+
+// ---- 3xTF32 route: float32 inference, S <= kTf32MaxSeq (80) -------------
+//
+// Why: the CUDA-core kernel above makes one shared-memory load per fp32
+// FMA in both products, which caps it near a quarter of the fp32 rate
+// (CLIP's towers at S = 50 and 77 ran it at 7.7 and 6.6 TFLOP/s, slower
+// than scaled_dot_product_attention).  Here both products run on the
+// tensor cores as 3xTF32: each fp32 operand x is split once into
+// big = tf32(x) and small = tf32(x - big) (cvt.rna), and
+// small.big + big.small + big.big, three mma.sync m16n8k8 TF32 products
+// accumulated in fp32, give each product to about 2^-21 of its size
+// (TF32 alone: 2^-11), against fp32's 2^-24; small.small is left out.  The
+// sums stay fp32.  The fp32 bars (rtol = atol = 1e-5 against the plain
+// version) hold it: on the card its distance from a float64 evaluation is
+// about 2.5 times the plain version's.  The softmax takes __expf and one
+// reciprocal a row (tile_softmax_rows' kFastMath), each within a few ulp.
+// Training takes the CUDA-core kernel instead: K2's fp32 recompute
+// regenerates that kernel's probabilities, and against them these
+// differences moved an fp32 training step's QKV gradients past the bar
+// that holds it to the plain step (PERF.md).
+//
+// The limit, S <= 80 (CLIP's 77 and every shorter length), keeps every
+// instantiation in registers: at 11 tiles of keys and more ptxas spills.
+//
+// What bounds it: bytes, on paper.  At CLIP's text tower (B = 128,
+// S = 77, 8 heads, full bias) one launch reads 60.6 MB of qkv and 24.3 MB
+// of bias and writes 20.2 MB, 31 us at 3.35 TB/s, against 5.0 GFLOP of
+// TF32 products with the padding (about 10 us at the 495 TFLOP/s dense
+// peak).  On the card the three mma.sync products a tile, which reach far
+// less than that peak, take the larger share (PERF.md).
+//
+// A block of one warp per 16 query rows (S padded to a multiple of 16 for
+// the rows, of 8 for the keys: kNT tiles of 8 keys) walks over every
+// gridDim-th (b, h), the grid as large as the card holds at once, with
+// two stages of shared memory: the next (b, h)'s k, v and key bias are
+// copied with cp.async (16 bytes; 4 for the bias) while this one
+// computes, so that the copies of one head overlap the products of
+// another inside every block and not only across blocks.  k sits at a
+// row stride of 72 floats and v at 68, so that the fragment loads below
+// are free of bank conflicts; rows S.. are zeroed.  q is not staged: each
+// element is read by one lane once, so its A fragments go from device
+// memory into registers (the next head's right after this one's scores),
+// and the shared memory stays free for the stages.  Each full-bias
+// element is read once, straight into its accumulator's position, while
+// the scores are computed.
+//
+// The k index of an mma is a summation index, so each product permutes it
+// inside every 8-wide chunk: A column t is element 2t of the chunk and
+// column t + 4 element 2t + 1.  Then q's fragment is one float2 per row
+// and chunk, k's one float2 of shared memory, and the scores' accumulator
+// (c0, c1 = P[g][8n + 2t, 2t + 1], c2, c3 the same of row g + 8) is the A
+// fragment of ctx = P V as it stands: a0 = c0, a1 = c2, a2 = c1, a3 = c3,
+// with V rows 8n + 2t and 8n + 2t + 1 as B.  Padded keys never enter the
+// softmax (their probabilities are 0 and their v rows 0); padded rows are
+// never written.  Dropout calls keep_at() per element, as the other
+// routes do.  The context leaves with one 16-byte store a lane per 8
+// columns, after one exchange within each pair of lanes.  wgmma would pad
+// the query tile to 64 rows (77 -> 128).
+constexpr int kTf32MaxSeq = 80;
+constexpr int kKRow = 72;  // floats per staged k row: float2 loads, no conflicts
+constexpr int kVRow = 68;  // floats per staged v row: scalar loads, no conflicts
+
+// The ablation's cuts: clip_lite_torch/scripts/k1_fp32_ablation.py builds
+// this file with -DK1_TF32X3_CUT=<n> to time the kernel without one part
+// (a cut build's output is wrong by design).  A normal build cuts nothing.
+#ifndef K1_TF32X3_CUT
+#define K1_TF32X3_CUT 0
+#endif
+enum Tf32Cut {
+  kCutNone,
+  kCutProducts,  // TF32 alone: one product a tile in place of three
+  kCutCopies,    // k and v never copied into shared memory
+  kCutStores,    // the context never written
+  kCutFastMath,  // expf and a division an element in place of __expf, __frcp_rn
+};
+constexpr int kTf32Cut = K1_TF32X3_CUT;
+
+// c += A B of split fp32 operands as 3xTF32 (TF32 alone under the cut).
+__device__ __forceinline__ void tf32x3_product(float (&c)[4], const uint32_t (&ab)[4],
+                                               const uint32_t (&as)[4],
+                                               const uint32_t (&bb)[2],
+                                               const uint32_t (&bs)[2]) {
+  if constexpr (kTf32Cut == kCutProducts) {
+    mma::mma_tf32(c, ab, bb[0], bb[1]);
+  } else {
+    mma::mma_tf32x3(c, ab, as, bb, bs);
+  }
+}
+
+template <int kNT>
+__host__ __device__ constexpr int tf32_threads() {
+  return 32 * ((kNT + 1) / 2);
+}
+
+// One stage of shared memory: k (8 kNT x kKRow), v (8 kNT x kVRow) and
+// the key bias (8 kNT), fp32.  A block holds two.
+template <int kNT>
+__host__ __device__ constexpr int tf32_stage_floats() {
+  return 8 * kNT * (kKRow + kVRow + 1);
+}
+
+// Stage rows 0..n-1 of a 64-wide fp32 slice (row stride ld floats, every
+// row 16-byte aligned) into a tile of row stride kStride with cp.async,
+// and zero rows n..n_pad-1.
+template <int kStride>
+__device__ __forceinline__ void stage_rows_f32(float* tile, const float* src, size_t ld,
+                                               int n, int n_pad, int tid, int nthreads) {
+  for (int c = tid; c < n_pad * 16; c += nthreads) {
+    const int r = c >> 4;
+    float* dst = tile + r * kStride + (c & 15) * 4;
+    if (r < n) {
+      if (kTf32Cut != kCutCopies) mma::cp_async16(dst, src + r * ld + (c & 15) * 4);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// Start the copies of item w = (b, h)'s k, v and key bias into a stage.
+template <int kNT, bool kFull>
+__device__ __forceinline__ void stage_item(float* stage, const float* qkv,
+                                           const float* bias, int w, int S, int NH,
+                                           int tid) {
+  constexpr int kKeys = 8 * kNT;
+  constexpr int kThreadsTf32 = tf32_threads<kNT>();
+  const int b = w / NH, h = w % NH;
+  const size_t row3 = (size_t)3 * NH * 64;
+  const float* src = qkv + (size_t)b * S * row3 + (size_t)h * 64;
+  stage_rows_f32<kKRow>(stage, src + NH * 64, row3, S, kKeys, tid, kThreadsTf32);
+  stage_rows_f32<kVRow>(stage + kKeys * kKRow, src + 2 * NH * 64, row3, S, kKeys, tid,
+                        kThreadsTf32);
+  if (!kFull) {
+    float* key_bias = stage + kKeys * (kKRow + kVRow);
+    for (int j = tid; j < kKeys; j += kThreadsTf32) {
+      if (j < S) {
+        mma::cp_async4(key_bias + j, bias + (size_t)b * S + j);
+      } else {
+        key_bias[j] = 0.f;
+      }
+    }
+  }
+}
+
+// This lane's A fragments of item w's q, rows i0 + g + 8r, columns
+// 8kc + 2t and 8kc + 2t + 1 (0 on padded rows), from device memory.
+__device__ __forceinline__ void load_q(float2 (&qa)[8][2], const float* qkv, int w,
+                                       int S, int NH, int i0, int lane) {
+  const int b = w / NH, h = w % NH;
+  const size_t row3 = (size_t)3 * NH * 64;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + g + 8 * r;
+    const float* row = qkv + ((size_t)b * S + i) * row3 + (size_t)h * 64 + 2 * t;
+#pragma unroll
+    for (int kc = 0; kc < 8; ++kc) {
+      qa[kc][r] = i < S ? *reinterpret_cast<const float2*>(row + 8 * kc)
+                        : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+template <int kNT, bool kFull>
+__global__ void __launch_bounds__(32 * ((kNT + 1) / 2))
+attention_fwd_tf32x3_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                            float* __restrict__ out, int B, int S, int NH, float scale,
+                            Dropout drop) {
+  using namespace mma;
+  constexpr int kKeys = 8 * kNT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* stages = reinterpret_cast<float*>(smem_raw);
+
+  const int items = B * NH;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = (tid >> 5) * 16;
+  const int H = NH * 64;
+  int w = blockIdx.x;
+  if (w >= items) return;
+  stage_item<kNT, kFull>(stages, qkv, bias, w, S, NH, tid);
+  cp_async_commit();
+  float2 qa[8][2];
+  load_q(qa, qkv, w, S, NH, i0, lane);
+
+  for (int buf = 0; w < items; w += gridDim.x, buf ^= 1) {
+    // The next item's copies fly while this one computes.
+    const int next = w + gridDim.x;
+    if (next < items) {
+      stage_item<kNT, kFull>(stages + (buf ^ 1) * tf32_stage_floats<kNT>(), qkv, bias,
+                             next, S, NH, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* k_s = stages + buf * tf32_stage_floats<kNT>();
+    const float* v_s = k_s + kKeys * kKRow;
+    const float* key_bias = v_s + kKeys * kVRow;
+    const int b = w / NH, h = w % NH;
+
+    // The full bias of this lane's accumulator positions, loaded while
+    // the scores are computed.
+    float bz[kNT][4];
+    if (kFull) {
+      const float* bias_bh = bias + ((size_t)b * NH + h) * S * S;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + g + 8 * (e >> 1);
+          const int j = n * 8 + 2 * t + (e & 1);
+          bz[n][e] = i < S && j < S ? bias_bh[(size_t)i * S + j] : 0.f;
+        }
+      }
+    }
+
+    float s[kNT][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < 8; ++kc) {
+      uint32_t ab[4], as[4];
+      split_tf32(qa[kc][0].x, ab[0], as[0]);
+      split_tf32(qa[kc][1].x, ab[1], as[1]);
+      split_tf32(qa[kc][0].y, ab[2], as[2]);
+      split_tf32(qa[kc][1].y, ab[3], as[3]);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(k_s + (n * 8 + g) * kKRow + 8 * kc + 2 * t);
+        uint32_t bb[2], bs[2];
+        split_tf32(kv.x, bb[0], bs[0]);
+        split_tf32(kv.y, bb[1], bs[1]);
+        tf32x3_product(s[n], ab, as, bb, bs);
+      }
+    }
+    if (next < items) load_q(qa, qkv, next, S, NH, i0, lane);
+
+    // s * scale + bias, keys j >= S out; then the softmax of each row.
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = n * 8 + 2 * t + (e & 1);
+        s[n][e] = j < S ? s[n][e] * scale + (kFull ? bz[n][e] : key_bias[j]) : -INFINITY;
+      }
+    }
+    tile_softmax_rows<kNT, kTf32Cut != kCutFastMath>(s);
+    if (drop.active) tile_dropout<kNT>(s, drop, b, h, i0, S, NH, lane);
+
+    float o[8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < kNT; ++kc) {
+      uint32_t ab[4], as[4];
+      split_tf32(s[kc][0], ab[0], as[0]);
+      split_tf32(s[kc][2], ab[1], as[1]);
+      split_tf32(s[kc][1], ab[2], as[2]);
+      split_tf32(s[kc][3], ab[3], as[3]);
+      const float* v = v_s + (8 * kc + 2 * t) * kVRow + g;
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {
+        uint32_t bb[2], bs[2];
+        split_tf32(v[np * 8], bb[0], bs[0]);
+        split_tf32(v[kVRow + np * 8], bb[1], bs[1]);
+        tf32x3_product(o[np], ab, as, bb, bs);
+      }
+    }
+    // Lanes t and t ^ 1 swap halves: an even lane stores row g, columns
+    // 8np + 2t .. 2t + 3, an odd one row g + 8, columns 8np + 2t - 2 .. 2t + 1.
+    const bool odd = t & 1;
+    const int i = i0 + g + (odd ? 8 : 0);
+    float* dst = out + ((size_t)b * S + i) * H + (size_t)h * 64 + 2 * (t & ~1);
+#pragma unroll
+    for (int np = 0; np < 8; ++np) {
+      const float x0 = __shfl_xor_sync(0xffffffffu, odd ? o[np][0] : o[np][2], 1);
+      const float x1 = __shfl_xor_sync(0xffffffffu, odd ? o[np][1] : o[np][3], 1);
+      if (i < S && kTf32Cut != kCutStores) {
+        *reinterpret_cast<float4*>(dst + np * 8) =
+            odd ? make_float4(x0, x1, o[np][2], o[np][3])
+                : make_float4(o[np][0], o[np][1], x0, x1);
+      }
+    }
+    // Every warp is done with this stage before it takes the item after next.
+    __syncthreads();
+  }
 }
 
 __global__ void dropout_mask_kernel(int8_t* __restrict__ keep, int B, int NH,
@@ -324,6 +598,56 @@ int launch_tc_seq(const void* qkv, const void* bias, void* out, int B, int S, in
   }
 }
 
+template <int kNT, bool kFull>
+int launch_tf32x3(const void* qkv, const void* bias, void* out, int B, int S, int NH,
+                  const Dropout& drop, cudaStream_t stream) {
+  auto kernel = attention_fwd_tf32x3_kernel<kNT, kFull>;
+  // Two stages: at most 88.1 KB (kNT = 10).  The largest shared-memory
+  // carveout, so that as many blocks are resident as the occupancy query
+  // below counts.
+  const size_t smem = 2 * sizeof(float) * tf32_stage_floats<kNT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return (int)err;
+  // As many blocks as are resident at once, each over every gridDim-th
+  // (b, h).
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        tf32_threads<kNT>(), smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = B * NH < sms * per_sm ? B * NH : sms * per_sm;
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<blocks, tf32_threads<kNT>(), smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(bias),
+      static_cast<float*>(out), B, S, NH, 1.0f / sqrtf(64.0f), drop);
+  return (int)cudaGetLastError();
+}
+
+// The launch for kNT = ceil(S / 8) tiles of keys, 1 <= kNT <= 10; at 3
+// tiles (S = 17..24) ptxas spills the full-bias kernel, so 4 take them.
+template <bool kFull, int kNT = 1>
+int launch_tf32x3_seq(const void* qkv, const void* bias, void* out, int B, int S,
+                      int NH, const Dropout& drop, cudaStream_t stream) {
+  if constexpr (kNT == 3) {
+    return launch_tf32x3_seq<kFull, 4>(qkv, bias, out, B, S, NH, drop, stream);
+  } else {
+    if constexpr (kNT < kTf32MaxSeq / 8) {
+      if (S > 8 * kNT) {
+        return launch_tf32x3_seq<kFull, kNT + 1>(qkv, bias, out, B, S, NH, drop, stream);
+      }
+    }
+    return launch_tf32x3<kNT, kFull>(qkv, bias, out, B, S, NH, drop, stream);
+  }
+}
+
 bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 }  // namespace
@@ -375,6 +699,26 @@ int attention_fwd_tc(const void* qkv, const void* bias, const void* keep,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return full_bias ? launch_tc_seq<true>(qkv, bias, out, B, S, NH, drop, st)
                    : launch_tc_seq<false>(qkv, bias, out, B, S, NH, drop, st);
+}
+
+// The 3xTF32 route: attention_fwd's arguments and function, for float32
+// (dtype 0) at 1 <= S <= 80 only; any other dtype or S is refused with
+// cudaErrorInvalidValue, and qkv or out not 16-byte aligned with
+// cudaErrorMisalignedAddress.
+int attention_fwd_tf32x3(const void* qkv, const void* bias, const void* keep,
+                         void* out, int B, int S, int NH, int HD, int dtype,
+                         int full_bias, int dropout, unsigned int threshold,
+                         float inv_keep, unsigned long long seed, void* stream) {
+  if (HD != 64 || dtype != 0 || B < 1 || B > 65535 || S < 1 || S > kTf32MaxSeq ||
+      NH < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (misaligned16(qkv) || misaligned16(out)) return (int)cudaErrorMisalignedAddress;
+  const Dropout drop{static_cast<const int8_t*>(keep), seed, threshold,
+                     inv_keep, dropout != 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return full_bias ? launch_tf32x3_seq<true>(qkv, bias, out, B, S, NH, drop, st)
+                   : launch_tf32x3_seq<false>(qkv, bias, out, B, S, NH, drop, st);
 }
 
 // Writes the Philox keep mask that K1 and K2 use for (seed, threshold)

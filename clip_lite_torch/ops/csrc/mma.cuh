@@ -1,7 +1,9 @@
-// Tensor-core building blocks of the bf16 attention kernels (the
-// tensor-core routes of K1 and K2): 16-byte cp.async staging, ldmatrix
-// fragment loads and the mma.sync m16n8k16 product with fp32 accumulation,
-// all as inline PTX so that nvcc builds in seconds.
+// Tensor-core building blocks of the attention kernels (the bf16
+// tensor-core routes of K1 and K2, K1's float32 3xTF32 route): 16-byte
+// cp.async staging, ldmatrix fragment loads, the mma.sync m16n8k16 bf16
+// product and the m16n8k8 TF32 product with fp32 accumulation, and the
+// TF32 split of an fp32 operand, all as inline PTX so that nvcc builds in
+// seconds.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with g = lane / 4 and
@@ -47,9 +49,27 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                : "memory");
 }
 
+// 4 bytes from device memory to shared memory (through L1).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
 // Wait for every cp.async this thread started.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Close this thread's group of cp.async copies.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8 x 8 bf16 matrices; lanes 8m..8m+7 give the row addresses of
@@ -77,6 +97,51 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- 3xTF32 (the float32 tensor-core route of K1) -----------------------
+//
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 fragments (PTX ISA,
+// "Matrix Fragments for mma.m16n8k8", .tf32), g = lane / 4, t = lane % 4:
+//   A (16 x 8):  a0 = A[g][t]  a1 = A[g+8][t]  a2 = A[g][t+4]  a3 = A[g+8][t+4]
+//   B (8 x 8):   b0 = B[t][g]  b1 = B[t+4][g]
+//   C, D:        as m16n8k16's (c0, c1 = C[g][2t, 2t+1], c2, c3 = row g+8).
+// A TF32 operand is an fp32 bit pattern whose low 13 mantissa bits are 0.
+
+// x rounded to TF32: to nearest, ties away from zero (cvt.rna), low 13
+// bits zero.
+__device__ __forceinline__ void cvt_tf32(uint32_t& r, float x) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+}
+
+// x = big + small + O(2^-22 |x|): big is x in TF32, small the rest of it
+// in TF32 (x - big is exact in fp32).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  cvt_tf32(big, x);
+  cvt_tf32(small, __fsub_rn(x, __uint_as_float(big)));
+}
+
+// c += A B over one 16 x 8 x 8 tile of TF32 operands, summed in fp32.
+// Not volatile: it has no effect but its result, so the compiler may
+// interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: c += A B with fp32 operands given split (big, small), to about
+// fp32's accuracy: small.big + big.small first, then big.big (small.small,
+// 2^-22 of a product, is left out).
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(c, a_small, b_big[0], b_big[1]);
+  mma_tf32(c, a_big, b_small[0], b_small[1]);
+  mma_tf32(c, a_big, b_big[0], b_big[1]);
 }
 
 // Two fp32 values rounded to nearest bf16, lo in the lower half.

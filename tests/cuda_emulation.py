@@ -69,10 +69,12 @@ struct dim3 {
 };
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
@@ -83,6 +85,10 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __frcp_rn(float a) { return 1.f / a; }
+// The card's __expf is ex2.approx of x log2(e), within a few ulp of exp;
+// the host's exp stands in for it.
+inline float __expf(float x) { return std::exp(x); }
 // Round toward minus infinity: the nearest sum, one step down where the
 // exact sum (its error by Knuth's two-sum) lies below it.
 inline float __fadd_rd(float a, float b) {
@@ -116,7 +122,7 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 typedef void* cudaEvent_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaErrorMisalignedAddress = 716 };
+       cudaErrorInvalidConfiguration = 9, cudaErrorMisalignedAddress = 716 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
                          cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
 enum { cudaSharedmemCarveoutMaxShared = 100 };
@@ -150,6 +156,18 @@ inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) { return 0; }
 inline cudaError_t cudaEventSynchronize(cudaEvent_t) { return 0; }
 inline cudaError_t cudaEventDestroy(cudaEvent_t) { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+// Two SMs with room for one block each: a grid sized to the card runs
+// few blocks, each over several items.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return 0;
+}
+template <typename F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return 0;
+}
 inline cudaError_t cudaSetDevice(int d) { return d == 0 ? 0 : 1; }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e ? "emulated error" : "no error";
@@ -389,6 +407,7 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 # barrier after a wait is the source's.
 CP_ASYNC_BODIES = {
     "cp_async16": "{ emu_cp_async(smem, gmem, 16); }",
+    "cp_async4": "{ emu_cp_async(smem, gmem, 4); }",
     "cp_async_commit": "{ emu_cp_async_commit(); }",
     "cp_async_wait": "{ emu_cp_async_wait(N); }",  # template <int N>
     "cp_async_wait_all": "{ emu_cp_async_commit(); emu_cp_async_wait(0); }",

@@ -31,6 +31,8 @@ from clip_lite_torch import bridge
 from clip_lite_torch.config import Config
 from clip_lite_torch.engine import create_train_state, make_train_step
 from clip_lite_torch.factories import PretrainingModelFactory
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")

@@ -18,6 +18,8 @@ from clip_lite_torch.config import Config
 from clip_lite_torch.ops.attention import (
     MASK_VALUE,
     TC_MAX_SEQ,
+    TF32X3_MAX_SEQ,
+    _raise_on,
     attention_backward,
     attention_backward_reference,
     attention_float64,
@@ -204,10 +206,56 @@ def test_resolve_fused_flag(flag, device, expected):
     (torch.float32, 65, "cuda_core"),
 ])
 def test_attention_route(dtype, seq, route):
-    """bf16 at S <= 64 takes the tensor cores; fp32 never does (TF32 would
-    change its numbers), nor bf16 above 64."""
+    """K2's route, and K1's outside the 3xTF32 route: bf16 at S <= 64 takes
+    the tensor cores; fp32 K2 never does (plain TF32 would change its
+    numbers), nor bf16 above 64."""
     assert TC_MAX_SEQ == 64
-    assert attention_route(dtype, seq) == route
+    assert attention_route(dtype, seq, "backward") == route
+    if not (dtype == torch.float32 and seq <= TF32X3_MAX_SEQ):
+        assert attention_route(dtype, seq, "forward") == route
+
+
+@pytest.mark.parametrize("seq,route", [
+    (1, "tf32x3"), (17, "tf32x3"), (30, "tf32x3"), (50, "tf32x3"),
+    (64, "tf32x3"), (77, "tf32x3"), (80, "tf32x3"), (81, "cuda_core"),
+    (256, "cuda_core"),
+])
+def test_float32_forward_route(seq, route):
+    """fp32 K1 takes the 3xTF32 kernel up to S = 80 (CLIP's 77 among them)
+    for inference, and the CUDA cores in training (K2 regenerates that
+    kernel's probabilities) and above 80; fp32 K2 stays on the CUDA
+    cores."""
+    assert TF32X3_MAX_SEQ == 80
+    assert attention_route(torch.float32, seq, "forward") == route
+    assert attention_route(torch.float32, seq, "forward",
+                           training=True) == "cuda_core"
+    assert attention_route(torch.float32, seq, "backward") == "cuda_core"
+    assert attention_route(torch.bfloat16, seq, "forward", training=True) == \
+        attention_route(torch.bfloat16, seq, "forward")
+
+
+@pytest.mark.parametrize("kernel,route,name", [
+    ("K1", "cuda_core", "K1"), ("K1", "tensor_core", "K1 (tensor-core route)"),
+    ("K1", "tf32x3", "K1 (3xTF32 route)"), ("K2", "cuda_core", "K2"),
+    ("K2", "tensor_core", "K2 (tensor-core route)"),
+])
+def test_failed_launch_names_its_kernel_and_route(kernel, route, name):
+    """A refused launch raises with its kernel, its route and the CUDA
+    error's text; a launch that returned 0 raises nothing and asks the
+    library for no text."""
+    asked = []
+
+    class Lib:
+        def kernel_error_string(self, err):
+            asked.append(err)
+            return b"invalid argument"
+
+    _raise_on(Lib(), 0, kernel, route)
+    assert asked == []
+    with pytest.raises(RuntimeError) as raised:
+        _raise_on(Lib(), 1, kernel, route)
+    assert str(raised.value) == f"{name} launch failed: invalid argument"
+    assert asked == [1]
 
 
 @pytest.mark.parametrize("seq", [30, 65])
@@ -221,6 +269,7 @@ def test_cpu_wrappers_take_the_twins_on_either_route(seq):
     bias[0, seq // 2:] = MASK_VALUE
     g = torch.from_numpy(rng.randn(B, seq, H).astype(np.float32))
     counts = (fused_short_attention.launches, fused_short_attention.tc_launches,
+              fused_short_attention.tf32x3_launches,
               attention_backward.launches, attention_backward.tc_launches)
     torch.testing.assert_close(attention_forward(qkv, bias, NH),
                                attention_reference(qkv, bias, NH),
@@ -231,6 +280,7 @@ def test_cpu_wrappers_take_the_twins_on_either_route(seq):
     assert dbias is None
     assert counts == (fused_short_attention.launches,
                       fused_short_attention.tc_launches,
+                      fused_short_attention.tf32x3_launches,
                       attention_backward.launches, attention_backward.tc_launches)
 
 

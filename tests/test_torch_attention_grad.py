@@ -26,6 +26,8 @@ from clip_lite_torch.ops.attention import (
     fused_short_attention,
     philox_keep_mask,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 HD = 64
 TOL = dict(rtol=1e-5, atol=1e-5)

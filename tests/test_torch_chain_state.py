@@ -41,6 +41,8 @@ from clip_lite_torch.optim.fused import chain_parts, slow_params_from_state
 from clip_lite_torch.utils import msgpack_io
 from clip_lite_torch.utils.checkpointing import CheckpointManager
 from test_torch_train import FLAGSHIP, TRAIN
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 VARIANTS = {
     "sgd_lookahead": [],

@@ -70,6 +70,8 @@ from clip_lite_torch.utils.checkpointing import (
     peek_iteration,
 )
 from test_torch_train import B, FLAGSHIP, L, TRAIN
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 CROP = 32
 CAPTIONS = ["a dog runs on the beach", "two cats", "a red car parked by a "

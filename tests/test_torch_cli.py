@@ -28,6 +28,8 @@ from clip_lite_torch.config import Config
 from clip_lite_torch.train import main, parser
 from test_torch_data_pipeline import write_corpus
 from test_torch_downstream_data import write_json_pretraining
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")

@@ -33,6 +33,8 @@ import jax
 
 from clip_lite_torch.data.tokenizers import ClipBPETokenizer, bytes_to_unicode
 from clip_lite_torch.models.clip import load_clip_model, read_flax_weights
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 transformers = pytest.importorskip("transformers")
 
@@ -195,3 +197,12 @@ def test_sharded_weights_equal_the_single_file(clip_dirs, tmp_path):
     assert flat.keys() == got.keys()
     for k in flat:
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(flat[k]))
+
+
+def test_load_clip_model_runs_on_the_card_unless_asked(clip_dirs):
+    """The card by default: with no device on a box without CUDA it raises
+    before reading a weight; ``device="cpu"`` loads (the test above)."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal where CUDA is absent")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_clip_model(clip_dirs["legacy"])

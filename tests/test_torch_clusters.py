@@ -66,6 +66,7 @@ from clip_lite_torch.scripts import quality_campaign, quality_protocol
 from test_torch_data_pipeline import LEVEL
 from test_torch_image_ops import jax_aug_draws
 from test_torch_loss import inject_uniform
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")
@@ -79,14 +80,6 @@ def _threefry():
     same process may have switched it)."""
     with jax.default_prng_impl("threefry2x32"):
         yield
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _embeddings(n, seed):

@@ -275,33 +275,113 @@ def test_bf16_route_edges_match_reference(device, s, nh, full, rate):
 
 
 def test_dispatch_sends_bf16_to_the_tensor_cores_up_to_64(device):
-    """The route by dtype and S, read from the per-route launch counts:
-    bf16 at S = 64 takes the tensor cores, at S = 65 the CUDA cores; fp32
-    never takes them, and the tensor-core kernels refuse it: the launch
-    raises and counts nothing."""
-    for dtype, s, on_tc in ((torch.bfloat16, 64, 1), (torch.bfloat16, 65, 0),
-                            (torch.float32, 30, 0)):
-        assert attention_route(dtype, s) == ("tensor_core" if on_tc
-                                             else "cuda_core")
+    """The route by kernel, dtype and S, read from the per-route launch
+    counts: bf16 at S = 64 takes the tensor cores, at S = 65 the CUDA
+    cores; fp32 K1 at S = 30 the 3xTF32 kernel and fp32 K2 the CUDA cores,
+    and the bf16 tensor-core kernels refuse fp32: the launch raises and
+    counts nothing."""
+    for dtype, s, on_tc, on_tf32 in ((torch.bfloat16, 64, 1, 0),
+                                     (torch.bfloat16, 65, 0, 0),
+                                     (torch.float32, 30, 0, 1)):
+        assert attention_route(dtype, s, "forward") == (
+            "tensor_core" if on_tc else "tf32x3" if on_tf32 else "cuda_core")
+        assert attention_route(dtype, s, "backward") == ("tensor_core" if on_tc
+                                                         else "cuda_core")
         qkv, bias = _inputs(device, 2, s, 12)
         qkv = qkv.to(dtype)
         g = torch.randn(2, s, 768, device=device).to(dtype)
         counts = (fused_short_attention.launches, fused_short_attention.tc_launches,
+                  fused_short_attention.tf32x3_launches,
                   attention_backward.launches, attention_backward.tc_launches)
         attention_forward(qkv, bias, 12)
         attention_backward(qkv, bias, g, 12)
         assert (fused_short_attention.launches - counts[0],
                 fused_short_attention.tc_launches - counts[1],
-                attention_backward.launches - counts[2],
-                attention_backward.tc_launches - counts[3]) == (1, on_tc, 1, on_tc)
+                fused_short_attention.tf32x3_launches - counts[2],
+                attention_backward.launches - counts[3],
+                attention_backward.tc_launches - counts[4]) == (
+                    1, on_tc, on_tf32, 1, on_tc)
     qkv, bias = _inputs(device, 2, 30, 12)
     before = fused_short_attention.launches, attention_backward.launches
     with pytest.raises(RuntimeError):
-        _launch_fwd(qkv, bias, 12, 0.0, 0, None, tc=True)
+        _launch_fwd(qkv, bias, 12, 0.0, 0, None, route="tensor_core")
     with pytest.raises(RuntimeError):
         _launch_bwd(qkv, bias, torch.zeros(2, 30, 768, device=device), 12, 0.0,
-                    0, None, tc=True)
+                    0, None, route="tensor_core")
     assert (fused_short_attention.launches, attention_backward.launches) == before
+
+
+# The 3xTF32 route's tiling: one row, one over a key tile, the flagship's
+# 30, CLIP's 50 (vision), 64, CLIP's 77 (text), the limit, and one over it
+# (the CUDA-core route).
+TF32_SEQS = [1, 9, 17, 30, 50, 64, 77, 80, 81]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
+@pytest.mark.parametrize("s", TF32_SEQS)
+def test_tf32x3_route_matches_reference(device, s, full, rate):
+    """fp32 K1 on the 3xTF32 route (S <= 80; 81 on the CUDA cores)
+    against its twin at fp32's bar, given the kernels' Philox mask, counted
+    on its route, and within four times the twin's distance from float64
+    (3xTF32 leaves out 2^-22 of each product, fp32 rounds at 2^-24), plus
+    2^-21 of the output's size."""
+    b, nh = 3, 12
+    qkv, key_bias = _inputs(device, b, s, nh, seed=s)
+    bias = _full_bias(device, key_bias, nh) if full else key_bias
+    seed = 1357
+    keep = dropout_keep_mask(seed, b, nh, s, rate, device) if rate else None
+    before = fused_short_attention.launches, fused_short_attention.tf32x3_launches
+    out = attention_forward(qkv, bias, nh, dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    on_route = int(s <= 80)
+    assert attention_route(torch.float32, s, "forward") == (
+        "tf32x3" if on_route else "cuda_core")
+    assert (fused_short_attention.launches - before[0],
+            fused_short_attention.tf32x3_launches - before[1]) == (1, on_route)
+    ref = attention_reference(qkv, bias, nh, rate, keep)
+    torch.testing.assert_close(out, ref, **TOLS[torch.float32])
+    exact = attention_float64(qkv, bias, torch.zeros_like(out), nh, rate, keep)[0]
+    k_err, t_err = ((x.double() - exact).abs().max().item() for x in (out, ref))
+    # Where the twin is exact (one key: p = 1), one product's split error.
+    floor = 2.0 ** -21 * exact.abs().max().item()
+    assert k_err <= 4.0 * t_err + floor, (k_err, t_err)
+
+
+def test_tf32x3_route_refuses_what_it_does_not_take(device):
+    """The 3xTF32 kernel refuses bf16, S > 80 and a qkv not 16-byte
+    aligned: each launch raises and counts nothing."""
+    qkv, bias = _inputs(device, 2, 81, 4)
+    flat = torch.randn(2 * 30 * 768 + 1, device=device)
+    shifted = flat[1:].view(2, 30, 768)  # contiguous, 4 bytes off 16
+    before = fused_short_attention.launches, fused_short_attention.tf32x3_launches
+    for x, b in ((qkv.bfloat16(), bias), (qkv, bias),
+                 (shifted, bias[:, :30].contiguous())):
+        with pytest.raises(RuntimeError, match="3xTF32 route"):
+            _launch_fwd(x, b, 4, 0.0, 0, None, route="tf32x3")
+    assert (fused_short_attention.launches,
+            fused_short_attention.tf32x3_launches) == before
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
+@pytest.mark.parametrize("s", [30, 77])
+def test_float32_training_forward_takes_the_cuda_core_kernel(device, s, full, rate):
+    """fp32 K1 in training (an input needs its gradient) launches the
+    CUDA-core kernel, the one whose probabilities K2 regenerates: nothing
+    counted on the 3xTF32 route, and its output that kernel's bit for bit
+    under the same Philox draws."""
+    b, nh, seed = 3, 12, 97
+    qkv, key_bias = _inputs(device, b, s, nh, seed=s)
+    bias = _full_bias(device, key_bias, nh) if full else key_bias
+    before = fused_short_attention.launches, fused_short_attention.tf32x3_launches
+    out = fused_short_attention(qkv.requires_grad_(), bias, nh, dropout_rate=rate,
+                                deterministic=False, seed=seed)
+    torch.cuda.synchronize()
+    assert (fused_short_attention.launches - before[0],
+            fused_short_attention.tf32x3_launches - before[1]) == (1, 0)
+    want = _launch_fwd(qkv.detach(), bias, nh, rate, seed, None, route="cuda_core")
+    assert torch.equal(out.detach(), want)
 
 
 @pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
@@ -314,8 +394,8 @@ def test_cuda_core_route_in_bf16_matches_reference(device, full):
     qkv = qkv.bfloat16()
     g = torch.randn(b, s, nh * 64, device=device).bfloat16()
     tc = fused_short_attention.tc_launches, attention_backward.tc_launches
-    out = _launch_fwd(qkv, bias, nh, 0.1, 3, None, tc=False)
-    dqkv, dbias = _launch_bwd(qkv, bias, g, nh, 0.1, 3, None, tc=False)
+    out = _launch_fwd(qkv, bias, nh, 0.1, 3, None, route="cuda_core")
+    dqkv, dbias = _launch_bwd(qkv, bias, g, nh, 0.1, 3, None, route="cuda_core")
     torch.cuda.synchronize()
     assert (fused_short_attention.tc_launches, attention_backward.tc_launches) == tc
     keep = dropout_keep_mask(3, b, nh, s, 0.1, device)

@@ -56,6 +56,8 @@ from test_torch_downstream_data import (
     write_imagenet,
     write_voc,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")

@@ -1,4 +1,4 @@
-"""K1's and K2's CUDA sources, both routes, run on the CPU against their
+"""K1's and K2's CUDA sources, every route, run on the CPU against their
 plain twins.
 
 Only the card runs the kernels for real (tests/test_torch_cuda.py,
@@ -10,7 +10,8 @@ barriers for ``__syncthreads`` and ``__syncwarp``, warp collectives for
 
 - the bodies of ``mma.cuh``'s inline-PTX helpers become emulated
   collectives that follow the PTX ISA's fragment layouts (``ldmatrix``,
-  ``mma.sync``);
+  ``mma.sync`` m16n8k16 bf16 and m16n8k8 TF32) and an exact ``cvt.rna``
+  to TF32;
 - each ``extern __shared__`` array becomes a pointer to the emulated
   block's memory;
 - each ``kernel<<<grid, block, smem, stream>>>(args)`` becomes
@@ -25,6 +26,7 @@ import ctypes
 import shutil
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from cuda_emulation import (
@@ -57,7 +59,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # row g, columns 2t, 2t+1 (transposed: rows 2t, 2t+1, column g).  mma: A
 # register r of lane (g, t) holds A[g + 8 (r % 2)][2t + 8 (r / 2) + {0, 1}],
 # B register r holds B[2t + 8r + {0, 1}][g], C element e holds
-# C[g + 8 (e / 2)][2t + e % 2].
+# C[g + 8 (e / 2)][2t + e % 2].  TF32 mma: A register r of lane (g, t)
+# holds A[g + 8 (r % 2)][t + 4 (r / 2)], B register r holds B[t + 4r][g],
+# C as above; each product of two TF32 values is exact in fp32, and the sum
+# is fp32's, in k order (an operand's low 13 bits are not read).  cvt.rna.tf32.f32: to nearest, ties away from zero
+# (the magnitude's bits plus half of the 13 dropped ones), low 13 bits 0;
+# NaN kept.
 PTX_BODIES = {
     "ldmatrix_x4": r"""{
   Warp& w = my_warp();
@@ -104,6 +111,30 @@ PTX_BODIES = {
   }
   w.bar->arrive_and_wait();
 }""",
+    "cvt_tf32": r"""{
+  const uint32_t u = __float_as_uint(x);
+  r = (u & 0x7fffffffu) > 0x7f800000u ? u : (u + 0x1000u) & 0xffffe000u;
+}""",
+    "mma_tf32": r"""{
+  Warp& w = my_warp();
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
+  w.b[lane][0] = b0;
+  w.b[lane][1] = b1;
+  w.bar->arrive_and_wait();
+  auto tf32 = [](uint32_t v) { return __uint_as_float(v & 0xffffe000u); };
+  auto A = [&](int row, int k) {
+    return tf32(w.a[(row % 8) * 4 + k % 4][(k >= 4) * 2 + (row >= 8)]);
+  };
+  auto B = [&](int k, int col) { return tf32(w.b[col * 4 + k % 4][k >= 4]); };
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    float acc = c[e];
+    for (int k = 0; k < 8; ++k) acc += A(row, k) * B(k, col);
+    c[e] = acc;
+  }
+  w.bar->arrive_and_wait();
+}""",
 }
 
 
@@ -136,7 +167,7 @@ def libs(tmp_path_factory):
     drop = [ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint64,
             ctypes.c_void_p]
     fwd, bwd = loaded["attention_fwd"], loaded["attention_bwd"]
-    for fn in (fwd.attention_fwd, fwd.attention_fwd_tc):
+    for fn in (fwd.attention_fwd, fwd.attention_fwd_tc, fwd.attention_fwd_tf32x3):
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + drop
     for fn in (bwd.attention_bwd, bwd.attention_bwd_tc):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + drop
@@ -239,3 +270,94 @@ def test_tensor_core_entry_points_refuse_what_they_do_not_take(libs):
         assert bwd.attention_bwd_tc(qkv.data_ptr() + offset, bias.data_ptr(),
                                     grad.data_ptr(), None, dqkv.data_ptr(), None, 1,
                                     s, 1, 64, code, 0, 0, 0, 1.0, 0, None) == want
+
+
+# The 3xTF32 route (float32 K1): one row, one over a tile, CLIP's vision
+# (key bias, no dropout) and text (full bias) lengths, and the limit.
+TF32_CASES = [(1, True, 0.1), (17, True, 0.1), (50, False, 0.0), (77, True, 0.1),
+              (80, True, 0.1)]
+
+
+@pytest.mark.parametrize("s,full,rate", TF32_CASES,
+                         ids=[f"S{s}-{'full' if f else 'key'}-rate{r}"
+                              for s, f, r in TF32_CASES])
+def test_tf32x3_route_matches_reference(libs, s, full, rate, record_property):
+    """The 3xTF32 K1 (float32) against its twin at fp32's bar, given the
+    kernels' Philox mask, and within four times the twin's distance from
+    the float64 evaluation of the same function, plus 2^-21 of the
+    output's size (both distances recorded)."""
+    fwd, _ = libs
+    nh, b, seed = 2, 2, 31
+    qkv, bias, grad = _case(b, s, nh, full, torch.float32)
+    out = torch.empty(b, s, nh * 64)
+    drop = ((1, dropout_threshold(rate), float(torch.tensor(1.0 / (1.0 - rate))),
+             seed) if rate else (0, 0, 1.0, 0))
+    assert fwd.attention_fwd_tf32x3(qkv.data_ptr(), bias.data_ptr(), None,
+                                    out.data_ptr(), b, s, nh, 64, 0, int(full),
+                                    *drop, None) == 0
+    keep = philox_keep_mask(seed, b, nh, s, rate) if rate else None
+    ref = attention_reference(qkv, bias, nh, rate, keep)
+    torch.testing.assert_close(out, ref, **TOLS[torch.float32])
+    exact = attention_float64(qkv, bias, grad, nh, rate, keep)[0]
+    kernel, twin = ((x.double() - exact).abs().max().item() for x in (out, ref))
+    record_property("float64_distance", {"kernel": kernel, "twin": twin})
+    # 3xTF32 leaves out small.small and the split's rest, 2^-22 of a
+    # product where fp32 rounds at 2^-24: at most 4x the twin's distance,
+    # plus one product's split error where the twin is exact (p = 1).
+    assert kernel <= 4.0 * twin + 2.0 ** -21 * exact.abs().max().item()
+
+
+def test_tf32x3_entry_point_refuses_what_it_does_not_take(libs):
+    """The 3xTF32 entry point refuses bf16, S > 80 and misaligned pointers
+    before any launch."""
+    fwd, _ = libs
+    qkv, bias, _ = _case(1, 81, 1, False, torch.float32)
+    out = torch.empty(1, 81, 64)
+    for s, code, offset, want in ((81, 0, 0, 1), (30, 1, 0, 1), (30, 0, 4, 716)):
+        assert fwd.attention_fwd_tf32x3(qkv.data_ptr() + offset, bias.data_ptr(),
+                                        None, out.data_ptr(), 1, s, 1, 64, code,
+                                        0, 0, 0, 1.0, 0, None) == want
+
+
+def test_tf32_split_rounds_to_nearest_ties_away(tmp_path_factory):
+    """mma.cuh's split_tf32 on the emulated cvt.rna: big is x rounded to
+    TF32, to nearest with ties away from zero, small the rest in TF32, both
+    with their low 13 bits 0, and big + small within 2^-22 of x; ties,
+    signs, the top of the range, infinities and NaN included."""
+    out = emulation_dir(tmp_path_factory)
+    _emulated_sources(out)
+    (out / "split.cc").write_text(
+        '#include "cuda_runtime.h"\n#include "mma.cuh"\n'
+        'extern "C" void split(const float* x, uint32_t* big, uint32_t* small, int n) {\n'
+        '  for (int i = 0; i < n; ++i) mma::split_tf32(x[i], big[i], small[i]);\n'
+        '}\n')
+    r = gxx(out, out / "split.cc", out / "libsplit.so")
+    assert r.returncode == 0, r.stderr[-4000:]
+    lib = ctypes.CDLL(str(out / "libsplit.so"))
+    rng = np.random.default_rng(0)
+    bits = np.concatenate([
+        rng.integers(0, 2 ** 32, 20000, dtype=np.uint64).astype(np.uint32),
+        # Ties (low 13 bits 0x1000) and their neighbours, both signs.
+        (rng.integers(0, 2 ** 19, 300, dtype=np.uint32) << 13) + np.uint32(0x1000),
+        (rng.integers(0, 2 ** 19, 300, dtype=np.uint32) << 13) + np.uint32(0x0fff),
+        np.array([0x7f7fffff, 0xff7fffff, 0x7f800000, 0xff800000, 0x7fc00000,
+                  0x00001000, 0x80001000, 0x00000fff, 0], np.uint32)])
+    x = bits.view(np.float32)
+    big = np.empty_like(bits)
+    small = np.empty_like(bits)
+    lib.split(ctypes.c_void_p(x.ctypes.data), ctypes.c_void_p(big.ctypes.data),
+              ctypes.c_void_p(small.ctypes.data), len(x))
+    nan = np.isnan(x)
+    assert np.isnan(big.view(np.float32)[nan]).all()
+    b, sm, xb = big[~nan], small[~nan], bits[~nan]
+    # Ties away from zero: the magnitude's bits plus half of the dropped ones.
+    want = ((xb.astype(np.uint64) + 0x1000) & 0xffffe000).astype(np.uint32)
+    np.testing.assert_array_equal(b, want)
+    assert not (b & 0x1fff).any() and not (sm & 0x1fff).any()
+    # Where x - big is a normal number (|x| >= 2^-100) and big finite.
+    xs = x[~nan].astype(np.float64)
+    normal = np.isfinite(b.view(np.float32)) & (np.abs(xs) >= 2.0 ** -100)
+    xn = xs[normal]
+    rest = xn - b.view(np.float32)[normal] - sm.view(np.float32)[normal]
+    assert len(xn) > 10000
+    assert (np.abs(rest) <= 2.0 ** -22 * np.abs(xn)).all()

@@ -18,6 +18,8 @@ from clip_lite_tpu.models import resnet as jresnet
 from clip_lite_torch import bridge
 from clip_lite_torch.models import bert as tbert
 from clip_lite_torch.models import resnet as tresnet
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -46,6 +46,8 @@ from clip_lite_torch.models.mpnet import (
 )
 from clip_lite_torch.ops.attention import attention_backward, fused_short_attention
 from test_torch_train import COMPONENTS, FLAGSHIP, TOL, TRAIN, jax_run, run_port
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 SMALL = dict(vocab_size=1000, hidden_size=128, num_heads=2,
              num_hidden_layers=2, intermediate_size=512, dropout_rate=0.0)

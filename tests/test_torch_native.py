@@ -75,6 +75,8 @@ from clip_lite_torch.data import native, pipeline
 from clip_lite_torch.data.device_cache import host_cache_key, load_host
 from clip_lite_torch.data.readers import ClRecWriter
 from clip_lite_torch.factories import PretrainingDatasetFactory
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 pytestmark = pytest.mark.skipif(
     not jnative.native_available(), reason="native library not built")

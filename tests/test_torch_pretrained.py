@@ -37,16 +37,9 @@ from clip_lite_torch.ops.layers import init_weights
 from clip_lite_torch.train import main, parser
 from test_torch_data_pipeline import write_corpus
 from torch_matrix import FLAGSHIP, seeded_variables
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 HIDDEN, LAYERS, VOCAB = 64, 2, 128
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _seeded(module, seed=0):

@@ -52,6 +52,7 @@ from test_torch_device_cache import CACHE, CROP as CACHE_CROP, B as CACHE_B
 from test_torch_device_cache import dataset  # noqa: F401  (fixture)
 from test_torch_image_ops import jax_aug_draws
 from test_torch_loss import inject_uniform
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")
@@ -67,16 +68,6 @@ def _threefry():
     test in the same process may have switched it)."""
     with jax.default_prng_impl("threefry2x32"):
         yield
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for the port's tiny models: as fast here as the
-    default, and it leaves the other cores to the suite's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- the loss ----------------------------------------------------------------

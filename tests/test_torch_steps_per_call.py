@@ -49,6 +49,8 @@ from test_torch_cli import _args, _ckpt_dir, _state, corpus  # noqa: F401
 from test_torch_train import B, FLAGSHIP, TRAIN, _batch, _inject_uniform
 from clip_lite_torch.train import main
 from clip_lite_torch.utils import msgpack_io
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 K, CALLS = 2, 2
 # zoo::resnet8 (64-d features) and one text layer, where the JAX package's

@@ -48,16 +48,9 @@ from test_torch_checkpointing import _assert_trees_identical, _state_dict_of
 from test_torch_data_pipeline import LEVEL, WORDS
 from test_torch_vgg import GLOVE_DIM, GLOVE_VOCAB, small_glove
 from torch_matrix import FLAGSHIP, rel, seeded_variables
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 L, N = 12, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _captions(rng, n=5):

@@ -33,22 +33,13 @@ from clip_lite_torch.train import main, parser
 from clip_lite_torch.utils import trace as T
 from test_torch_cli import TINY, _args, _ckpt_dir
 from test_torch_cli import corpus  # noqa: F401  (fixture)
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")
 B, L, CROP, LAYERS = 4, 8, 32, 2
 COMPONENT_RANGES = ("train_step", "device_preprocess", "image_encoder",
                     "text_encoder", "loss", "backward", "optimizer")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for the tiny models: as fast here as the
-    default, and it leaves the other cores to the suite's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- a traced step on the CPU --------------------------------------------------

@@ -62,6 +62,8 @@ from clip_lite_torch.utils.checkpointing import CheckpointManager
 from clip_lite_torch.utils.loggers import MetricsWriter
 from clip_lite_torch.utils.timers import Timer, device_mem_usage_mb
 from test_torch_image_ops import jax_aug_draws
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "configs", "fs_bs1024_ni250k.yaml")
@@ -469,7 +471,6 @@ def test_unported_options_raise(reference, caplog):
     with pytest.raises(KeyError, match="neg_image"):
         make_train_step(cfg)(state, batch)
     assert device_mem_usage_mb("cpu") == 0
-
 
 
 if __name__ == "__main__":

@@ -35,17 +35,10 @@ from torch_matrix import (
     rel,
     seeded_variables,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 B = 2
 _CLASSIFIER: dict = {}  # the seeded fc1-fc3, shared by every case
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("size,shape", [((13, 11), (7, 7)), ((2, 2), (7, 7)),

@@ -37,17 +37,10 @@ from torch_matrix import (
     rel,
     seeded_variables,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 FAMILIES = ["resnet8", "ResNet50", "wrn_16_1", "vgg8", "MobileNetV2",
             "ShuffleV1", "ShuffleV2"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _images(b=2, size=32, c=3, seed=0):
