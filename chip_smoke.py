@@ -331,25 +331,35 @@ caught:
    finite) and the launches, each kernel's count checked exactly and every
    K1/K2 launch on its route.
 14. The CLIP comparison, ``python -m clip_lite_torch.retrieval
-   --weight-init clip`` as it runs (retrieval's main), on a seeded CLIP
-   directory at openai/clip-vit-base-patch32's published widths (vision
-   768 wide, 12 layers, 12 heads, patch 32 at 224 px; text 512 wide, 12
-   layers, 8 heads, 77 positions, vocab 49,408; projection 512; fp32 Flax
-   msgpack written by the port's writer, a synthetic byte-level vocabulary
-   and merges) over a COCO tree of CLIP_ITEMS (256) seeded JPEGs with one
-   caption each, batch 128, the counts set to 0 just before and read just
-   after.  Checks: K1 launched 12 x 2 times at S = 50 (vision, zero key
-   bias) and 12 x 2 at S = 77 (text, the causal and padding mask as the
-   full bias), all 48 on the 3xTF32 route (fp32); finite unit-norm (256,
-   512) embeddings; recalls in percent; the same model through the plain
-   attention on the same inputs within CLIP_TOL (1e-5) of them.  Then
-   images/s and captions/s of the towers alone, and K1 at both shapes
-   against its plain version (and within four times its distance from
-   float64) with its times beside the CUDA-core kernel's in turns, the
-   plain version's, ``scaled_dot_product_attention``'s and the bound.
+   --weight-init clip`` as it runs (retrieval's main), over a COCO tree of
+   CLIP_ITEMS (256) seeded JPEGs with one caption each, batch 128, on two
+   seeded CLIP directories (fp32 Flax msgpack written by the port's
+   writer, a synthetic byte-level vocabulary and merges), each with the
+   counts set to 0 just before and read just after: (a)
+   openai/clip-vit-base-patch32's published widths (vision 768 wide, 12
+   layers, 12 heads, patch 32 at 224 px; text 512 wide, 12 layers, 8
+   heads, 77 positions, vocab 49,408; projection 512): K1 12 x 2 times at
+   S = 50 (vision, zero key bias) and 12 x 2 at S = 77 (text, the causal
+   and padding mask as the full bias), all on the 3xTF32 route; (b)
+   openai/clip-vit-large-patch14's (vision 1024 wide, intermediate 4096,
+   24 layers, 16 heads, patch 14 at 224 px; text 768 wide, intermediate
+   3072, 12 layers, 12 heads; projection 768; 1.7 GB of weights): K1 24 x
+   2 times at S = 257 on the key-tiled 3xTF32 route and 12 x 2 at S = 77
+   on the 3xTF32 route.  Each: finite unit-norm embeddings; recalls in
+   percent; the same model through the plain attention on the same
+   inputs within CLIP_TOL (1e-5) of them; images/s and captions/s of the
+   towers alone.  Then K1 against its plain version (and within four
+   times its distance from float64) with its times, the plain version's,
+   ``scaled_dot_product_attention``'s and the bound: on the 3xTF32 route
+   at ViT-B/32's two shapes beside the CUDA-core kernel in turns; on the
+   key-tiled route at (128, 197, 2304) (ViT-B/16, 12 heads; the
+   CUDA-core kernel beside it in turns), (128, 257, 3072) (ViT-L/14, 16
+   heads) and (128, 577, 3072) (ViT-L/14 at 336 px), each with a zero
+   key bias.
 15. One JSON line listing every kernel (K3's standalone and fused entry
    points each with their own launches, fp32 K1's 3xTF32 route with its
-   rows at the CLIP towers' shapes and the flagship's S = 30,
+   rows at the CLIP towers' shapes and the flagship's S = 30, its
+   key-tiled route with its rows at the three vision shapes,
    crop_resize_flip_u8, which replaces the JAX core's host C++ and no TPU
    kernel); then the device line last.
 """
@@ -685,7 +695,8 @@ def check_routes(cfg, seq: int, launches: dict, training: bool = False) -> None:
             continue
         route = attention_route(compute_dtype(cfg), seq, kernel, training)
         for other, key in (("tensor_core", f"{name}_tc"),
-                           ("tf32x3", f"{name}_tf32x3")):
+                           ("tf32x3", f"{name}_tf32x3"),
+                           ("tf32x3_tiled", f"{name}_tf32x3_tiled")):
             if key not in launches:
                 if route == other:
                     raise AssertionError(f"{name}: the {other} route's "
@@ -730,13 +741,16 @@ def phase_main_path(overrides=(), name: str = "main path") -> dict:
     fused_short_attention.launches = 0
     fused_short_attention.tc_launches = 0
     fused_short_attention.tf32x3_launches = 0
+    fused_short_attention.tf32x3_tiled_launches = 0
     t0 = time.perf_counter()
     recalls, img_emb, txt_emb = score_retrieval(bundle, images, texts, tok,
                                                 txt2img, img2txt)
     wall = time.perf_counter() - t0
     launches = {"attention_fwd": fused_short_attention.launches,
                 "attention_fwd_tc": fused_short_attention.tc_launches,
-                "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches}
+                "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches,
+                "attention_fwd_tf32x3_tiled":
+                    fused_short_attention.tf32x3_tiled_launches}
     log(f"{name}: score_retrieval of {N_ITEMS} images + {N_ITEMS} captions "
         f"in {wall} s; launches {launches}; recalls "
         f"{json.dumps({k: float(v) for k, v in recalls.items()})}")
@@ -1103,6 +1117,7 @@ def phase_training(overrides=(), name: str = "training") -> dict:
     torch.cuda.reset_peak_memory_stats()
     fused_short_attention.launches = fused_short_attention.tc_launches = 0
     fused_short_attention.tf32x3_launches = 0
+    fused_short_attention.tf32x3_tiled_launches = 0
     attention_backward.launches = attention_backward.tc_launches = 0
     t0 = time.perf_counter()
     state = train_loop(state, checked_step, iter(batches), TRAIN_STEPS,
@@ -1114,6 +1129,8 @@ def phase_training(overrides=(), name: str = "training") -> dict:
                 "attention_bwd": attention_backward.launches}
     routes = {"attention_fwd_tc": fused_short_attention.tc_launches,
               "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches,
+              "attention_fwd_tf32x3_tiled":
+                  fused_short_attention.tf32x3_tiled_launches,
               "attention_bwd_tc": attention_backward.tc_launches}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for i, rec in enumerate(steps):
@@ -1256,6 +1273,8 @@ def attention_counts() -> dict:
     return {"attention_fwd": fused_short_attention.launches,
             "attention_fwd_tc": fused_short_attention.tc_launches,
             "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches,
+            "attention_fwd_tf32x3_tiled":
+                fused_short_attention.tf32x3_tiled_launches,
             "attention_bwd": attention_backward.launches,
             "attention_bwd_tc": attention_backward.tc_launches}
 
@@ -1384,6 +1403,11 @@ def analyze_trace(name: str, path: str, launches: dict, n_steps: int,
 
 
 TRACE_WARM, TRACE_STEPS = 3, 5
+# Seconds phase 10a waits after record_trace before its traced steps: the
+# card's tracer has dropped the first kernels launched right after a
+# record began (the device cache's sampling kernels, which open a step),
+# their launches kept.
+TRACE_SETTLE_S = 0.05
 
 
 def phase_trace(float_step: dict, overrides=(), name: str = "trace") -> dict:
@@ -1770,6 +1794,7 @@ def phase_uint8_training(float_step: dict) -> dict:
     normalize_u8.launches = augment_normalize_u8.launches = 0
     fused_short_attention.launches = fused_short_attention.tc_launches = 0
     fused_short_attention.tf32x3_launches = 0
+    fused_short_attention.tf32x3_tiled_launches = 0
     attention_backward.launches = attention_backward.tc_launches = 0
     t0 = time.perf_counter()
     state = train_loop(state, checked_step, iter(cache), TRAIN_STEPS,
@@ -1783,6 +1808,8 @@ def phase_uint8_training(float_step: dict) -> dict:
                 "attention_bwd": attention_backward.launches}
     routes = {"attention_fwd_tc": fused_short_attention.tc_launches,
               "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches,
+              "attention_fwd_tf32x3_tiled":
+                  fused_short_attention.tf32x3_tiled_launches,
               "attention_bwd_tc": attention_backward.tc_launches}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     hook.remove()
@@ -1936,7 +1963,8 @@ def phase_ssl(float_step: dict, flagship_trace: dict) -> dict:
     out = dict(launches=launches, step_s=median, pairs_per_s=BATCH / median,
                enqueue_s=enqueue, peak_mib=peak_mb)
 
-    # TRACE_STEPS more steps under the profiler, after one in its warm-up.
+    # TRACE_STEPS more steps under the profiler, after one in its warm-up
+    # and, once it records, a wait of TRACE_SETTLE_S.
     batches = iter(cache)
 
     def run(n=TRACE_STEPS):
@@ -1950,9 +1978,13 @@ def phase_ssl(float_step: dict, flagship_trace: dict) -> dict:
         for c in counters.values():
             c.launches = 0
 
+    def settled_run():
+        time.sleep(TRACE_SETTLE_S)
+        run()
+
     outdir = tempfile.mkdtemp(prefix="chip_smoke_ssl_trace_")
     try:
-        path = capture_trace(run, outdir, "cuda", warm_up)
+        path = capture_trace(settled_run, outdir, "cuda", warm_up)
         traced = analyze_trace("ssl", path, {k: c.launches for k, c in
                                              counters.items()}, TRACE_STEPS)
     finally:
@@ -2222,6 +2254,7 @@ def phase_data_cli(float_step: dict) -> dict:
                 k.launches = 0
             fused_short_attention.tc_launches = 0
             fused_short_attention.tf32x3_launches = 0
+            fused_short_attention.tf32x3_tiled_launches = 0
             attention_backward.tc_launches = 0
             t0 = time.perf_counter()
             state = cli.main(a)
@@ -2231,6 +2264,7 @@ def phase_data_cli(float_step: dict) -> dict:
             record["launches"].update(
                 attention_fwd_tc=fused_short_attention.tc_launches,
                 attention_fwd_tf32x3=fused_short_attention.tf32x3_launches,
+                attention_fwd_tf32x3_tiled=fused_short_attention.tf32x3_tiled_launches,
                 attention_bwd_tc=attention_backward.tc_launches)
             cli.make_train_step = real_make_step
             metrics = [json.loads(line) for line in open(os.path.join(
@@ -2695,13 +2729,16 @@ def phase_eval_cli() -> dict:
             fused_short_attention.launches = 0
             fused_short_attention.tc_launches = 0
             fused_short_attention.tf32x3_launches = 0
+            fused_short_attention.tf32x3_tiled_launches = 0
             t0 = time.perf_counter()
             result = module.main(args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {"attention_fwd": fused_short_attention.launches,
                         "attention_fwd_tc": fused_short_attention.tc_launches,
-                        "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches}
+                        "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches,
+                        "attention_fwd_tf32x3_tiled":
+                            fused_short_attention.tf32x3_tiled_launches}
             out["launches"][name], out["seconds"][name] = \
                 launches["attention_fwd"], wall
             log(f"eval ({name}): {json.dumps(result)} in {wall} s; launches "
@@ -3393,6 +3430,7 @@ def phase_native(float_step: dict, host_step: float) -> dict:
                 k.launches = 0
             fused_short_attention.tc_launches = 0
             fused_short_attention.tf32x3_launches = 0
+            fused_short_attention.tf32x3_tiled_launches = 0
             attention_backward.tc_launches = 0
             t0 = time.perf_counter()
             cli.main(a)
@@ -3402,6 +3440,7 @@ def phase_native(float_step: dict, host_step: float) -> dict:
             record["launches"].update(
                 attention_fwd_tc=fused_short_attention.tc_launches,
                 attention_fwd_tf32x3=fused_short_attention.tf32x3_launches,
+                attention_fwd_tf32x3_tiled=fused_short_attention.tf32x3_tiled_launches,
                 attention_bwd_tc=attention_backward.tc_launches)
             record["window"] = dict(window)
             cli.make_train_step = real_make_step
@@ -3652,12 +3691,14 @@ def phase_quality(float_step: dict) -> dict:
             k.launches = 0
         fused_short_attention.tc_launches = 0
         fused_short_attention.tf32x3_launches = 0
+        fused_short_attention.tf32x3_tiled_launches = 0
         attention_backward.tc_launches = 0
 
     def read() -> dict:
         got = {n: k.launches for n, k in counters.items()}
         got.update(attention_fwd_tc=fused_short_attention.tc_launches,
                    attention_fwd_tf32x3=fused_short_attention.tf32x3_launches,
+                   attention_fwd_tf32x3_tiled=fused_short_attention.tf32x3_tiled_launches,
                    attention_bwd_tc=attention_backward.tc_launches)
         return got
 
@@ -4628,6 +4669,7 @@ def launch_counts() -> dict:
     counts = {k: c.launches for k, c in kernel_counters().items()}
     counts.update(attention_fwd_tc=fused_short_attention.tc_launches,
                   attention_fwd_tf32x3=fused_short_attention.tf32x3_launches,
+                  attention_fwd_tf32x3_tiled=fused_short_attention.tf32x3_tiled_launches,
                   attention_bwd_tc=attention_backward.tc_launches)
     return counts
 
@@ -4640,6 +4682,7 @@ def zero_launch_counts() -> None:
         c.launches = 0
     fused_short_attention.tc_launches = attention_backward.tc_launches = 0
     fused_short_attention.tf32x3_launches = 0
+    fused_short_attention.tf32x3_tiled_launches = 0
 
 
 def matrix_check(name: str, cfg, launches: dict, steps: int, attention: bool,
@@ -4660,6 +4703,7 @@ def matrix_check(name: str, cfg, launches: dict, steps: int, attention: bool,
         "attention_bwd": launches["K2 attention_bwd"],
         "attention_fwd_tc": launches["attention_fwd_tc"],
         "attention_fwd_tf32x3": launches["attention_fwd_tf32x3"],
+        "attention_fwd_tf32x3_tiled": launches["attention_fwd_tf32x3_tiled"],
         "attention_bwd_tc": launches["attention_bwd_tc"]})
 
 
@@ -5055,19 +5099,29 @@ def phase_matrix() -> dict:
 
 CLIP_ITEMS = 256  # phase 14's images and captions, encoded at BATCH
 CLIP_TOL = 1e-5  # the embeddings through K1 against the plain attention
+# openai/clip-vit-large-patch14's config.json, where it differs from the
+# defaults of models/clip.py (clip-vit-base-patch32's widths).
+VIT_L14 = {"projection_dim": 768,
+           "text_config": dict(hidden_size=768, intermediate_size=3072,
+                               num_hidden_layers=12, num_attention_heads=12),
+           "vision_config": dict(hidden_size=1024, intermediate_size=4096,
+                                 num_hidden_layers=24, num_attention_heads=16,
+                                 patch_size=14)}
+TF32_PEAK_OPS = 495e12  # dense, per second (the H100 SXM data sheet)
 
 
-def write_clip_dir(path: str, rng: np.random.Generator) -> dict:
-    """A seeded CLIP directory at openai/clip-vit-base-patch32's published
-    widths, in what transformers' FlaxCLIPModel and CLIPTokenizerFast
-    read: ``config.json`` (the defaults: vision 768 wide, 12 layers, 12
-    heads, patch 32 at 224 px; text 512 wide, 12 layers, 8 heads, 77
-    positions, vocab 49,408; projection 512), ``flax_model.msgpack``
-    (N(0, 0.02) weights in Flax's layout, written by the port's msgpack
-    writer), a synthetic byte-level ``vocab.json`` and ``merges.txt``
-    (the 512 byte symbols, 48,894 merges of letter runs, then the start
-    and end tokens at 49,406 and 49,407) and ``special_tokens_map.json``.
-    Returns the directory's config."""
+def write_clip_dir(path: str, rng: np.random.Generator, config=None) -> dict:
+    """A seeded CLIP directory in what transformers' FlaxCLIPModel and
+    CLIPTokenizerFast read: ``config.json`` (``config``'s
+    ``projection_dim``, ``text_config`` and ``vision_config`` over the
+    defaults, openai/clip-vit-base-patch32's published widths: vision 768
+    wide, 12 layers, 12 heads, patch 32 at 224 px; text 512 wide, 12
+    layers, 8 heads, 77 positions, vocab 49,408; projection 512),
+    ``flax_model.msgpack`` (N(0, 0.02) weights in Flax's layout, written by
+    the port's msgpack writer), a synthetic byte-level ``vocab.json`` and
+    ``merges.txt`` (the 512 byte symbols, 48,894 merges of letter runs,
+    then the start and end tokens at 49,406 and 49,407) and
+    ``special_tokens_map.json``.  Returns the directory's config."""
     import os
 
     from clip_lite_torch.data.tokenizers import bytes_to_unicode
@@ -5075,11 +5129,15 @@ def write_clip_dir(path: str, rng: np.random.Generator) -> dict:
         PROJECTION_DIM, TEXT_DEFAULTS, VISION_DEFAULTS)
     from clip_lite_torch.utils import msgpack_io
 
-    text, vision = dict(TEXT_DEFAULTS), dict(VISION_DEFAULTS)
+    config = config or {}
+    text = {**TEXT_DEFAULTS, **config.get("text_config", {})}
+    vision = {**VISION_DEFAULTS, **config.get("vision_config", {})}
+    proj = config.get("projection_dim", PROJECTION_DIM)
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({"model_type": "clip", "projection_dim": PROJECTION_DIM,
-                   "text_config": {}, "vision_config": {}}, f)
+        json.dump({"model_type": "clip", "projection_dim": proj,
+                   "text_config": config.get("text_config", {}),
+                   "vision_config": config.get("vision_config", {})}, f)
 
     def w(*shape, scale=0.02):
         return (rng.standard_normal(shape, dtype=np.float32) * scale)
@@ -5117,8 +5175,8 @@ def write_clip_dir(path: str, rng: np.random.Generator) -> dict:
                            "position_embedding": {"embedding": w(n_pos, dv)}},
             "pre_layrnorm": norm(dv), "encoder": encoder(vision),
             "post_layernorm": norm(dv)},
-        "text_projection": dense(dt, PROJECTION_DIM, bias=False),
-        "visual_projection": dense(dv, PROJECTION_DIM, bias=False),
+        "text_projection": dense(dt, proj, bias=False),
+        "visual_projection": dense(dv, proj, bias=False),
         "logit_scale": np.asarray(2.6592, np.float32)}
     msgpack_io.write(os.path.join(path, "flax_model.msgpack"), params)
 
@@ -5147,7 +5205,7 @@ def write_clip_dir(path: str, rng: np.random.Generator) -> dict:
         json.dump({"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
                    "pad_token": "<|endoftext|>",
                    "unk_token": "<|endoftext|>"}, f)
-    return dict(text=text, vision=vision, n_params=sum(
+    return dict(text=text, vision=vision, projection_dim=proj, n_params=sum(
         x.size for x in _leaves(params)))
 
 
@@ -5192,32 +5250,60 @@ def write_clip_coco(root: str, rng: np.random.Generator) -> str:
     return coco
 
 
+# K1's counters by route, as phase 14 reads them.
+K1_ROUTE_COUNTERS = {"all": "launches", "tensor_core": "tc_launches",
+                     "tf32x3": "tf32x3_launches",
+                     "tf32x3_tiled": "tf32x3_tiled_launches"}
+
+
+def k1_route_counts() -> dict:
+    from clip_lite_torch.ops.attention import fused_short_attention
+
+    return {k: getattr(fused_short_attention, c)
+            for k, c in K1_ROUTE_COUNTERS.items()}
+
+
+def float64_forward(qkv: torch.Tensor, bias: torch.Tensor, nh: int,
+                    chunk: int = 8) -> torch.Tensor:
+    """K1's function in float64 (``attention_float64``'s output), a chunk
+    of the batch at a time to bound its memory."""
+    from clip_lite_torch.ops.attention import attention_float64
+
+    return torch.cat([attention_float64(
+        qkv[i:i + chunk], bias[i:i + chunk],
+        qkv.new_zeros(qkv[i:i + chunk].shape[:2] + (qkv.shape[2] // 3,)),
+        nh)[0] for i in range(0, qkv.shape[0], chunk)])
+
+
 def clip_k1_row(name: str, qkv: torch.Tensor, bias: torch.Tensor,
-                nh: int) -> dict:
-    """K1 at one of the CLIP towers' shapes, fp32, on its route (3xTF32):
-    against its plain version (TOLS) and within four times the plain
-    version's distance from the float64 evaluation plus 2^-21 of the
-    output's size (both distances kept); its times as a caller pays them
-    and on the device alone, each beside the CUDA-core kernel's on the
-    same inputs in turns (A B B A); the host's enqueue, the plain version's and
+                nh: int, route: str = "tf32x3", cuda_core: bool = True) -> dict:
+    """K1 at one of the CLIP towers' shapes, fp32, on ``route`` (3xTF32,
+    or the key-tiled 3xTF32 above S = 80): against its plain version
+    (TOLS) and within four times the plain version's distance from the
+    float64 evaluation plus 2^-21 of the output's size (both distances
+    kept); its times as a caller pays them and on the device alone, with
+    ``cuda_core`` each beside the CUDA-core kernel's on the same inputs in
+    turns (A B B A); the host's enqueue, the plain version's and
     ``scaled_dot_product_attention``'s times (with the full bias as its
-    float mask, or no mask for the zero key bias), and the bound."""
+    float mask, or no mask for the zero key bias), and the bound: bytes
+    at the memory rate against the products, on the 3xTF32 route at
+    fp32's CUDA-core peak, on the key-tiled one as three
+    TF32 products at the TF32 peak."""
     from clip_lite_torch.ops.attention import (
-        _launch_fwd, attention_float64, attention_forward, attention_reference,
-        fused_short_attention)
+        _launch_fwd, attention_forward, attention_reference)
 
     b, s, three_h = qkv.shape
     h, hd = three_h // 3, 64
     full = bias.ndim == 4
-    before = fused_short_attention.tf32x3_launches
+    before = k1_route_counts()[route]
     out = attention_forward(qkv, bias, nh)
-    if fused_short_attention.tf32x3_launches != before + 1:
-        raise AssertionError(f"K1 {name}: not on the 3xTF32 route")
+    if k1_route_counts()[route] != before + 1:
+        raise AssertionError(f"K1 {name}: not on the {route} route")
     ref = attention_reference(qkv, bias, nh)
     err = (out - ref).abs().max().item()
     if not err <= TOLS[torch.float32]["atol"]:
         raise AssertionError(f"K1 {name}: max|kernel-plain| {err}")
-    exact = attention_float64(qkv, bias, torch.zeros_like(out), nh)[0]
+    exact = float64_forward(qkv, bias, nh)
     f64 = {k: (x.double() - exact).abs().max().item()
            for k, x in (("kernel", out), ("plain", ref))}
     floor = 2.0 ** -21 * exact.abs().max().item()
@@ -5229,7 +5315,7 @@ def clip_k1_row(name: str, qkv: torch.Tensor, bias: torch.Tensor,
     def fwd(x, m):
         return attention_forward(x, m, nh)
 
-    def cuda_core(x, m):
+    def cuda_core_kernel(x, m):
         return _launch_fwd(x, m, nh, 0.0, 0, None, "cuda_core")
 
     def library(x, m):
@@ -5237,179 +5323,246 @@ def clip_k1_row(name: str, qkv: torch.Tensor, bias: torch.Tensor,
         return F.scaled_dot_product_attention(q, k, v,
                                               attn_mask=m if full else None)
 
-    turns = (fwd, cuda_core, cuda_core, fwd)
+    turns = (fwd, cuda_core_kernel, cuda_core_kernel, fwd) if cuda_core \
+        else (fwd, fwd)
     t = [time_ms(f, copies) for f in turns]
     d = [device_ms(f, copies) for f in turns]
-    row = dict(shape=[b, s, three_h], heads=nh,
+    n_bytes = qkv.nbytes + bias.nbytes + b * s * h * 4
+    n_ops = 4 * b * nh * s * s * hd  # two products, 2 operations a MAC
+    if route == "tf32x3":
+        least = bound(n_bytes, n_ops, torch.float32)
+    else:
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 3 * n_ops / TF32_PEAK_OPS
+        least = dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes_ms=1e3 * t_bytes, operations_ms=1e3 * t_ops)
+    row = dict(shape=[b, s, three_h], heads=nh, k1_route=route,
                bias="full" if full else "key", max_abs_err=err,
-               float64_err=f64, ms=(t[0] + t[3]) / 2,
-               ms_cuda_core=(t[1] + t[2]) / 2, ms_device=(d[0] + d[3]) / 2,
-               ms_cuda_core_device=(d[1] + d[2]) / 2,
+               float64_err=f64, ms=(t[0] + t[-1]) / 2,
+               ms_device=(d[0] + d[-1]) / 2,
                host_ms=enqueue_ms(fwd, copies),
                plain_ms=time_ms(lambda x, m: attention_reference(x, m, nh),
                                 copies),
                library_ms=time_ms(library, copies),
                library_ms_device=device_ms(library, copies),
-               **bound(qkv.nbytes + bias.nbytes + b * s * h * 4,
-                       4 * b * nh * s * s * hd, torch.float32))
+               bytes=n_bytes, fp32_operations=n_ops, **least)
+    if cuda_core:
+        row.update(ms_cuda_core=(t[1] + t[2]) / 2,
+                   ms_cuda_core_device=(d[1] + d[2]) / 2)
     log(f"K1 {name} fp32 at qkv {tuple(qkv.shape)}, {nh} heads, "
         f"{row['bias']} bias: {json.dumps(row)}")
     del copies
     return row
 
 
-def phase_clip() -> dict:
-    """Phase 14: ``python -m clip_lite_torch.retrieval --weight-init clip``
-    on a seeded CLIP directory at ViT-B/32's widths over a COCO tree of
-    CLIP_ITEMS images and captions, batch BATCH, the counts set to 0 just
-    before and read just after; then the towers alone and K1 at their
-    shapes."""
+def clip_leg(name: str, root: str, clip_dir: str, coco: str, cfg: dict,
+             routes: dict) -> dict:
+    """One CLIP directory through ``python -m clip_lite_torch.retrieval
+    --weight-init clip`` as the CLI runs it, batch BATCH, the counts set
+    to 0 just before and read just after; K1 counted by encoder and route
+    (``routes``: the route of each tower's every layer and batch); finite
+    unit-norm embeddings; the same model through the plain attention on
+    the same inputs within CLIP_TOL; then the towers alone.  Returns the
+    launches, recalls, errors, rates and the bundle's tokens."""
     import os
-    import shutil
-    import tempfile
 
     from clip_lite_torch import retrieval
-    from clip_lite_torch.models.clip import ClipLayer, text_bias
+    from clip_lite_torch.models.clip import ClipLayer
     from clip_lite_torch.ops.attention import fused_short_attention
 
-    phase_t0 = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="chip_smoke_clip_")
+    t_leg = time.perf_counter()
     bundle_cls = retrieval.ClipComparisonBundle
     real = {n: getattr(bundle_cls, n)
             for n in ("encode_texts", "encode_image_batches")}
     seen = {}
 
-    def recording(name):
+    def recording(encoder):
         def wrapped(self, data, *args):
             torch.cuda.synchronize()
-            before, t0 = fused_short_attention.launches, time.perf_counter()
-            if name == "encode_image_batches":
+            before, t0 = k1_route_counts(), time.perf_counter()
+            if encoder == "encode_image_batches":
                 data = list(data)  # the loader's batches, kept for the twin
-            out = real[name](self, data, *args)
+            out = real[encoder](self, data, *args)
             torch.cuda.synchronize()
-            seen[name] = dict(out=out, data=data, bundle=self,
-                              seconds=time.perf_counter() - t0,
-                              launches=fused_short_attention.launches - before)
+            seen[encoder] = dict(
+                out=out, data=data, bundle=self,
+                seconds=time.perf_counter() - t0,
+                launches={k: n - before[k] for k, n in k1_route_counts().items()})
             return out
         return wrapped
 
     try:
-        rng = np.random.default_rng(14)
-        t0 = time.perf_counter()
-        clip_dir = os.path.join(root, "clip-vit-base-patch32")
-        cfg = write_clip_dir(clip_dir, rng)
-        coco = write_clip_coco(root, rng)
-        log(f"clip: a seeded CLIP directory ({cfg['n_params']} parameters, "
-            f"{os.path.getsize(os.path.join(clip_dir, 'flax_model.msgpack'))} "
-            f"bytes of Flax msgpack) and a COCO tree of {CLIP_ITEMS} JPEGs "
-            f"written in {time.perf_counter() - t0} s")
         for n in real:
             setattr(bundle_cls, n, recording(n))
         args = retrieval.parser.parse_args([str(a) for a in (
-            "--serialization-dir", os.path.join(root, "out"),
+            "--serialization-dir", os.path.join(root, f"out-{name}"),
             "--cpu-workers", os.cpu_count() or 1, "--weight-init", "clip",
             "--checkpoint-path", clip_dir, "--batch-size", BATCH,
             "--config-override", "DATA.ROOT", coco)])
-        fused_short_attention.launches = fused_short_attention.tc_launches = 0
-        fused_short_attention.tf32x3_launches = 0
+        for c in K1_ROUTE_COUNTERS.values():
+            setattr(fused_short_attention, c, 0)
         t0 = time.perf_counter()
         recalls = retrieval.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"attention_fwd": fused_short_attention.launches,
-                    "attention_fwd_tc": fused_short_attention.tc_launches,
-                    "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches}
+        launches = k1_route_counts()
     finally:
         for n, fn in real.items():
             setattr(bundle_cls, n, fn)
+    text, image = seen["encode_texts"], seen["encode_image_batches"]
+    batches = math.ceil(CLIP_ITEMS / BATCH)
+    by_encoder = {"text": text["launches"], "vision": image["launches"]}
+    log(f"clip ({name}): the CLI in {wall} s: {json.dumps(recalls)}; K1 "
+        f"launches by route {launches}, by encoder {by_encoder}; encodes (with "
+        f"the loader's JPEG decode for the images) {text['seconds']} s and "
+        f"{image['seconds']} s")
+    want = {}
+    for tower, (route, seq) in routes.items():
+        n = cfg[tower]["num_hidden_layers"] * batches
+        want[tower] = dict(dict.fromkeys(K1_ROUTE_COUNTERS, 0),
+                           **{"all": n, route: n})
+    total = {k: want["text"][k] + want["vision"][k] for k in K1_ROUTE_COUNTERS}
+    if by_encoder != want or launches != total:
+        raise AssertionError(
+            f"clip ({name}): K1 launches {launches}, by encoder {by_encoder}; "
+            f"expected {want} (routes and lengths {routes})")
+    dim = cfg["projection_dim"]
+    for tower, emb in (("text", text["out"]), ("image", image["out"])):
+        norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1).max())
+        if emb.shape != (CLIP_ITEMS, dim) or not np.isfinite(emb).all() \
+                or norm_err > 1e-5:
+            raise AssertionError(f"clip ({name}) {tower} embeddings "
+                                 f"{emb.shape}, norms off 1 by {norm_err}")
+    if not all(0.0 <= v <= 100.0 for v in recalls.values()):
+        raise AssertionError(f"clip ({name}) recalls {recalls}")
+
+    # The same model through the plain attention, on the same inputs.
+    bundle = text["bundle"]
+    layers = [m for m in bundle.model.modules() if isinstance(m, ClipLayer)]
+    for layer in layers:
+        layer.fused_attention = "false"
+    plain = {"text": bundle.encode_texts(text["data"]),
+             "image": bundle.encode_image_batches(image["data"])}
+    for layer in layers:
+        layer.fused_attention = "auto"
+    errors = {k: float(np.abs(plain[k] - seen[n]["out"]).max())
+              for k, n in (("text", "encode_texts"),
+                           ("image", "encode_image_batches"))}
+    log(f"clip ({name}): max |K1 - plain| over the unit-norm embeddings "
+        f"{errors} (tol {CLIP_TOL})")
+    if max(errors.values()) > CLIP_TOL:
+        raise AssertionError(f"clip ({name}) embeddings: {errors}")
+
+    # The towers alone: images on the card, captions tokenized.
+    model = bundle.model
+    images = torch.cat([torch.as_tensor(b["image"]) for b in image["data"]]
+                       ).to("cuda", torch.float32)
+    enc = bundle.tokenizer(text["data"])
+    ids = torch.from_numpy(enc["input_ids"]).cuda()
+    mask = torch.from_numpy(enc["attention_mask"]).cuda()
+    rates = {}
+    with torch.no_grad():
+        for rate, fn in (
+                ("images_per_s", lambda i: model.get_image_features(
+                    images[i:i + BATCH])),
+                ("captions_per_s", lambda i: model.get_text_features(
+                    ids[i:i + BATCH], mask[i:i + BATCH]))):
+            fn(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                for i in range(0, CLIP_ITEMS, BATCH):
+                    fn(i)
+            torch.cuda.synchronize()
+            rates[rate] = 3 * CLIP_ITEMS / (time.perf_counter() - t0)
+    log(f"clip ({name}): the towers alone at batch {BATCH}, fp32: {rates}; "
+        f"the leg in {time.perf_counter() - t_leg} s")
+    out = dict(launches=launches, by_encoder=by_encoder, recalls=recalls,
+               errors=errors, rates=rates, mask=mask[:BATCH].clone())
+    del seen, text, image, bundle, model, images, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_clip() -> dict:
+    """Phase 14: ``python -m clip_lite_torch.retrieval --weight-init clip``
+    over a COCO tree of CLIP_ITEMS images and captions, batch BATCH, on two
+    seeded CLIP directories: ViT-B/32's widths (K1 on the 3xTF32 route at
+    S = 50 and 77), then ViT-L/14's (the key-tiled route at S = 257 in
+    the vision tower, the 3xTF32 route at 77 in the text tower); then K1
+    at the towers' shapes, and on the key-tiled route at ViT-B/16's,
+    ViT-L/14's and ViT-L/14-336's vision shapes."""
+    import os
+    import shutil
+    import tempfile
+
+    from clip_lite_torch.models.clip import text_bias
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_clip_")
+    legs, rows = {}, {}
     try:
-        text, image = seen["encode_texts"], seen["encode_image_batches"]
-        batches = math.ceil(CLIP_ITEMS / BATCH)
-        by_shape = {"S=77 (text)": text["launches"],
-                    "S=50 (vision)": image["launches"]}
-        log(f"clip: the CLI in {wall} s: {json.dumps(recalls)}; launches "
-            f"{launches}, by shape {by_shape}; encodes (with the loader's "
-            f"JPEG decode for the images) {text['seconds']} s and "
-            f"{image['seconds']} s")
-        want = {"S=77 (text)": cfg["text"]["num_hidden_layers"] * batches,
-                "S=50 (vision)": cfg["vision"]["num_hidden_layers"] * batches}
-        n_k1 = sum(want.values())
-        if by_shape != want or launches != {
-                "attention_fwd": n_k1, "attention_fwd_tc": 0,
-                "attention_fwd_tf32x3": n_k1}:
-            raise AssertionError(f"K1 launches {launches}, by shape "
-                                 f"{by_shape}, expected {want}, all on the "
-                                 "3xTF32 route (fp32)")
-        for name, emb in (("text", text["out"]), ("image", image["out"])):
-            norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1).max())
-            if emb.shape != (CLIP_ITEMS, 512) or not np.isfinite(emb).all() \
-                    or norm_err > 1e-5:
-                raise AssertionError(f"clip {name} embeddings {emb.shape}, "
-                                     f"norms off 1 by {norm_err}")
-        if not all(0.0 <= v <= 100.0 for v in recalls.values()):
-            raise AssertionError(f"recalls {recalls}")
-
-        # The same model through the plain attention, on the same inputs.
-        bundle = text["bundle"]
-        layers = [m for m in bundle.model.modules() if isinstance(m, ClipLayer)]
-        for layer in layers:
-            layer.fused_attention = "false"
-        plain = {"text": bundle.encode_texts(text["data"]),
-                 "image": bundle.encode_image_batches(image["data"])}
-        for layer in layers:
-            layer.fused_attention = "auto"
-        errors = {k: float(np.abs(plain[k] - seen[n]["out"]).max())
-                  for k, n in (("text", "encode_texts"),
-                               ("image", "encode_image_batches"))}
-        log(f"clip: max |K1 - plain| over the unit-norm embeddings "
-            f"{errors} (tol {CLIP_TOL})")
-        if max(errors.values()) > CLIP_TOL:
-            raise AssertionError(f"clip embeddings: {errors}")
-
-        # The towers alone: images on the card, captions tokenized.
-        model = bundle.model
-        images = torch.cat([torch.as_tensor(b["image"]) for b in image["data"]]
-                           ).to("cuda", torch.float32)
-        enc = bundle.tokenizer(text["data"])
-        ids = torch.from_numpy(enc["input_ids"]).cuda()
-        mask = torch.from_numpy(enc["attention_mask"]).cuda()
-        rates = {}
-        with torch.no_grad():
-            for name, fn in (
-                    ("images_per_s", lambda i: model.get_image_features(
-                        images[i:i + BATCH])),
-                    ("captions_per_s", lambda i: model.get_text_features(
-                        ids[i:i + BATCH], mask[i:i + BATCH]))):
-                fn(0)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(3):
-                    for i in range(0, CLIP_ITEMS, BATCH):
-                        fn(i)
-                torch.cuda.synchronize()
-                rates[name] = 3 * CLIP_ITEMS / (time.perf_counter() - t0)
-        log(f"clip: the towers alone at batch {BATCH}, fp32: {rates}")
+        rng = np.random.default_rng(14)
+        t0 = time.perf_counter()
+        coco = write_clip_coco(root, rng)
+        log(f"clip: a COCO tree of {CLIP_ITEMS} JPEGs written in "
+            f"{time.perf_counter() - t0} s")
+        for name, config, routes in (
+                ("vit-b32", None, {"text": ("tf32x3", 77),
+                                   "vision": ("tf32x3", 50)}),
+                ("vit-l14", VIT_L14, {"text": ("tf32x3", 77),
+                                      "vision": ("tf32x3_tiled", 257)})):
+            t0 = time.perf_counter()
+            clip_dir = os.path.join(root, f"clip-{name}")
+            cfg = write_clip_dir(clip_dir, rng, config)
+            log(f"clip ({name}): a seeded CLIP directory ({cfg['n_params']} "
+                "parameters, "
+                f"{os.path.getsize(os.path.join(clip_dir, 'flax_model.msgpack'))}"
+                f" bytes of Flax msgpack) written in {time.perf_counter() - t0} s")
+            legs[name] = clip_leg(name, root, clip_dir, coco, cfg, routes)
+            shutil.rmtree(clip_dir, ignore_errors=True)
 
         # K1 at the towers' shapes, on seeded inputs.
         g = torch.Generator(device="cuda").manual_seed(14)
         vision_qkv = torch.randn(BATCH, 50, 3 * 768, device="cuda", generator=g)
         text_qkv = torch.randn(BATCH, 77, 3 * 512, device="cuda", generator=g)
-        rows = {"clip_vision": clip_k1_row(
-                    "clip vision", vision_qkv,
-                    torch.zeros(BATCH, 50, device="cuda"), 12),
-                "clip_text": clip_k1_row(
-                    "clip text", text_qkv, text_bias(mask[:BATCH], 8), 8)}
-        rows["clip_vision"]["launches_at_shape"] = image["launches"]
-        rows["clip_text"]["launches_at_shape"] = text["launches"]
-        del seen, text, image, bundle, model, images, layers
+        rows["clip_vision"] = clip_k1_row(
+            "clip vision", vision_qkv, torch.zeros(BATCH, 50, device="cuda"), 12)
+        rows["clip_text"] = clip_k1_row(
+            "clip text", text_qkv, text_bias(legs["vit-b32"]["mask"], 8), 8)
+        del vision_qkv, text_qkv
+        # The key-tiled route at the larger vision towers' shapes, each with
+        # its zero key bias; the CUDA-core kernel beside it at 197 (it stops
+        # at 256).
+        for key, s, width, nh in (("vit_b16", 197, 768, 12),
+                                  ("vit_l14", 257, 1024, 16),
+                                  ("vit_l14_336", 577, 1024, 16)):
+            qkv = torch.randn(BATCH, s, 3 * width, device="cuda", generator=g)
+            rows[key] = clip_k1_row(
+                f"{key} vision", qkv, torch.zeros(BATCH, s, device="cuda"), nh,
+                route="tf32x3_tiled", cuda_core=s <= 256)
+            del qkv
+            gc.collect()
+            torch.cuda.empty_cache()
+        b32, l14 = legs["vit-b32"]["by_encoder"], legs["vit-l14"]["by_encoder"]
+        rows["clip_vision"]["launches_at_shape"] = b32["vision"]["tf32x3"]
+        rows["clip_text"]["launches_at_shape"] = b32["text"]["tf32x3"]
+        rows["vit_l14"]["launches_at_shape"] = l14["vision"]["tf32x3_tiled"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"clip: phase 14 in {time.perf_counter() - phase_t0} s")
-    return dict(launches=launches["attention_fwd"],
-                tf32x3_launches=launches["attention_fwd_tf32x3"], recalls=recalls,
-                errors=errors, rates=rates, rows=rows)
+    return dict(
+        launches=sum(leg["launches"]["all"] for leg in legs.values()),
+        tf32x3_launches=sum(leg["launches"]["tf32x3"] for leg in legs.values()),
+        tf32x3_tiled_launches=sum(leg["launches"]["tf32x3_tiled"]
+                                  for leg in legs.values()),
+        legs={k: {f: leg[f] for f in ("launches", "by_encoder", "recalls",
+                                      "errors", "rates")}
+              for k, leg in legs.items()},
+        rows=rows)
 
 
 def crop_kernel_only() -> int:
@@ -5642,9 +5795,26 @@ def main() -> int:
              replaces="clip_lite_tpu/ops/attention.py:95",
              **clip["rows"]["clip_text"],
              launches=clip["tf32x3_launches"],
-             launches_by_path={"clip_retrieval": clip["tf32x3_launches"]},
+             launches_by_path={f"clip_retrieval_{k}": leg["launches"]["tf32x3"]
+                               for k, leg in clip["legs"].items()},
              clip_vision=clip["rows"]["clip_vision"],
              flagship_s30=flagship_fp32),
+        # fp32 K1 above S = 80: the key-tiled 3xTF32 kernel.  Main keys:
+        # ViT-L/14's vision tower (phase 14: qkv (128, 257, 3072), 16
+        # heads, zero key bias); ViT-B/16's (128, 197, 2304), with the
+        # CUDA-core kernel's times on the same inputs in turns, and
+        # ViT-L/14-336's (128, 577, 3072) beside it.
+        dict(name="attention_fwd_tf32x3_tiled (K1, float32, S > 80)",
+             route="cuda",
+             source="clip_lite_torch/ops/csrc/attention_fwd.cu",
+             replaces="clip_lite_tpu/ops/attention.py:95",
+             **clip["rows"]["vit_l14"],
+             launches=clip["tf32x3_tiled_launches"],
+             launches_by_path={f"clip_retrieval_{k}":
+                               leg["launches"]["tf32x3_tiled"]
+                               for k, leg in clip["legs"].items()},
+             vit_b16=clip["rows"]["vit_b16"],
+             vit_l14_336=clip["rows"]["vit_l14_336"]),
         dict(name="attention_bwd (K2)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_bwd.cu",
              replaces="clip_lite_tpu/ops/attention.py:122",

@@ -28,9 +28,14 @@ vision tower takes a zero key bias, the text tower the causal and padding
 mask as a full (B, NH, S, S) bias whose masked entries hold float32's
 minimum, as ``modeling_flax_clip.py`` builds it (no row is fully masked:
 the start token is never padding).  Both towers compute in float32, as
-``FlaxCLIPModel`` does by default, so on the card K1 takes its CUDA-core
-route.  ``fused_attention`` (``"auto"``, ``"true"``, ``"false"``) picks
-K1 or its plain twin, as ``MODEL.TEXTUAL.FUSED_ATTENTION`` does for BERT.
+``FlaxCLIPModel`` does by default, so on the card K1 takes a float32
+inference route by the sequence length (``ops/attention.py::
+attention_route``): the 3xTF32 kernel up to 80 tokens (the text tower's
+77, ViT-B/32's 50), the key-tiled 3xTF32 kernel above, up to 1024
+(ViT-B/16's 197, ViT-L/14's 257, ViT-L/14 at 336 px's 577).  Under a
+gradient K1 would take its CUDA-core route, which stops at 256.
+``fused_attention`` (``"auto"``, ``"true"``, ``"false"``) picks K1 or its
+plain twin, as ``MODEL.TEXTUAL.FUSED_ATTENTION`` does for BERT.
 """
 
 from __future__ import annotations

@@ -40,11 +40,15 @@ tensor-core kernels (``attention_fwd_tc``/``attention_bwd_tc``: products
 on ``mma.sync``, every qkv and g byte read once).  float32 K1 at
 S <= ``TF32X3_MAX_SEQ`` (80) outside training takes the 3xTF32 kernel
 (``attention_fwd_tf32x3``: each fp32 product as three TF32 products on
-``mma.sync``, to about 2^-21 of it; plain TF32 would change the numbers).
-The rest takes the CUDA-core kernels (``attention_fwd``/``attention_bwd``:
-fp32 products): float32 K2, float32 K1 in training (K2 regenerates that
-kernel's probabilities) or above 80, and bfloat16 above 64.  The choice
-is never a fallback: a refused launch raises.
+``mma.sync``, to about 2^-21 of it; plain TF32 would change the numbers),
+and above 80, up to ``TF32X3_TILED_MAX_SEQ`` (1024), the key-tiled 3xTF32
+kernel (``attention_fwd_tf32x3_tiled``: keys streamed through shared
+memory in tiles, an online softmax; CLIP's vision towers at 197, 257 and
+577).  The rest takes the CUDA-core kernels (``attention_fwd``/
+``attention_bwd``: fp32 products, S <= ``MAX_SEQ`` (256)): float32 K2,
+float32 K1 in training (K2 regenerates that kernel's probabilities), and
+bfloat16 above 64.  The choice is never a fallback: a refused launch
+raises.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ MASK_VALUE = float(np.finfo(np.float32).min) * 0.5
 MAX_SEQ = 256
 TC_MAX_SEQ = 64
 TF32X3_MAX_SEQ = 80
+TF32X3_TILED_MAX_SEQ = 1024
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -206,16 +211,24 @@ def attention_route(dtype: torch.dtype, seq: int, kernel: str,
     ``seq`` takes: ``"tensor_core"`` for bfloat16 at ``seq <= TC_MAX_SEQ``
     (bf16 products on ``mma.sync``, a block stages its head whole);
     ``"tf32x3"`` for float32 K1 at ``seq <= TF32X3_MAX_SEQ`` unless
-    ``training`` (3xTF32 products on ``mma.sync``); else ``"cuda_core"``
-    (fp32 products): float32 K2 at any length, float32 K1 in training
-    (K2 takes the gradient and regenerates this kernel's probabilities)
-    or above 80, and bfloat16 at 64 < ``seq`` <= ``MAX_SEQ``."""
+    ``training`` (3xTF32 products on ``mma.sync``), ``"tf32x3_tiled"``
+    for it above (the key-tiled 3xTF32 kernel, up to
+    ``TF32X3_TILED_MAX_SEQ``); else ``"cuda_core"`` (fp32 products, up to
+    ``MAX_SEQ``): float32 K2 at any length, float32 K1 in training (K2
+    takes the gradient and regenerates this kernel's probabilities), and
+    bfloat16 at 64 < ``seq``."""
     if dtype == torch.bfloat16 and seq <= TC_MAX_SEQ:
         return "tensor_core"
-    if (kernel == "forward" and dtype == torch.float32
-            and seq <= TF32X3_MAX_SEQ and not training):
-        return "tf32x3"
+    if kernel == "forward" and dtype == torch.float32 and not training:
+        return "tf32x3" if seq <= TF32X3_MAX_SEQ else "tf32x3_tiled"
     return "cuda_core"
+
+
+def max_seq(route: str) -> int:
+    """The longest sequence the kernel of ``route`` takes: the key-tiled
+    3xTF32 kernel streams the keys (``TF32X3_TILED_MAX_SEQ``); the others
+    stage a head whole (``MAX_SEQ``)."""
+    return TF32X3_TILED_MAX_SEQ if route == "tf32x3_tiled" else MAX_SEQ
 
 
 @functools.cache
@@ -228,7 +241,8 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "attention_fwd":
         lib.routes = {"cuda_core": lib.attention_fwd,
                       "tensor_core": lib.attention_fwd_tc,
-                      "tf32x3": lib.attention_fwd_tf32x3}
+                      "tf32x3": lib.attention_fwd_tf32x3,
+                      "tf32x3_tiled": lib.attention_fwd_tf32x3_tiled}
         for fn in lib.routes.values():
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + dropout_args
             fn.restype = ctypes.c_int
@@ -277,7 +291,8 @@ def _dropout_args(rate: float, seed: int):
 
 
 _ROUTE_NAMES = {"cuda_core": "", "tensor_core": " (tensor-core route)",
-                "tf32x3": " (3xTF32 route)"}
+                "tf32x3": " (3xTF32 route)",
+                "tf32x3_tiled": " (key-tiled 3xTF32 route)"}
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, kernel: str,
@@ -287,18 +302,22 @@ def _raise_on(lib: ctypes.CDLL, err: int, kernel: str,
                            + lib.kernel_error_string(err).decode())
 
 
-def _check_seq(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int) -> None:
+def _check_seq(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
+               kernel: str = "forward", training: bool = False) -> None:
     """The contract of both devices, so that the CPU tests hold callers to
-    what the kernels take."""
+    what the kernels take: the length limit of the route that
+    :func:`attention_route` picks for ``kernel`` and ``training``."""
     b, s, _ = qkv.shape
     if tuple(bias.shape) not in ((b, s), (b, num_heads, s, s)):
         raise ValueError(f"mask_bias must be (B, S) = {(b, s)} or (B, NH, S, S) "
                          f"= {(b, num_heads, s, s)}, got {tuple(bias.shape)}")
     if not (qkv.is_contiguous() and bias.is_contiguous()):
         raise ValueError("the attention kernels take contiguous tensors")
-    if s > MAX_SEQ:
+    route = attention_route(qkv.dtype, s, kernel, training)
+    if s > max_seq(route):
         raise ValueError(f"the attention kernels cover sequences up to "
-                         f"{MAX_SEQ}, got {s}")
+                         f"{max_seq(route)} on the {route} route ({qkv.dtype} "
+                         f"{kernel}{', training' if training else ''}), got {s}")
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {qkv.device}")
 
@@ -314,7 +333,8 @@ def _launch_fwd(qkv: torch.Tensor, mask_bias: torch.Tensor, num_heads: int,
                 rate: float, seed: int, keep_mask: Optional[torch.Tensor],
                 route: str) -> torch.Tensor:
     """Launch K1 on CUDA tensors on ``route`` (``"cuda_core"``,
-    ``"tensor_core"`` or ``"tf32x3"``) and count the launch.
+    ``"tensor_core"``, ``"tf32x3"`` or ``"tf32x3_tiled"``) and count the
+    launch.
     :func:`attention_forward` picks the route by :func:`attention_route`;
     ``chip_smoke.py`` names the CUDA-core kernel to time it beside the
     others."""
@@ -334,6 +354,7 @@ def _launch_fwd(qkv: torch.Tensor, mask_bias: torch.Tensor, num_heads: int,
     fused_short_attention.launches += 1
     fused_short_attention.tc_launches += route == "tensor_core"
     fused_short_attention.tf32x3_launches += route == "tf32x3"
+    fused_short_attention.tf32x3_tiled_launches += route == "tf32x3_tiled"
     return out
 
 
@@ -383,9 +404,11 @@ def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
     on the route :func:`attention_route` picks, or raise; every launch
     adds one to ``fused_short_attention.launches``, and one on the
     tensor-core route to ``fused_short_attention.tc_launches`` too, one on
-    the 3xTF32 route to ``fused_short_attention.tf32x3_launches``.
+    the 3xTF32 route to ``fused_short_attention.tf32x3_launches``, one on
+    the key-tiled 3xTF32 route to
+    ``fused_short_attention.tf32x3_tiled_launches``.
     """
-    _check_seq(qkv, mask_bias, num_heads)
+    _check_seq(qkv, mask_bias, num_heads, "forward", training)
     rate = float(dropout_rate)
     if qkv.device.type == "cpu":
         keep = _keep_for_cpu(qkv, num_heads, rate, seed, keep_mask)
@@ -412,7 +435,7 @@ def attention_backward(qkv: torch.Tensor, mask_bias: torch.Tensor,
     launch adds one to ``attention_backward.launches``, and one on the
     tensor-core route to ``attention_backward.tc_launches`` too.
     """
-    _check_seq(qkv, mask_bias, num_heads)
+    _check_seq(qkv, mask_bias, num_heads, "backward")
     rate = float(dropout_rate)
     g = g.to(qkv.dtype).contiguous()
     if qkv.device.type == "cpu":
@@ -493,7 +516,11 @@ def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
     the kernels, on the route :func:`attention_route` picks, or raise.
     """
     rate = 0.0 if deterministic else float(dropout_rate)
-    _check_seq(qkv, mask_bias, num_heads)
+    # Training as _FusedAttention.forward will see it: K2 takes the
+    # gradient, and both kernels are held to the CUDA-core limit.
+    _check_seq(qkv, mask_bias, num_heads, "forward",
+               torch.is_grad_enabled()
+               and (qkv.requires_grad or mask_bias.requires_grad))
     if rate > 0.0 and seed is None and keep_mask is None:
         raise ValueError("attention dropout needs a seed or a keep mask")
     if rate <= 0.0:
@@ -505,6 +532,7 @@ def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
 fused_short_attention.launches = 0
 fused_short_attention.tc_launches = 0
 fused_short_attention.tf32x3_launches = 0
+fused_short_attention.tf32x3_tiled_launches = 0
 attention_backward.launches = 0
 attention_backward.tc_launches = 0
 
@@ -524,5 +552,5 @@ def resolve_fused_flag(flag, device) -> bool:
 __all__ = ["fused_short_attention", "attention_forward", "attention_backward",
            "attention_reference", "attention_backward_reference",
            "attention_float64", "attention_route", "dropout_keep_mask",
-           "philox_keep_mask", "resolve_fused_flag", "MASK_VALUE",
-           "TC_MAX_SEQ", "TF32X3_MAX_SEQ"]
+           "philox_keep_mask", "resolve_fused_flag", "max_seq", "MASK_VALUE",
+           "TC_MAX_SEQ", "TF32X3_MAX_SEQ", "TF32X3_TILED_MAX_SEQ"]

@@ -185,19 +185,19 @@ __device__ __forceinline__ void tile_softmax(float (&s)[kNT][4], const float* bi
 }
 
 // Dropout on a warp's probabilities held as kNT accumulator tiles (rows
-// i0 + g, i0 + g + 8): kept ones scaled by inv_keep, the rest 0; padded
-// rows and keys (i or j >= S) untouched.
+// i0 + g, i0 + g + 8; keys j0 + 8n ..): kept ones scaled by inv_keep, the
+// rest 0; padded rows and keys (i or j >= S) untouched.
 template <int kNT>
 __device__ __forceinline__ void tile_dropout(float (&s)[kNT][4], const Dropout& drop,
                                              int b, int h, int i0, int S, int NH,
-                                             int lane) {
+                                             int lane, int j0 = 0) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = i0 + g + 8 * (e >> 1);
-      const int j = n * 8 + 2 * t + (e & 1);
+      const int j = j0 + n * 8 + 2 * t + (e & 1);
       if (i < S && j < S) {
         s[n][e] = keep_at(drop, b, h, i, j, NH, S) ? s[n][e] * drop.inv_keep : 0.f;
       }

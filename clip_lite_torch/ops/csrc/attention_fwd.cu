@@ -28,16 +28,20 @@
 // block per (b, h) stages its q, k and v rows (S x HD each) in shared
 // memory, and nothing but the context leaves the block.
 //
-// Three routes compute that function (attention_route() in
+// Four routes compute that function (attention_route() in
 // clip_lite_torch/ops/attention.py picks one by dtype, S and, for
 // float32, whether K2 takes the gradient):
 //   - the CUDA-core route, attention_fwd(): fp32 products, float32 in
-//     training and at S > 80, bf16 at S > 64.
+//     training, bf16 at S > 64; S <= 256 (q, k and v staged whole).
 //   - the tensor-core route, attention_fwd_tc(): bf16 at S <= 64, the
 //     products on mma.sync (below, after the CUDA-core kernel).
 //   - the 3xTF32 route, attention_fwd_tf32x3(): float32 inference at
 //     S <= 80, the products on mma.sync as three TF32 products each, to
 //     about 2^-21 of each (plain TF32 would change the numbers).
+//   - the key-tiled 3xTF32 route, attention_fwd_tf32x3_tiled(): float32
+//     inference at 80 < S <= 1024 (CLIP's ViT-B/16 at 197, ViT-L/14 at
+//     257, ViT-L/14-336 at 577), keys streamed in tiles with an online
+//     softmax.
 //
 // CUDA-core route.  Layout of the work inside a block: each warp owns query rows
 // i = warp, warp + kWarps, ...; for its row it keeps q in registers, lane
@@ -423,6 +427,28 @@ __device__ __forceinline__ void load_q(float2 (&qa)[8][2], const float* qkv, int
   }
 }
 
+// Write a warp's 16 x 64 context (rows i0.., head h of item b) into out
+// (B, S, H), rows i >= S left out.  Lanes t and t ^ 1 swap halves: an
+// even lane stores row g, columns 8np + 2t .. 2t + 3, an odd one row
+// g + 8, columns 8np + 2t - 2 .. 2t + 1, each as one 16-byte store.
+__device__ __forceinline__ void store_context(float* out, const float (&o)[8][4], int b,
+                                              int h, int i0, int S, int H, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool odd = t & 1;
+  const int i = i0 + g + (odd ? 8 : 0);
+  float* dst = out + ((size_t)b * S + i) * H + (size_t)h * 64 + 2 * (t & ~1);
+#pragma unroll
+  for (int np = 0; np < 8; ++np) {
+    const float x0 = __shfl_xor_sync(0xffffffffu, odd ? o[np][0] : o[np][2], 1);
+    const float x1 = __shfl_xor_sync(0xffffffffu, odd ? o[np][1] : o[np][3], 1);
+    if (i < S && kTf32Cut != kCutStores) {
+      *reinterpret_cast<float4*>(dst + np * 8) =
+          odd ? make_float4(x0, x1, o[np][2], o[np][3])
+              : make_float4(o[np][0], o[np][1], x0, x1);
+    }
+  }
+}
+
 template <int kNT, bool kFull>
 __global__ void __launch_bounds__(32 * ((kNT + 1) / 2))
 attention_fwd_tf32x3_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
@@ -526,24 +552,306 @@ attention_fwd_tf32x3_kernel(const float* __restrict__ qkv, const float* __restri
         tf32x3_product(o[np], ab, as, bb, bs);
       }
     }
-    // Lanes t and t ^ 1 swap halves: an even lane stores row g, columns
-    // 8np + 2t .. 2t + 3, an odd one row g + 8, columns 8np + 2t - 2 .. 2t + 1.
-    const bool odd = t & 1;
-    const int i = i0 + g + (odd ? 8 : 0);
-    float* dst = out + ((size_t)b * S + i) * H + (size_t)h * 64 + 2 * (t & ~1);
-#pragma unroll
-    for (int np = 0; np < 8; ++np) {
-      const float x0 = __shfl_xor_sync(0xffffffffu, odd ? o[np][0] : o[np][2], 1);
-      const float x1 = __shfl_xor_sync(0xffffffffu, odd ? o[np][1] : o[np][3], 1);
-      if (i < S && kTf32Cut != kCutStores) {
-        *reinterpret_cast<float4*>(dst + np * 8) =
-            odd ? make_float4(x0, x1, o[np][2], o[np][3])
-                : make_float4(o[np][0], o[np][1], x0, x1);
-      }
-    }
+    store_context(out, o, b, h, i0, S, H, lane);
     // Every warp is done with this stage before it takes the item after next.
     __syncthreads();
   }
+}
+
+// ---- key-tiled 3xTF32 route: float32 inference, 80 < S <= 1024 ----------
+//
+// Replaces the same TPU kernel, clip_lite_tpu/ops/attention.py::
+// _attention_fwd_kernel, at the lengths of CLIP's larger vision towers:
+// ViT-B/16 (S = 197), ViT-L/14 (257) and ViT-L/14 at 336 px (577), where
+// the JAX package's wrapper falls back to XLA above 256
+// (clip_lite_tpu/ops/attention.py:353-356).  The route above holds every
+// key tile of a head in registers and stops at S = 80; the CUDA-core
+// kernel stages q, k and v whole in shared memory (197 KB at S = 256) and
+// runs CLIP's lengths on the CUDA cores, slower than
+// scaled_dot_product_attention.
+//
+// What bounds it: at (B, S, NH) = (128, 197, 12) the 310 MB of qkv and
+// context take 0.0925 ms at 3.35 TB/s and the three TF32 products (45.8
+// GFLOP) as long at the 495 TFLOP/s dense peak: both terms.  From S = 257
+// on the products bind: 104 GFLOP, 0.210 ms, against 0.161 ms of bytes
+// at (128, 257, 16), and 1.058 ms against 0.361 at 577 (the products
+// grow as S^2, the bytes as S).  So the design keeps the scores and
+// probabilities in registers, reads each qkv byte from device memory once
+// per block that needs it (the blocks of one head run side by side and
+// share k and v through the L2), and spends the fewest instructions it
+// can beside the products: the same 3xTF32 mma.sync m16n8k8 products as
+// the route above (mma.cuh's cvt.rna split, the permuted k index that
+// makes the scores' accumulator P's A fragment as it stands).  It does
+// not reach the bound: on the card it takes 5-8 times it, 1.1-1.2 times
+// less than scaled_dot_product_attention (PERF.md section 6), its
+// products at about a quarter of the rate mma.sync reaches alone.
+//
+// One block of four warps owns one (b, h) and 64 query rows, a warp 16 of
+// them, q's fragments in registers.  Keys and values stream through
+// shared memory in tiles of 32 (kTiledKeys), two stages: tile t + 1's k,
+// v and key bias are copied with cp.async (16 bytes; 4 for the bias)
+// while tile t computes, at the route above's row strides (72 and 68
+// floats: no bank conflicts).  Per tile each warp computes its 16 x 32
+// scores, adds the scale and the bias (a full bias read straight from
+// device memory into the score fragments, each element once), and takes
+// an online softmax in fp32 (Milakov and Gimelshein, 2018): a running max
+// and a lane's share of the running sum a row; when the max rises the sum
+// and the context accumulator are rescaled by __expf(m_old - m_new);
+// p = __expf(s - m_new) unnormalised; dropout (keep_at, or the explicit
+// keep mask) scales kept p by 1 / (1 - rate) and zeroes the rest, the sum
+// taking the undropped p, as softmax-then-dropout does; then ctx += P V.
+// One reciprocal a row at the end normalises the context.  The
+// probabilities of float32 need no rounding to the compute type.
+//
+// Accuracy: the tensor cores' fp32 accumulation does not round to
+// nearest, so its error grows with the number of products chained into
+// one accumulator.  Chained over all of S (3 S / 8 products) the context
+// lay 5-8 times the plain version's distance from float64 at S = 577 and
+// 1024.  So each tile's products of P V (12 a column tile) go into a
+// fresh accumulator, added to the context with one fp32 addition a tile,
+// and the scores take two accumulators of 12 products each (the even and
+// the odd 8-dim chunks of the head) in place of one of 24: at 0.9-1.2
+// times the plain version's distance from float64, and faster
+// (clip_lite_torch/scripts/k1_tiled_variants.py times the other forms).
+//
+// The ragged tail: the last key tile holds S mod 32 keys (1 at S = 257
+// and 577, 5 at 197), so that tile computes only its 8-key chunks that
+// hold a key (at S = 257 one chunk of eight) and zeroes only the rows up
+// to the next multiple of 8; keys j >= S within that chunk enter neither
+// the softmax nor the products.  Full tiles take a copy of the step
+// without those branches, so that the compiler interleaves their chunks'
+// products (with the branches in every tile the kernel took a third
+// longer and more).
+// Query rows go in tiles of 16 a warp: at S = 257 the fifth block of a
+// head has one warp with rows (one of them real), the other three only
+// copy k and v for it.
+//
+// The limit, S <= 1024 (kTf32TiledMaxSeq): nothing in the kernel depends
+// on S but the count of tiles; 1024 is the longest length the card tests
+// hold it at, past ViT-L/14-336's 577, the longest sequence of a
+// published OpenAI CLIP tower.
+constexpr int kTf32TiledMaxSeq = 1024;
+constexpr int kTiledKeys = 32;            // keys a tile
+constexpr int kTiledNT = kTiledKeys / 8;  // 8-key chunks a tile
+constexpr int kTiledWarps = 4;            // 16 query rows each
+constexpr int kTiledThreads = 32 * kTiledWarps;
+constexpr int kTiledRows = 16 * kTiledWarps;  // query rows a block
+
+// One stage: k (32 x kKRow), v (32 x kVRow) and the key bias (32), fp32:
+// 18,048 bytes; two a block.
+constexpr int kTiledStageFloats = kTiledKeys * (kKRow + kVRow + 1);
+
+// Start the copies of key tile [key0, key0 + 32) of (b, h): k, v and (for
+// a key bias) the bias; rows from S up to the next multiple of 8 zeroed,
+// the rest of the tile left as it is (no product reads it).
+template <bool kFull>
+__device__ __forceinline__ void stage_key_tile(float* stage, const float* qkv,
+                                               const float* bias, int b, int h,
+                                               int key0, int S, int NH, int tid) {
+  const int n = min(kTiledKeys, S - key0);
+  const int n_pad = (n + 7) & ~7;
+  const size_t row3 = (size_t)3 * NH * 64;
+  const float* src = qkv + ((size_t)b * S + key0) * row3 + (size_t)h * 64;
+  stage_rows_f32<kKRow>(stage, src + NH * 64, row3, n, n_pad, tid, kTiledThreads);
+  stage_rows_f32<kVRow>(stage + kTiledKeys * kKRow, src + 2 * NH * 64, row3, n, n_pad,
+                        tid, kTiledThreads);
+  if (!kFull) {
+    float* key_bias = stage + kTiledKeys * (kKRow + kVRow);
+    for (int j = tid; j < n_pad; j += kTiledThreads) {
+      if (j < n) {
+        mma::cp_async4(key_bias + j, bias + (size_t)b * S + key0 + j);
+      } else {
+        key_bias[j] = 0.f;
+      }
+    }
+  }
+}
+
+// One key tile [key0, key0 + 32) of a warp's 16 query rows: the scores,
+// the online softmax's update of (m, l, o), and ctx += P V.  kTail: the
+// last tile, which may hold fewer keys; its 8-key chunks without a key
+// are skipped and keys j >= S leave the softmax.
+template <bool kFull, bool kTail>
+__device__ __forceinline__ void tiled_step(const float2 (&qa)[8][2], float (&m)[2],
+                                           float (&l)[2], float (&o)[8][4],
+                                           const float* k_s, const float* bias_bh,
+                                           int key0, int b, int h, int i0, int S,
+                                           int NH, float scale, const Dropout& drop,
+                                           int lane) {
+  using namespace mma;
+  const int g = lane >> 2, t = lane & 3;
+  const float* v_s = k_s + kTiledKeys * kKRow;
+  const float* key_bias = v_s + kTiledKeys * kVRow;
+  // The tile's 8-key chunks that hold a key (all but in the last tile).
+  const int chunks = kTail ? min(kTiledNT, (S - key0 + 7) / 8) : kTiledNT;
+
+  // The scores in two accumulators, of the even and the odd 8-dim chunks.
+  float s[kTiledNT][4] = {}, s_odd[kTiledNT][4] = {};
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc) {
+    uint32_t ab[4], as[4];
+    split_tf32(qa[kc][0].x, ab[0], as[0]);
+    split_tf32(qa[kc][1].x, ab[1], as[1]);
+    split_tf32(qa[kc][0].y, ab[2], as[2]);
+    split_tf32(qa[kc][1].y, ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < kTiledNT; ++n) {
+      if (!kTail || n < chunks) {
+        const float2 kv = *reinterpret_cast<const float2*>(
+            k_s + (n * 8 + g) * kKRow + 8 * kc + 2 * t);
+        uint32_t bb[2], bs[2];
+        split_tf32(kv.x, bb[0], bs[0]);
+        split_tf32(kv.y, bb[1], bs[1]);
+        tf32x3_product(kc & 1 ? s_odd[n] : s[n], ab, as, bb, bs);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < kTiledNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] += s_odd[n][e];
+  }
+  // s * scale + bias, keys j >= S out; the tile's row max.
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < kTiledNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + 8 * (e >> 1);
+      const int j = key0 + n * 8 + 2 * t + (e & 1);
+      float v = -INFINITY;
+      if (!kTail || j < S) {
+        const float bij = kFull ? (i < S ? bias_bh[(size_t)i * S + j] : 0.f)
+                                : key_bias[j - key0];
+        v = s[n][e] * scale + bij;
+      }
+      s[n][e] = v;
+      mx[e >> 1] = fmaxf(mx[e >> 1], v);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  // Every tile holds a key of finite score, so mx is finite and the
+  // first tile's factor is __expf(-inf) = 0.
+  const float corr[2] = {__expf(m[0] - mx[0]), __expf(m[1] - mx[1])};
+  m[0] = mx[0];
+  m[1] = mx[1];
+  l[0] *= corr[0];
+  l[1] *= corr[1];
+#pragma unroll
+  for (int np = 0; np < 8; ++np) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[np][e] *= corr[e >> 1];
+  }
+#pragma unroll
+  for (int n = 0; n < kTiledNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = __expf(s[n][e] - mx[e >> 1]);  // exp(-inf) = 0
+      s[n][e] = p;
+      l[e >> 1] += p;
+    }
+  }
+  if (drop.active) tile_dropout<kTiledNT>(s, drop, b, h, i0, S, NH, lane, key0);
+
+  // ctx += P V: chunk kc's scores are P's A fragment as they stand
+  // (a0 = c0, a1 = c2, a2 = c1, a3 = c3), with v rows 8kc + 2t and
+  // 8kc + 2t + 1 as B; the tile's products in a fresh accumulator.
+  float ot[8][4] = {};
+#pragma unroll
+  for (int kc = 0; kc < kTiledNT; ++kc) {
+    if (!kTail || kc < chunks) {
+      uint32_t ab[4], as[4];
+      split_tf32(s[kc][0], ab[0], as[0]);
+      split_tf32(s[kc][2], ab[1], as[1]);
+      split_tf32(s[kc][1], ab[2], as[2]);
+      split_tf32(s[kc][3], ab[3], as[3]);
+      const float* v = v_s + (8 * kc + 2 * t) * kVRow + g;
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {
+        uint32_t bb[2], bs[2];
+        split_tf32(v[np * 8], bb[0], bs[0]);
+        split_tf32(v[kVRow + np * 8], bb[1], bs[1]);
+        tf32x3_product(ot[np], ab, as, bb, bs);
+      }
+    }
+  }
+#pragma unroll
+  for (int np = 0; np < 8; ++np) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[np][e] += ot[np][e];
+  }
+}
+
+template <bool kFull>
+__global__ void __launch_bounds__(kTiledThreads)
+attention_fwd_tf32x3_tiled_kernel(const float* __restrict__ qkv,
+                                  const float* __restrict__ bias,
+                                  float* __restrict__ out, int S, int NH, int q_tiles,
+                                  float scale, Dropout drop) {
+  using namespace mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* stages = reinterpret_cast<float*>(smem_raw);
+
+  const int w = blockIdx.x / q_tiles;  // (b, h)
+  const int b = w / NH, h = w % NH;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int i0 = (blockIdx.x % q_tiles) * kTiledRows + (tid >> 5) * 16;
+  const bool rows = i0 < S;  // this warp has a real query row
+  const int n_tiles = (S + kTiledKeys - 1) / kTiledKeys;
+
+  stage_key_tile<kFull>(stages, qkv, bias, b, h, 0, S, NH, tid);
+  cp_async_commit();
+  float2 qa[8][2];
+  load_q(qa, qkv, w, S, NH, i0, lane);
+  const float* bias_bh = kFull ? bias + ((size_t)b * NH + h) * S * S : nullptr;
+
+  // Rows g and g + 8: the running max, and this lane's share of the sum.
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[8][4] = {};
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_tiles) {
+      stage_key_tile<kFull>(stages + (buf ^ 1) * kTiledStageFloats, qkv, bias, b, h,
+                            (kt + 1) * kTiledKeys, S, NH, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (rows) {
+      const float* k_s = stages + buf * kTiledStageFloats;
+      const int key0 = kt * kTiledKeys;
+      // A full tile takes no branch; the last, ragged one may skip chunks.
+      if (key0 + kTiledKeys <= S) {
+        tiled_step<kFull, false>(qa, m, l, o, k_s, bias_bh, key0, b, h, i0, S, NH,
+                                 scale, drop, lane);
+      } else {
+        tiled_step<kFull, true>(qa, m, l, o, k_s, bias_bh, key0, b, h, i0, S, NH,
+                                scale, drop, lane);
+      }
+    }
+    // Every warp is done with this stage before the next tile refills it.
+    __syncthreads();
+  }
+  if (!rows) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+  for (int np = 0; np < 8; ++np) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[np][e] *= inv[e >> 1];
+  }
+  store_context(out, o, b, h, i0, S, NH * 64, lane);
 }
 
 __global__ void dropout_mask_kernel(int8_t* __restrict__ keep, int B, int NH,
@@ -648,6 +956,30 @@ int launch_tf32x3_seq(const void* qkv, const void* bias, void* out, int B, int S
   }
 }
 
+template <bool kFull>
+int launch_tf32x3_tiled(const void* qkv, const void* bias, void* out, int B, int S,
+                        int NH, const Dropout& drop, cudaStream_t stream) {
+  auto kernel = attention_fwd_tf32x3_tiled_kernel<kFull>;
+  // Two stages, 36,096 bytes.
+  const size_t smem = 2 * sizeof(float) * kTiledStageFloats;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return (int)err;
+  // One block a (b, h) and 64 query rows, the query tiles of a head next
+  // to each other, so that the blocks sharing k and v run together.
+  const int q_tiles = (S + kTiledRows - 1) / kTiledRows;
+  const long long blocks = (long long)B * NH * q_tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, kTiledThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(bias),
+      static_cast<float*>(out), S, NH, q_tiles, 1.0f / sqrtf(64.0f), drop);
+  return (int)cudaGetLastError();
+}
+
 bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 }  // namespace
@@ -719,6 +1051,26 @@ int attention_fwd_tf32x3(const void* qkv, const void* bias, const void* keep,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return full_bias ? launch_tf32x3_seq<true>(qkv, bias, out, B, S, NH, drop, st)
                    : launch_tf32x3_seq<false>(qkv, bias, out, B, S, NH, drop, st);
+}
+
+// The key-tiled 3xTF32 route: attention_fwd's arguments and function, for
+// float32 (dtype 0) at 80 < S <= 1024 only; any other dtype or S is
+// refused with cudaErrorInvalidValue, and qkv or out not 16-byte aligned
+// with cudaErrorMisalignedAddress.
+int attention_fwd_tf32x3_tiled(const void* qkv, const void* bias, const void* keep,
+                               void* out, int B, int S, int NH, int HD, int dtype,
+                               int full_bias, int dropout, unsigned int threshold,
+                               float inv_keep, unsigned long long seed, void* stream) {
+  if (HD != 64 || dtype != 0 || B < 1 || B > 65535 || S <= kTf32MaxSeq ||
+      S > kTf32TiledMaxSeq || NH < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (misaligned16(qkv) || misaligned16(out)) return (int)cudaErrorMisalignedAddress;
+  const Dropout drop{static_cast<const int8_t*>(keep), seed, threshold,
+                     inv_keep, dropout != 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return full_bias ? launch_tf32x3_tiled<true>(qkv, bias, out, B, S, NH, drop, st)
+                   : launch_tf32x3_tiled<false>(qkv, bias, out, B, S, NH, drop, st);
 }
 
 // Writes the Philox keep mask that K1 and K2 use for (seed, threshold)

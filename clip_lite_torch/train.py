@@ -260,7 +260,7 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
 def kernel_launches() -> Dict[str, int]:
     """Each hand-written kernel's launches in this process so far, by the
     name of its wrapper's trace range, K1/K2's on the tensor cores and
-    K1's on the 3xTF32 route."""
+    K1's on the 3xTF32 routes."""
     from clip_lite_torch.data import native
     from clip_lite_torch.ops.attention import (
         attention_backward, fused_short_attention)
@@ -269,6 +269,7 @@ def kernel_launches() -> Dict[str, int]:
     return {"K1 attention_fwd": fused_short_attention.launches,
             "K1 tensor cores": fused_short_attention.tc_launches,
             "K1 3xTF32": fused_short_attention.tf32x3_launches,
+            "K1 key-tiled 3xTF32": fused_short_attention.tf32x3_tiled_launches,
             "K2 attention_bwd": attention_backward.launches,
             "K2 tensor cores": attention_backward.tc_launches,
             "K3 normalize_u8": normalize_u8.launches,

@@ -17,8 +17,10 @@ from clip_lite_torch.eval_utils import EncoderBundle
 from clip_lite_torch.config import Config
 from clip_lite_torch.ops.attention import (
     MASK_VALUE,
+    MAX_SEQ,
     TC_MAX_SEQ,
     TF32X3_MAX_SEQ,
+    TF32X3_TILED_MAX_SEQ,
     _raise_on,
     attention_backward,
     attention_backward_reference,
@@ -153,8 +155,18 @@ def test_unsupported_shapes_raise(inputs):
     with pytest.raises(ValueError):  # a broadcast view, as on the card
         fused_short_attention(qkv, torch.zeros(1, NH, S, S).expand(B, -1, -1, -1),
                               NH)
+    # Above the limit of the route the card would take: fp32 K1 without a
+    # gradient streams keys up to TF32X3_TILED_MAX_SEQ; the others stop at
+    # MAX_SEQ.
+    cap = TF32X3_TILED_MAX_SEQ + 1
     with pytest.raises(ValueError):
-        fused_short_attention(torch.zeros(1, 257, 3 * H), torch.zeros(1, 257), NH)
+        fused_short_attention(torch.zeros(1, cap, 3 * H), torch.zeros(1, cap), NH)
+    with pytest.raises(ValueError):
+        fused_short_attention(torch.zeros(1, 257, 3 * H, dtype=torch.bfloat16),
+                              torch.zeros(1, 257), NH)
+    with pytest.raises(ValueError):  # training: K2 takes the gradient
+        fused_short_attention(torch.zeros(1, 257, 3 * H, requires_grad=True),
+                              torch.zeros(1, 257), NH)
 
 
 def test_wrapper_without_kernel_device_raises(inputs):
@@ -217,15 +229,17 @@ def test_attention_route(dtype, seq, route):
 
 @pytest.mark.parametrize("seq,route", [
     (1, "tf32x3"), (17, "tf32x3"), (30, "tf32x3"), (50, "tf32x3"),
-    (64, "tf32x3"), (77, "tf32x3"), (80, "tf32x3"), (81, "cuda_core"),
-    (256, "cuda_core"),
+    (64, "tf32x3"), (77, "tf32x3"), (80, "tf32x3"), (81, "tf32x3_tiled"),
+    (197, "tf32x3_tiled"), (256, "tf32x3_tiled"), (257, "tf32x3_tiled"),
+    (577, "tf32x3_tiled"), (1024, "tf32x3_tiled"),
 ])
 def test_float32_forward_route(seq, route):
     """fp32 K1 takes the 3xTF32 kernel up to S = 80 (CLIP's 77 among them)
-    for inference, and the CUDA cores in training (K2 regenerates that
-    kernel's probabilities) and above 80; fp32 K2 stays on the CUDA
-    cores."""
-    assert TF32X3_MAX_SEQ == 80
+    for inference and the key-tiled 3xTF32 kernel above (ViT-B/16's 197,
+    ViT-L/14's 257, ViT-L/14-336's 577, up to its cap of 1024), and the
+    CUDA cores in training (K2 regenerates that kernel's probabilities);
+    fp32 K2 stays on the CUDA cores."""
+    assert TF32X3_MAX_SEQ == 80 and TF32X3_TILED_MAX_SEQ == 1024
     assert attention_route(torch.float32, seq, "forward") == route
     assert attention_route(torch.float32, seq, "forward",
                            training=True) == "cuda_core"
@@ -236,7 +250,9 @@ def test_float32_forward_route(seq, route):
 
 @pytest.mark.parametrize("kernel,route,name", [
     ("K1", "cuda_core", "K1"), ("K1", "tensor_core", "K1 (tensor-core route)"),
-    ("K1", "tf32x3", "K1 (3xTF32 route)"), ("K2", "cuda_core", "K2"),
+    ("K1", "tf32x3", "K1 (3xTF32 route)"),
+    ("K1", "tf32x3_tiled", "K1 (key-tiled 3xTF32 route)"),
+    ("K2", "cuda_core", "K2"),
     ("K2", "tensor_core", "K2 (tensor-core route)"),
 ])
 def test_failed_launch_names_its_kernel_and_route(kernel, route, name):
@@ -309,3 +325,77 @@ def test_float64_evaluation_matches_jax(inputs, full_bias_inputs, full):
     if full:
         np.testing.assert_allclose(dbias.numpy(), np.asarray(jax_dbias),
                                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("seq", [257, 577, TF32X3_TILED_MAX_SEQ])
+def test_sequence_limits_follow_the_route(seq):
+    """The CPU wrappers hold callers to the limit of the route the card
+    would take: fp32 K1 without a gradient passes up to the key-tiled
+    kernel's cap (and raises one above it); fp32 K1 in training, fp32 K2
+    and bf16 K1 and K2 raise above MAX_SEQ (256)."""
+    assert MAX_SEQ == 256
+    rng = np.random.RandomState(seq)
+    nh = 1
+    qkv = torch.from_numpy(rng.randn(1, seq, 3 * 64).astype(np.float32))
+    bias = torch.zeros(1, seq)
+    g = torch.zeros(1, seq, 64)
+    with torch.no_grad():
+        out = fused_short_attention(qkv, bias, nh)
+    torch.testing.assert_close(out, attention_reference(qkv, bias, nh),
+                               rtol=0, atol=0)
+    attention_forward(qkv, bias, nh)
+    long = torch.zeros(1, TF32X3_TILED_MAX_SEQ + 1, 3 * 64)
+    with pytest.raises(ValueError, match="tf32x3_tiled"):
+        attention_forward(long, torch.zeros(long.shape[:2]), nh)
+    with pytest.raises(ValueError, match="cuda_core"):
+        attention_forward(qkv, bias, nh, training=True)
+    with pytest.raises(ValueError, match="cuda_core"):
+        fused_short_attention(qkv.clone().requires_grad_(), bias, nh)
+    with pytest.raises(ValueError, match="cuda_core"):
+        attention_backward(qkv, bias, g, nh)
+    with pytest.raises(ValueError, match="cuda_core"):
+        attention_forward(qkv.bfloat16(), bias, nh)
+    with pytest.raises(ValueError, match="cuda_core"):
+        attention_backward(qkv.bfloat16(), bias, g, nh)
+
+
+@pytest.fixture(scope="module")
+def long_inputs():
+    """Above the JAX kernel's 256, where its wrapper takes XLA: seeded qkv
+    at S = 257 and 300 (two items, two heads of 64), a key bias with
+    padding at the tail of item 1, and a full bias adding N(0, 0.25) per
+    head."""
+    out = {}
+    for s in (257, 300):
+        rng = np.random.RandomState(s)
+        qkv = (rng.randn(2, s, 3 * 128) * 0.3).astype(np.float32)
+        key = np.zeros((2, s), np.float32)
+        key[1, s - 40:] = MASK_VALUE
+        full = (rng.randn(2, 2, s, s) * 0.5 + key[:, None, None, :]).astype(
+            np.float32)
+        out[s] = qkv, key, full
+    return out
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
+@pytest.mark.parametrize("seq", [257, 300])
+def test_long_float32_forward_matches_jax(long_inputs, seq, full):
+    """The port's fp32 forward above 256 (the key-tiled route on the card,
+    its twin here) against the JAX package's fused_short_attention, which
+    falls back to XLA there, at fp32's 1e-5; the wrapper equals its twin
+    and counts no launch on the CPU."""
+    qkv, key, full_bias = long_inputs[seq]
+    bias = full_bias if full else key
+    want = np.asarray(jax_attention.fused_short_attention(
+        jnp.asarray(qkv), jnp.asarray(bias), 2, deterministic=True,
+        interpret=True))
+    counts = (fused_short_attention.launches,
+              fused_short_attention.tf32x3_tiled_launches)
+    with torch.no_grad():
+        got = fused_short_attention(torch.from_numpy(qkv),
+                                    torch.from_numpy(bias), 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, attention_reference(
+        torch.from_numpy(qkv), torch.from_numpy(bias), 2), rtol=0, atol=0)
+    assert counts == (fused_short_attention.launches,
+                      fused_short_attention.tf32x3_tiled_launches)

@@ -15,8 +15,12 @@ a few captions) saved through ``CLIPTokenizerFast``:
   ``get_image_features`` at 1e-4, with ``eos_token_id`` 2 (the legacy
   pooling at the highest id) and the default (the first end token), the
   weights read from ``flax_model.msgpack`` and from the sharded
-  ``flax_model.msgpack.index.json`` form; the fused attention wrapper
-  (K1's CPU twin) and the plain one give the same features;
+  ``flax_model.msgpack.index.json`` form, and with vision towers of
+  ViT-L/14's 257 and ViT-L/14-336's 577 tokens (64 and 96 px images of
+  4 px patches); the fused attention wrapper (K1's CPU twin) and the
+  plain one give the same features;
+* openai/clip-vit-large-patch14's config.json and its 336 px form build
+  the towers at their published widths;
 * the retrieval CLI's JSON equals the JAX CLI's ``main`` on a COCO tree,
   recalls exactly.
 """
@@ -32,7 +36,12 @@ import torch
 import jax
 
 from clip_lite_torch.data.tokenizers import ClipBPETokenizer, bytes_to_unicode
-from clip_lite_torch.models.clip import load_clip_model, read_flax_weights
+from clip_lite_torch.models.clip import (
+    ClipModel,
+    load_clip_model,
+    read_clip_config,
+    read_flax_weights,
+)
 from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
@@ -56,6 +65,25 @@ TEXT = dict(hidden_size=64, num_attention_heads=1, num_hidden_layers=2,
             intermediate_size=128, max_position_embeddings=77)
 VISION = dict(hidden_size=128, num_attention_heads=2, num_hidden_layers=2,
               intermediate_size=256, image_size=32, patch_size=8)
+# Vision towers at ViT-L/14's sequence length (16 x 16 patches + 1 = 257)
+# and ViT-L/14-336's (24 x 24 + 1 = 577), at tiny widths: past the 256 of
+# the JAX kernel (transformers' attention there) and of the port's
+# CUDA-core kernel (its key-tiled 3xTF32 kernel on the card).
+VISION_257 = dict(VISION, image_size=64, patch_size=4)
+VISION_577 = dict(VISION, image_size=96, patch_size=4)
+# openai/clip-vit-large-patch14's config.json (the widths and what the
+# port reads; transformers fills in the rest), and its 336 px form.
+VIT_L14_CONFIG = {
+    "projection_dim": 768,
+    "text_config": dict(hidden_size=768, intermediate_size=3072,
+                        num_attention_heads=12, num_hidden_layers=12,
+                        max_position_embeddings=77, vocab_size=49408,
+                        hidden_act="quick_gelu", layer_norm_eps=1e-5,
+                        eos_token_id=2),
+    "vision_config": dict(hidden_size=1024, intermediate_size=4096,
+                          num_attention_heads=16, num_hidden_layers=24,
+                          image_size=224, patch_size=14, hidden_act="quick_gelu",
+                          layer_norm_eps=1e-5)}
 
 
 def learn_merges(words, n_merges):
@@ -131,7 +159,10 @@ def write_clip_dir(directory, eos_token_id=None, shard=False,
 def clip_dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("clip")
     return {"legacy": write_clip_dir(str(root / "legacy"), eos_token_id=2),
-            "eos": write_clip_dir(str(root / "eos"), shard=True)}
+            "eos": write_clip_dir(str(root / "eos"), shard=True),
+            "vision_s257": write_clip_dir(str(root / "s257"), vision=VISION_257),
+            "vision_s577": write_clip_dir(str(root / "s577"), eos_token_id=2,
+                                          vision=VISION_577)}
 
 
 def test_tokenizer_matches_clip_tokenizer_fast(clip_dirs):
@@ -157,14 +188,19 @@ def _jax_features(path, ids, mask, images):
     return np.asarray(text), np.asarray(image)
 
 
-@pytest.mark.parametrize("kind", ["legacy", "eos"])
+@pytest.mark.parametrize("kind", ["legacy", "eos", "vision_s257", "vision_s577"])
 def test_features_match_flax_clip(clip_dirs, kind):
+    """Both towers against FlaxCLIPModel's at 1e-4, through the fused
+    attention wrapper (K1's CPU twin; on the card the 3xTF32 route at 77
+    tokens, and for the vision towers of 257 and 577 tokens the key-tiled
+    one) and the plain one."""
     path = clip_dirs[kind]
     assert os.path.exists(os.path.join(
         path, "flax_model.msgpack.index.json" if kind == "eos"
         else "flax_model.msgpack"))
     tok = ClipBPETokenizer(path)(CAPTIONS)
-    images = np.random.RandomState(0).randn(3, 32, 32, 3).astype(np.float32)
+    size = {"vision_s257": 64, "vision_s577": 96}.get(kind, 32)
+    images = np.random.RandomState(0).randn(3, size, size, 3).astype(np.float32)
     want_text, want_image = _jax_features(path, tok["input_ids"],
                                           tok["attention_mask"], images)
     ids, eot = tok["input_ids"], tok["input_ids"][0, -1]
@@ -172,10 +208,13 @@ def test_features_match_flax_clip(clip_dirs, kind):
     assert len(set(at_eot)) > 1 and (ids.argmax(-1) != at_eot).any()
     for fused in ("true", "false"):
         model = load_clip_model(path, device="cpu", fused_attention=fused)
-        assert model.text.eos_token_id == (2 if kind == "legacy" else eot)
+        legacy = kind in ("legacy", "vision_s577")
+        assert model.text.eos_token_id == (2 if legacy else eot)
+        assert model.vision.num_positions == {
+            "vision_s257": 257, "vision_s577": 577}.get(kind, 17)
         np.testing.assert_array_equal(
             model.text.pooled_index(torch.from_numpy(ids)).numpy(),
-            ids.argmax(-1) if kind == "legacy" else at_eot)
+            ids.argmax(-1) if legacy else at_eot)
         with torch.no_grad():
             text = model.get_text_features(
                 torch.from_numpy(tok["input_ids"]),
@@ -206,3 +245,30 @@ def test_load_clip_model_runs_on_the_card_unless_asked(clip_dirs):
         pytest.skip("checks the refusal where CUDA is absent")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_clip_model(clip_dirs["legacy"])
+
+
+@pytest.mark.parametrize("image_size,positions", [(224, 257), (336, 577)])
+def test_vit_l14_published_configs_build(tmp_path, image_size, positions):
+    """openai/clip-vit-large-patch14's config.json, and its 336 px form,
+    build the port's towers at their published widths (on the meta device:
+    no weights): vision 1024 wide, 24 layers of 16 heads over 257 or 577
+    positions, text 768 wide, 12 layers of 12 heads, projection 768."""
+    config = dict(VIT_L14_CONFIG, vision_config=dict(
+        VIT_L14_CONFIG["vision_config"], image_size=image_size))
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(dict(config, model_type="clip"), f)
+    cfg = read_clip_config(str(tmp_path))
+    with torch.device("meta"):
+        model = ClipModel(cfg)
+    vision, text = model.vision, model.text
+    assert vision.num_positions == positions
+    assert vision.position_embedding.shape == (positions, 1024)
+    assert vision.patch_embedding.weight.shape == (1024, 3, 14, 14)
+    assert len(vision.layers) == 24 and len(text.layers) == 12
+    assert {layer.num_heads for layer in vision.layers} == {16}
+    assert {layer.num_heads for layer in text.layers} == {12}
+    assert vision.layers[0].fc1.weight.shape == (4096, 1024)
+    assert text.layers[0].qkv.weight.shape == (3 * 768, 768)
+    assert vision.visual_projection.weight.shape == (768, 1024)
+    assert text.text_projection.weight.shape == (768, 768)
+    assert text.eos_token_id == 2

@@ -1,11 +1,12 @@
 """K1 and K2, the CUDA attention kernels, against their plain versions on
 the card: forward and backward, with dropout off and on (Philox masks),
 under a (B, S) key bias and under MPNet's full (B, NH, S, S) bias, whose
-gradient dbias K2 returns.  Both routes: the tensor-core kernels (bf16 at
+gradient dbias K2 returns.  Every route: the tensor-core kernels (bf16 at
 S <= 64, checked at the edges of their tiling, and against the float64
-evaluation of the same function) and the CUDA-core kernels (fp32, bf16
-above 64, and bf16 below when launched directly), with the dispatch
-between them.
+evaluation of the same function), fp32 K1's 3xTF32 kernels (S <= 80, and
+the key-tiled one above, up to 1024) and the CUDA-core kernels (fp32
+training and K2, bf16 above 64, and bf16 below when launched directly),
+with the dispatch between them.
 K3, the normalize kernel, against its plain version bit for bit; K3's
 fused flip + colour jitter + normalize pass against the plain composition;
 the on-device preprocessing and the device-resident cache on the card;
@@ -313,7 +314,7 @@ def test_dispatch_sends_bf16_to_the_tensor_cores_up_to_64(device):
 
 # The 3xTF32 route's tiling: one row, one over a key tile, the flagship's
 # 30, CLIP's 50 (vision), 64, CLIP's 77 (text), the limit, and one over it
-# (the CUDA-core route).
+# (the key-tiled route).
 TF32_SEQS = [1, 9, 17, 30, 50, 64, 77, 80, 81]
 
 
@@ -321,7 +322,7 @@ TF32_SEQS = [1, 9, 17, 30, 50, 64, 77, 80, 81]
 @pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
 @pytest.mark.parametrize("s", TF32_SEQS)
 def test_tf32x3_route_matches_reference(device, s, full, rate):
-    """fp32 K1 on the 3xTF32 route (S <= 80; 81 on the CUDA cores)
+    """fp32 K1 on the 3xTF32 route (S <= 80; 81 on the key-tiled route)
     against its twin at fp32's bar, given the kernels' Philox mask, counted
     on its route, and within four times the twin's distance from float64
     (3xTF32 leaves out 2^-22 of each product, fp32 rounds at 2^-24), plus
@@ -331,14 +332,17 @@ def test_tf32x3_route_matches_reference(device, s, full, rate):
     bias = _full_bias(device, key_bias, nh) if full else key_bias
     seed = 1357
     keep = dropout_keep_mask(seed, b, nh, s, rate, device) if rate else None
-    before = fused_short_attention.launches, fused_short_attention.tf32x3_launches
+    before = (fused_short_attention.launches, fused_short_attention.tf32x3_launches,
+              fused_short_attention.tf32x3_tiled_launches)
     out = attention_forward(qkv, bias, nh, dropout_rate=rate, seed=seed)
     torch.cuda.synchronize()
     on_route = int(s <= 80)
     assert attention_route(torch.float32, s, "forward") == (
-        "tf32x3" if on_route else "cuda_core")
+        "tf32x3" if on_route else "tf32x3_tiled")
     assert (fused_short_attention.launches - before[0],
-            fused_short_attention.tf32x3_launches - before[1]) == (1, on_route)
+            fused_short_attention.tf32x3_launches - before[1],
+            fused_short_attention.tf32x3_tiled_launches - before[2]) == (
+                1, on_route, 1 - on_route)
     ref = attention_reference(qkv, bias, nh, rate, keep)
     torch.testing.assert_close(out, ref, **TOLS[torch.float32])
     exact = attention_float64(qkv, bias, torch.zeros_like(out), nh, rate, keep)[0]
@@ -363,23 +367,82 @@ def test_tf32x3_route_refuses_what_it_does_not_take(device):
             fused_short_attention.tf32x3_launches) == before
 
 
+# The key-tiled 3xTF32 route: one over the route above (a second key tile
+# of 17 keys), ViT-B/16's 197 (a last tile of 5), ViT-L/14's 257 (a last
+# key tile of one key and a last query block of one row), ViT-L/14-336's
+# 577, and the cap.
+TILED_SEQS = [81, 197, 257, 577, 1024]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
 @pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
-@pytest.mark.parametrize("s", [30, 77])
+@pytest.mark.parametrize("s", TILED_SEQS)
+def test_tf32x3_tiled_route_matches_reference(device, s, full, rate):
+    """fp32 K1 on the key-tiled 3xTF32 route (80 < S <= 1024) against its
+    twin at fp32's bar, given the kernels' Philox mask, counted on its
+    route, and within four times the twin's distance from float64 plus
+    2^-21 of the output's size, item 0 all padding (every key at
+    MASK_VALUE: a uniform softmax, in the online form too)."""
+    b, nh = 3, 12
+    qkv, key_bias = _inputs(device, b, s, nh, seed=s)
+    key_bias[0] = MASK_VALUE
+    bias = _full_bias(device, key_bias, nh) if full else key_bias
+    seed = 2468
+    keep = dropout_keep_mask(seed, b, nh, s, rate, device) if rate else None
+    before = (fused_short_attention.launches, fused_short_attention.tf32x3_launches,
+              fused_short_attention.tf32x3_tiled_launches)
+    out = attention_forward(qkv, bias, nh, dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    assert attention_route(torch.float32, s, "forward") == "tf32x3_tiled"
+    assert (fused_short_attention.launches - before[0],
+            fused_short_attention.tf32x3_launches - before[1],
+            fused_short_attention.tf32x3_tiled_launches - before[2]) == (1, 0, 1)
+    ref = attention_reference(qkv, bias, nh, rate, keep)
+    torch.testing.assert_close(out, ref, **TOLS[torch.float32])
+    exact = attention_float64(qkv, bias, torch.zeros_like(out), nh, rate, keep)[0]
+    k_err, t_err = ((x.double() - exact).abs().max().item() for x in (out, ref))
+    floor = 2.0 ** -21 * exact.abs().max().item()
+    assert k_err <= 4.0 * t_err + floor, (k_err, t_err)
+
+
+def test_tf32x3_tiled_route_refuses_what_it_does_not_take(device):
+    """The key-tiled 3xTF32 kernel refuses bf16, S <= 80 (the 3xTF32
+    route's), S > 1024 and a qkv not 16-byte aligned: each launch raises
+    and counts nothing."""
+    qkv, bias = _inputs(device, 2, 1025, 4)
+    flat = torch.randn(2 * 130 * 768 + 1, device=device)
+    shifted = flat[1:].view(2, 130, 768)  # contiguous, 4 bytes off 16
+    short = qkv[:, :80].contiguous(), bias[:, :80].contiguous()
+    mid = qkv[:, :130].contiguous(), bias[:, :130].contiguous()
+    before = (fused_short_attention.launches,
+              fused_short_attention.tf32x3_tiled_launches)
+    for x, b in ((mid[0].bfloat16(), mid[1]), short, (qkv, bias),
+                 (shifted, mid[1])):
+        with pytest.raises(RuntimeError, match="key-tiled 3xTF32 route"):
+            _launch_fwd(x, b, 4, 0.0, 0, None, route="tf32x3_tiled")
+    assert (fused_short_attention.launches,
+            fused_short_attention.tf32x3_tiled_launches) == before
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
+@pytest.mark.parametrize("s", [30, 77, 197])
 def test_float32_training_forward_takes_the_cuda_core_kernel(device, s, full, rate):
     """fp32 K1 in training (an input needs its gradient) launches the
     CUDA-core kernel, the one whose probabilities K2 regenerates: nothing
-    counted on the 3xTF32 route, and its output that kernel's bit for bit
-    under the same Philox draws."""
+    counted on either 3xTF32 route, and its output that kernel's bit for
+    bit under the same Philox draws."""
     b, nh, seed = 3, 12, 97
     qkv, key_bias = _inputs(device, b, s, nh, seed=s)
     bias = _full_bias(device, key_bias, nh) if full else key_bias
-    before = fused_short_attention.launches, fused_short_attention.tf32x3_launches
+    before = (fused_short_attention.launches, fused_short_attention.tf32x3_launches,
+              fused_short_attention.tf32x3_tiled_launches)
     out = fused_short_attention(qkv.requires_grad_(), bias, nh, dropout_rate=rate,
                                 deterministic=False, seed=seed)
     torch.cuda.synchronize()
     assert (fused_short_attention.launches - before[0],
-            fused_short_attention.tf32x3_launches - before[1]) == (1, 0)
+            fused_short_attention.tf32x3_launches - before[1],
+            fused_short_attention.tf32x3_tiled_launches - before[2]) == (1, 0, 0)
     want = _launch_fwd(qkv.detach(), bias, nh, rate, seed, None, route="cuda_core")
     assert torch.equal(out.detach(), want)
 

@@ -234,6 +234,20 @@ def test_downstream_dataset_items_match_jax(trees, key, split):
     assert_items_equal(ours, theirs)
 
 
+@pytest.mark.parametrize("crop", [224, 336])
+@pytest.mark.parametrize("key", ["coco", "flickr30k"])
+def test_retrieval_items_at_clip_crop_sizes_match_jax(trees, key, crop):
+    """The retrieval datasets at CLIP's input sizes (``DATA.IMAGE_CROP_SIZE``
+    224 for ViT-B and ViT-L/14, 336 for ViT-L/14-336): (crop, crop, 3)
+    images equal to the JAX package's, as ``retrieval --weight-init clip``
+    feeds them to either package's towers."""
+    over = ["DATA.ROOT", trees[key], "DATA.IMAGE_CROP_SIZE", crop]
+    ours = DownstreamDatasetFactory.from_config(Config(None, over), split="val")
+    theirs = JFactory.from_config(JConfig(None, over), split="val")
+    assert np.asarray(ours[0]["image"]).shape == (crop, crop, 3)
+    assert_items_equal(ours, theirs)
+
+
 @pytest.mark.parametrize("mask_mode", ["none", "blackout", "blur"])
 def test_gender_masks_match_jax(trees, mask_mode):
     kw = dict(data_root=trees["coco_gender"], split="val", mask_mode=mask_mode)

@@ -48,7 +48,7 @@ from clip_lite_tpu.factories import OptimizerFactory as JOptimizerFactory
 from clip_lite_tpu.factories import PretrainingModelFactory as JModelFactory
 from clip_lite_tpu.utils import checkpointing as jckpt
 from clip_lite_torch import eval_utils
-from test_torch_clip import write_clip_dir
+from test_torch_clip import VISION_257, VISION_577, write_clip_dir
 from test_torch_downstream_data import (
     CROP,
     write_coco,
@@ -113,7 +113,8 @@ def setup(tmp_path_factory):
                 gender=write_gender(root, n=10))
 
 
-def _argv(setup, tmp_path, data_root, *extra, batch=4, ckpt=True, jax_run=False):
+def _argv(setup, tmp_path, data_root, *extra, batch=4, ckpt=True, jax_run=False,
+          crop=CROP):
     argv = ["--serialization-dir", str(tmp_path / ("jax" if jax_run else "port")),
             "--cpu-workers", 2, "--pretrain-config", FLAGSHIP,
             "--pretrain-config-override", *PRETRAIN]
@@ -122,7 +123,7 @@ def _argv(setup, tmp_path, data_root, *extra, batch=4, ckpt=True, jax_run=False)
     if batch:
         argv += ["--batch-size", batch]
     argv += [*extra, "--config-override", "DATA.ROOT", data_root,
-             "DATA.IMAGE_CROP_SIZE", CROP]
+             "DATA.IMAGE_CROP_SIZE", crop]
     if not jax_run:
         argv += ["--device", "cpu"]
     return [str(a) for a in argv]
@@ -307,6 +308,36 @@ def test_svm_map_fits_where_its_caller_says(monkeypatch):
         voc_clf.svm_map(x, labels, x, labels, [1.0], 2, logger, "cuda")
     got = voc_clf.svm_map(x, labels, x, labels, [1.0], 2, logger, "cpu")
     assert got == 100.0
+
+
+@pytest.mark.parametrize("vision", [VISION_257, VISION_577],
+                         ids=["vision_s257", "vision_s577"])
+def test_clip_weight_init_past_256_tokens(setup, tmp_path, capsys, monkeypatch,
+                                          vision):
+    """``--weight-init clip`` on tiny random CLIP directories whose vision
+    tower has ViT-L/14's 257 and ViT-L/14-336's 577 tokens (64 and 96 px
+    crops of 4 px patches, ``DATA.IMAGE_CROP_SIZE`` at the image size):
+    the port's CLI runs end to end and its image and text embeddings equal
+    the JAX CLI's (transformers' FlaxCLIPModel) at TOL.  Their recalls are
+    not compared: at these widths a random tower maps every image within
+    1e-3 of one point, so captions tie between images at fp32's rounding
+    and the order of a tie decides a recall."""
+    clip_dir = write_clip_dir(str(tmp_path / "clip"), vision=vision)
+    embeds = {}
+    for name, module in (("port", retrieval), ("jax", jretrieval)):
+        for method in ("encode_texts", "encode_image_batches"):
+            _record(monkeypatch, module.ClipComparisonBundle, method,
+                    embeds.setdefault(name, {}))
+    ours, theirs = _run_both(retrieval, jretrieval, setup, tmp_path,
+                             setup["coco"], "--weight-init", "clip",
+                             "--checkpoint-path", clip_dir, ckpt=False,
+                             crop=vision["image_size"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == ours
+    assert ours.keys() == theirs.keys()
+    assert all(0.0 <= v <= 100.0 for v in ours.values())
+    for method in ("encode_texts", "encode_image_batches"):
+        (got,), (want,) = embeds["port"][method], embeds["jax"][method]
+        _close(got, want)
 
 
 def test_clip_weight_init_raises_naming_its_item(setup, tmp_path, capsys):

@@ -167,7 +167,8 @@ def libs(tmp_path_factory):
     drop = [ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint64,
             ctypes.c_void_p]
     fwd, bwd = loaded["attention_fwd"], loaded["attention_bwd"]
-    for fn in (fwd.attention_fwd, fwd.attention_fwd_tc, fwd.attention_fwd_tf32x3):
+    for fn in (fwd.attention_fwd, fwd.attention_fwd_tc, fwd.attention_fwd_tf32x3,
+               fwd.attention_fwd_tf32x3_tiled):
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + drop
     for fn in (bwd.attention_bwd, bwd.attention_bwd_tc):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + drop
@@ -317,6 +318,72 @@ def test_tf32x3_entry_point_refuses_what_it_does_not_take(libs):
         assert fwd.attention_fwd_tf32x3(qkv.data_ptr() + offset, bias.data_ptr(),
                                         None, out.data_ptr(), 1, s, 1, 64, code,
                                         0, 0, 0, 1.0, 0, None) == want
+
+
+# The key-tiled 3xTF32 route (float32 K1 above 80): one over the limit of
+# the route above (two key tiles, the second of 17 keys; two query
+# blocks, the second with two warps of rows), a tail of 2 keys and of one
+# warp of rows, and ViT-L/14's 257 (a last key tile of one key, a last
+# query block of one row); each with both biases, with and without
+# dropout.
+TILED_CASES = [(s, full, rate) for s in (81, 130, 257) for full in (False, True)
+               for rate in (0.0, 0.1)]
+
+
+def _tiled_case(b, s, nh, full):
+    """qkv and bias: item 0 all padding (every key of its rows at
+    MASK_VALUE), item 1's keys real in every key tile, its last three
+    padding; a full bias adds N(0, 0.25) per head."""
+    g = torch.Generator().manual_seed(s)
+    qkv = torch.randn(b, s, 3 * nh * 64, generator=g)
+    key_bias = torch.zeros(b, s)
+    key_bias[0] = MASK_VALUE
+    key_bias[1:, s - 3:] = MASK_VALUE
+    if not full:
+        return qkv, key_bias
+    return qkv, (torch.randn(b, nh, s, s, generator=g) * 0.5
+                 + key_bias[:, None, None, :]).contiguous()
+
+
+@pytest.mark.parametrize("s,full,rate", TILED_CASES,
+                         ids=[f"S{s}-{'full' if f else 'key'}-rate{r}"
+                              for s, f, r in TILED_CASES])
+def test_tf32x3_tiled_route_matches_reference(libs, s, full, rate,
+                                              record_property):
+    """The key-tiled 3xTF32 K1 (float32) against its twin at fp32's bar,
+    given the kernels' Philox mask, and within four times the twin's
+    distance from the float64 evaluation plus 2^-21 of the output's size
+    (both distances recorded), batch item 0 all padding (every key at
+    MASK_VALUE: a uniform softmax, in the online form too)."""
+    fwd, _ = libs
+    nh, b, seed = 1, 2, 31
+    qkv, bias = _tiled_case(b, s, nh, full)
+    out = torch.empty(b, s, nh * 64)
+    drop = ((1, dropout_threshold(rate), float(torch.tensor(1.0 / (1.0 - rate))),
+             seed) if rate else (0, 0, 1.0, 0))
+    assert fwd.attention_fwd_tf32x3_tiled(qkv.data_ptr(), bias.data_ptr(), None,
+                                          out.data_ptr(), b, s, nh, 64, 0,
+                                          int(full), *drop, None) == 0
+    keep = philox_keep_mask(seed, b, nh, s, rate) if rate else None
+    ref = attention_reference(qkv, bias, nh, rate, keep)
+    torch.testing.assert_close(out, ref, **TOLS[torch.float32])
+    exact = attention_float64(qkv, bias, torch.zeros_like(out), nh, rate, keep)[0]
+    kernel, twin = ((x.double() - exact).abs().max().item() for x in (out, ref))
+    record_property("float64_distance", {"kernel": kernel, "twin": twin})
+    assert kernel <= 4.0 * twin + 2.0 ** -21 * exact.abs().max().item()
+
+
+def test_tf32x3_tiled_entry_point_refuses_what_it_does_not_take(libs):
+    """The key-tiled 3xTF32 entry point refuses bf16, S <= 80 (the route
+    above's), S > 1024 and misaligned pointers before any launch."""
+    fwd, _ = libs
+    qkv, bias, _ = _case(1, 1025, 1, False, torch.float32)
+    out = torch.empty(1, 1025, 64)
+    for s, code, offset, want in ((1025, 0, 0, 1), (80, 0, 0, 1), (130, 1, 0, 1),
+                                  (130, 0, 4, 716)):
+        assert fwd.attention_fwd_tf32x3_tiled(
+            qkv.data_ptr() + offset, bias.data_ptr(), None, out.data_ptr(), 1, s,
+            1, 64, code, 0, 0, 0, 1.0, 0, None) == want
 
 
 def test_tf32_split_rounds_to_nearest_ties_away(tmp_path_factory):
