@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 (``--crop-kernel`` runs phases 1, 2 and 10d's crop kernel alone, and
 prints its row; ``--native`` runs phases 1, 2 and 10d alone;
 ``--quality`` phases 1, 2 and 11; ``--ranks`` phases 1, 2 and 12;
-``--matrix`` phases 1, 2 and 13; ``--clip`` phases 1, 2 and 14.)  The
+``--matrix`` phases 1, 2 and 13; ``--clip`` phases 1, 2 and 14;
+``--long`` phases 1, 2 and 15.)  The
 whole run logs each phase's seconds as it ends, and all of them before
 the kernels line.
 
@@ -356,12 +357,34 @@ caught:
    CUDA-core kernel beside it in turns), (128, 257, 3072) (ViT-L/14, 16
    heads) and (128, 577, 3072) (ViT-L/14 at 336 px), each with a zero
    key bias.
-15. One JSON line listing every kernel (K3's standalone and fused entry
+15. Past 256 tokens, where the JAX package's wrapper takes XLA: the
+   flagship with DATA.MAX_CAPTION_LENGTH 512 (BERT-12's 512 positions),
+   captions of 257-512 tokens, each path with the counts set to 0 just
+   before and read just after: (a) serving, EncoderBundle over N_ITEMS
+   captions at batch BATCH: K1 12 x 2 launches, all on the key-tiled
+   tensor-core route, the embeddings against the plain attention's at
+   TEXT_TOL bf16, captions/s; (b) LONG_STEPS (4) training steps of BATCH
+   through train_step (dropout 0.1): K1 and K2 12 a step on the key-tiled
+   routes (check_routes), the median step over steps 2-4, pairs/s, peak
+   memory; (c, e) phase 7's parity at PARITY_BATCH on long captions: fp32
+   (K1 on the key-tiled 3xTF32 kernel in training, K2's key-tiled pair)
+   at PARITY_TOL, bf16 at LONG_PARITY_TOL (loss) and the floor against
+   the fp32 step; (d) MPNet's full bias, LONG_MPNET_STEPS (2) steps of
+   LONG_MPNET_BATCH (64), the relative bias table's gradient (the sum of
+   every layer's dbias from K2) finite and non-zero at every step; (f) K1
+   and K2 at (128, 512, 2304), 12 heads, dropout 0.1: key bias in bf16
+   and fp32, MPNet's full bias in bf16, each against its plain version
+   and the float64 evaluation (bf16 within twice the plain version's
+   distance, fp32 within four times plus 2^-21 of the output's size),
+   with times, the plain version's, SDPA's (autograd for K2) and bounds
+   (fp32 as three TF32 products at the TF32 peak).
+16. One JSON line listing every kernel (K3's standalone and fused entry
    points each with their own launches, fp32 K1's 3xTF32 route with its
    rows at the CLIP towers' shapes and the flagship's S = 30, its
-   key-tiled route with its rows at the three vision shapes,
-   crop_resize_flip_u8, which replaces the JAX core's host C++ and no TPU
-   kernel); then the device line last.
+   key-tiled route with its rows at the three vision shapes and phase
+   15's fp32 row, bf16 K1's key-tiled route and K2's key-tiled pair with
+   phase 15's rows, crop_resize_flip_u8, which replaces the JAX core's
+   host C++ and no TPU kernel); then the device line last.
 """
 
 import functools
@@ -683,9 +706,10 @@ def check_routes(cfg, seq: int, launches: dict, training: bool = False) -> None:
     """Every K1 and K2 launch of a main path took the route that
     attention_route picks for its kernel, compute type and caption length,
     and for fp32 K1 whether it ``training`` (the tensor cores for bf16 at S
-    <= 64; for fp32 K1 at S <= 80 outside training the 3xTF32 kernel): all
-    of them on that route's count (``<kernel>_tc``, ``<kernel>_tf32x3``),
-    none on another's."""
+    <= 64; for fp32 K1 at S <= 80 outside training the 3xTF32 kernel; above
+    256 the key-tiled kernels): all of them on that route's count
+    (``<kernel>_tc``, ``<kernel>_tf32x3``, ``attention_fwd_tc_tiled``,
+    ``attention_bwd_tiled`` ...), none on another's."""
     from clip_lite_torch.factories import compute_dtype
     from clip_lite_torch.ops.attention import attention_route
 
@@ -696,7 +720,9 @@ def check_routes(cfg, seq: int, launches: dict, training: bool = False) -> None:
         route = attention_route(compute_dtype(cfg), seq, kernel, training)
         for other, key in (("tensor_core", f"{name}_tc"),
                            ("tf32x3", f"{name}_tf32x3"),
-                           ("tf32x3_tiled", f"{name}_tf32x3_tiled")):
+                           ("tf32x3_tiled", f"{name}_tf32x3_tiled"),
+                           ("tensor_core_tiled", f"{name}_tc_tiled"),
+                           ("tiled", f"{name}_tiled")):
             if key not in launches:
                 if route == other:
                     raise AssertionError(f"{name}: the {other} route's "
@@ -801,19 +827,24 @@ def phase_main_path(overrides=(), name: str = "main path") -> dict:
     return dict(launches, captions_per_s=statistics.median(txt_s))
 
 
-def float64_bar(name: str, pairs, exact) -> dict:
+def float64_bar(name: str, pairs, exact, tf32x3: bool = False) -> dict:
     """Each (kernel, plain) output against the float64 evaluation of the
     same function from the same inputs and keep mask: the kernel's max
-    error may be at most twice the plain version's."""
-    out = {what: dict(kernel=(got.double() - want).abs().max().item(),
-                      plain=(twin.double() - want).abs().max().item())
-           for what, (got, twin), want in zip(("out", "dqkv", "dbias"), pairs,
-                                              exact) if want is not None}
-    log(f"{name}: max error from float64, kernel vs plain (bar 2x): {out}")
-    over = {k: v for k, v in out.items() if v["kernel"] > 2.0 * v["plain"]}
+    error may be at most twice the plain version's; with ``tf32x3`` (fp32
+    products as three TF32 products, 2^-22 of each left out) four times
+    plus 2^-21 of the output's size."""
+    out = {}
+    for what, (got, twin), want in zip(("out", "dqkv", "dbias"), pairs, exact):
+        if want is None:
+            continue
+        plain = (twin.double() - want).abs().max().item()
+        out[what] = dict(kernel=(got.double() - want).abs().max().item(),
+                         plain=plain, bar=4.0 * plain + 2.0 ** -21
+                         * want.abs().max().item() if tf32x3 else 2.0 * plain)
+    log(f"{name}: max error from float64, kernel vs plain: {out}")
+    over = {k: v for k, v in out.items() if v["kernel"] > v["bar"]}
     if over:
-        raise AssertionError(f"{name}: kernel over twice the plain version's "
-                             f"error from float64: {over}")
+        raise AssertionError(f"{name}: kernel over its bar from float64: {over}")
     return out
 
 
@@ -829,9 +860,12 @@ def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
     library call (``scaled_dot_product_attention`` with the bool of real
     keys, or the full bias as a float mask whose gradient the backward
     takes), both ways; bounds.  Every call reads its inputs from device
-    memory (``l2_spilling_copies``)."""
+    memory (``l2_spilling_copies``).  Past MAX_SEQ (256) the CUDA-core
+    kernels take no launch, so the routes there are timed alone, and fp32's
+    bound counts its products as three TF32 products each at the TF32
+    peak, as the key-tiled routes compute them."""
     from clip_lite_torch.ops.attention import (
-        _launch_bwd, _launch_fwd, attention_backward,
+        MAX_SEQ, _launch_bwd, _launch_fwd, attention_backward,
         attention_backward_reference, attention_forward, attention_reference,
         attention_route)
 
@@ -884,8 +918,8 @@ def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
     def turns(make, kernel: str) -> dict:
         times = dict(host_ms=enqueue_ms(make(False), copies))
         for key, timer in (("ms", time_ms), ("ms_device", device_ms)):
-            if attention_route(dtype, s, kernel) == "cuda_core":  # one route
-                times[key] = timer(make(False), copies)
+            if attention_route(dtype, s, kernel) == "cuda_core" or s > MAX_SEQ:
+                times[key] = timer(make(False), copies)  # one route
                 continue
             t = [timer(make(c), copies) for c in (False, True, True, False)]
             times[key] = (t[0] + t[3]) / 2
@@ -896,14 +930,21 @@ def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
         return dict(library_ms=time_ms(fn, inputs),
                     library_ms_device=device_ms(fn, inputs))
 
+    def least(n_bytes: int, n_ops: int) -> dict:
+        if dtype == torch.float32 and s > MAX_SEQ:  # 3xTF32
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 3 * n_ops / TF32_PEAK_OPS
+            return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+        return bound(n_bytes, n_ops, dtype)
+
     k1 = dict(
         **turns(fwd, "forward"),
         plain_ms=time_ms(lambda x, _, m: attention_reference(x, m, nh, rate, keep),
                          copies),
         **library(library_fwd, lib_inputs),
         # qkv and the bias read once, the context written once.
-        **bound(qkv.numel() * item + bias.numel() * 4 + b * s * h * item,
-                4 * b * nh * s * s * hd, dtype))
+        **least(qkv.numel() * item + bias.numel() * 4 + b * s * h * item,
+                4 * b * nh * s * s * hd))
     k2 = dict(
         **turns(bwd, "backward"),
         plain_ms=time_ms(lambda x, y, m: attention_backward_reference(
@@ -913,8 +954,8 @@ def time_attention(qkv, g, bias, valid, rate: float, seed: int, keep) -> tuple:
            else dict(library_ms=None, library_ms_device=None)),
         # qkv, bias and g read once, dqkv (and dbias) written once; five
         # products.
-        **bound(2 * qkv.numel() * item + (2 if full_bias else 1) * bias.numel() * 4
-                + g.numel() * item, 10 * b * nh * s * s * hd, dtype))
+        **least(2 * qkv.numel() * item + (2 if full_bias else 1) * bias.numel() * 4
+                + g.numel() * item, 10 * b * nh * s * s * hd))
     del copies, lib_inputs, graphs, o, x, y, m
     return k1, k2
 
@@ -1019,8 +1060,9 @@ def mpnet_bias(key_bias: torch.Tensor) -> torch.Tensor:
     return rel.permute(2, 0, 1).contiguous()[None] + key_bias[:, None, None, :]
 
 
-def training_batch(rng: np.random.Generator, tok, n: int, crop: int) -> dict:
-    enc = tok(captions(rng, n), max_length=tok.max_length)
+def training_batch(rng: np.random.Generator, tok, n: int, crop: int,
+                   make_captions=captions) -> dict:
+    enc = tok(make_captions(rng, n), max_length=tok.max_length)
     return {"image": rng.standard_normal((n, crop, crop, 3), dtype=np.float32),
             "input_ids": np.asarray(enc["input_ids"], np.int32),
             "attention_mask": np.asarray(enc["attention_mask"], np.int32)}
@@ -1189,13 +1231,17 @@ def within(got: dict, tol: dict) -> bool:
             and got["qkv_grad_cos_min"] >= tol["cos"])
 
 
-def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
+def phase_training_parity(overrides=(), name: str = "training parity",
+                          make_captions=captions, tol=None,
+                          floor_kinds=("text_bf16",)) -> dict:
     """One step through K1/K2 against one through the plain attention, same
     state and batch, dropout 0, at batch PARITY_BATCH: in fp32 and in bf16
-    (AMP), held at PARITY_TOL; and each bf16 step, the bf16 one with the
-    image tower in fp32 ("text_bf16") too, against the plain fp32 step,
-    the bf16 noise floor.  The flagship, or the flagship with
-    ``overrides``."""
+    (AMP), held at PARITY_TOL (or ``tol``); and each bf16 step, the bf16
+    one with the image tower in fp32 ("text_bf16") too, against the plain
+    fp32 step, the bf16 noise floor, held at BF16_FLOOR_FACTOR for
+    ``floor_kinds``.  The flagship, or the flagship with ``overrides``;
+    captions from ``make_captions``."""
+    tol = dict(PARITY_TOL, **(tol or {}))
     from clip_lite_torch.config import Config
     from clip_lite_torch.data.tokenizers import HashingTokenizer
     from clip_lite_torch.engine import (
@@ -1211,7 +1257,8 @@ def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
                 tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE,
                                        cfg.DATA.MAX_CAPTION_LENGTH)
                 batch = training_batch(np.random.default_rng(2), tok,
-                                       PARITY_BATCH, cfg.DATA.IMAGE_CROP_SIZE)
+                                       PARITY_BATCH, cfg.DATA.IMAGE_CROP_SIZE,
+                                       make_captions)
             state = create_train_state(cfg, device="cuda", state_dict=state_dict)
             if state_dict is None:
                 state_dict = {k: v.detach().cpu()
@@ -1242,22 +1289,25 @@ def phase_training_parity(overrides=(), name: str = "training parity") -> dict:
            for kind in ("float32", "bfloat16")}
     for kind, got in out.items():
         log(f"{name} {kind}, K1/K2 vs plain attention: {got} "
-            f"(tol {PARITY_TOL[kind]})")
+            f"(tol {tol[kind]})")
     floor = {(kind, flag): parity(runs[kind, flag], runs["float32", "false"])
              for kind in ("bfloat16", "text_bf16") for flag in ("true", "false")}
     for (kind, flag), got in floor.items():
         log(f"{name}: {kind} step, FUSED_ATTENTION {flag}, against the plain "
             f"fp32 step: {got}")
     for kind, got in out.items():
-        if not within(got, PARITY_TOL[kind]):
+        if not within(got, tol[kind]):
             raise AssertionError(f"{name} {kind}: step parity fails: {got}")
-    fused, plain = floor["text_bf16", "true"], floor["text_bf16", "false"]
-    if (fused["qkv_grad_rel_max"] > BF16_FLOOR_FACTOR * plain["qkv_grad_rel_max"]
-            or 1 - fused["qkv_grad_cos_min"]
-            > BF16_FLOOR_FACTOR * (1 - plain["qkv_grad_cos_min"])):
-        raise AssertionError(
-            f"the bf16 step through K1/K2 lies more than {BF16_FLOOR_FACTOR}x "
-            "as far from fp32 as the plain attention's")
+    for kind in floor_kinds:
+        fused, plain = floor[kind, "true"], floor[kind, "false"]
+        if (fused["qkv_grad_rel_max"]
+                > BF16_FLOOR_FACTOR * plain["qkv_grad_rel_max"]
+                or 1 - fused["qkv_grad_cos_min"]
+                > BF16_FLOOR_FACTOR * (1 - plain["qkv_grad_cos_min"])):
+            raise AssertionError(
+                f"{name}: the {kind} step through K1/K2 lies more than "
+                f"{BF16_FLOOR_FACTOR}x as far from fp32 as the plain "
+                "attention's")
     out["bf16_vs_float32"] = {f"{kind} {flag}": got
                               for (kind, flag), got in floor.items()}
     out["launches"] = launches
@@ -1275,8 +1325,10 @@ def attention_counts() -> dict:
             "attention_fwd_tf32x3": fused_short_attention.tf32x3_launches,
             "attention_fwd_tf32x3_tiled":
                 fused_short_attention.tf32x3_tiled_launches,
+            "attention_fwd_tc_tiled": fused_short_attention.tc_tiled_launches,
             "attention_bwd": attention_backward.launches,
-            "attention_bwd_tc": attention_backward.tc_launches}
+            "attention_bwd_tc": attention_backward.tc_launches,
+            "attention_bwd_tiled": attention_backward.tiled_launches}
 
 
 def kernel_counters() -> dict:
@@ -4662,7 +4714,7 @@ def matrix_batch(cfg, rng: np.random.Generator, n: int = BATCH) -> dict:
 
 def launch_counts() -> dict:
     """Each kernel's launches by its trace range name, K1's and K2's on
-    the tensor-core route and K1's on the 3xTF32 route."""
+    the tensor-core and key-tiled routes and K1's on the 3xTF32 routes."""
     from clip_lite_torch.ops.attention import (
         attention_backward, fused_short_attention)
 
@@ -4670,7 +4722,9 @@ def launch_counts() -> dict:
     counts.update(attention_fwd_tc=fused_short_attention.tc_launches,
                   attention_fwd_tf32x3=fused_short_attention.tf32x3_launches,
                   attention_fwd_tf32x3_tiled=fused_short_attention.tf32x3_tiled_launches,
-                  attention_bwd_tc=attention_backward.tc_launches)
+                  attention_fwd_tc_tiled=fused_short_attention.tc_tiled_launches,
+                  attention_bwd_tc=attention_backward.tc_launches,
+                  attention_bwd_tiled=attention_backward.tiled_launches)
     return counts
 
 
@@ -4683,6 +4737,7 @@ def zero_launch_counts() -> None:
     fused_short_attention.tc_launches = attention_backward.tc_launches = 0
     fused_short_attention.tf32x3_launches = 0
     fused_short_attention.tf32x3_tiled_launches = 0
+    fused_short_attention.tc_tiled_launches = attention_backward.tiled_launches = 0
 
 
 def matrix_check(name: str, cfg, launches: dict, steps: int, attention: bool,
@@ -5253,7 +5308,8 @@ def write_clip_coco(root: str, rng: np.random.Generator) -> str:
 # K1's counters by route, as phase 14 reads them.
 K1_ROUTE_COUNTERS = {"all": "launches", "tensor_core": "tc_launches",
                      "tf32x3": "tf32x3_launches",
-                     "tf32x3_tiled": "tf32x3_tiled_launches"}
+                     "tf32x3_tiled": "tf32x3_tiled_launches",
+                     "tensor_core_tiled": "tc_tiled_launches"}
 
 
 def k1_route_counts() -> dict:
@@ -5261,18 +5317,6 @@ def k1_route_counts() -> dict:
 
     return {k: getattr(fused_short_attention, c)
             for k, c in K1_ROUTE_COUNTERS.items()}
-
-
-def float64_forward(qkv: torch.Tensor, bias: torch.Tensor, nh: int,
-                    chunk: int = 8) -> torch.Tensor:
-    """K1's function in float64 (``attention_float64``'s output), a chunk
-    of the batch at a time to bound its memory."""
-    from clip_lite_torch.ops.attention import attention_float64
-
-    return torch.cat([attention_float64(
-        qkv[i:i + chunk], bias[i:i + chunk],
-        qkv.new_zeros(qkv[i:i + chunk].shape[:2] + (qkv.shape[2] // 3,)),
-        nh)[0] for i in range(0, qkv.shape[0], chunk)])
 
 
 def clip_k1_row(name: str, qkv: torch.Tensor, bias: torch.Tensor,
@@ -5303,7 +5347,8 @@ def clip_k1_row(name: str, qkv: torch.Tensor, bias: torch.Tensor,
     err = (out - ref).abs().max().item()
     if not err <= TOLS[torch.float32]["atol"]:
         raise AssertionError(f"K1 {name}: max|kernel-plain| {err}")
-    exact = float64_forward(qkv, bias, nh)
+    exact = float64_attention(qkv, bias, qkv.new_zeros(b, s, h), nh, 0.0,
+                              None)[0]
     f64 = {k: (x.double() - exact).abs().max().item()
            for k, x in (("kernel", out), ("plain", ref))}
     floor = 2.0 ** -21 * exact.abs().max().item()
@@ -5565,6 +5610,255 @@ def phase_clip() -> dict:
         rows=rows)
 
 
+# Phase 15: the flagship at DATA.MAX_CAPTION_LENGTH 512 (BERT's 512
+# positions), captions of 257-512 tokens; training LONG_STEPS steps of
+# BATCH, MPNet LONG_MPNET_STEPS steps of LONG_MPNET_BATCH (its full
+# (B, 12, 512, 512) bias is 1.61 GB at batch 128, and its dbias as much).
+LONG_SEQ = 512
+LONG = ["DATA.MAX_CAPTION_LENGTH", LONG_SEQ]
+LONG_STEPS, LONG_MPNET_STEPS, LONG_MPNET_BATCH = 4, 2, 64
+# Phase 15's bf16 step parity.  At 512 tokens two correct bf16 steps lie
+# far apart: the plain attention's bf16 step lies at max-rel 1.10 and
+# cosine 0.570 from the plain fp32 step, the step through K1/K2 at 1.13
+# and 0.575, and the two bf16 steps at 0.80 and 0.848 from each other
+# (call F20c, NVIDIA H100 80GB HBM3, 700 W; at 30 tokens phase 7 reads
+# 0.147 and 0.995).  So PARITY_TOL's bf16 max-rel and cosine, set at 30
+# tokens, cannot tell a fault from bf16's rounding there: the bf16 step is
+# held by PARITY_TOL's loss, and by phase 7's floor against the fp32 step
+# (BF16_FLOOR_FACTOR), with the whole model in bf16 and with the image
+# tower in fp32.  The fp32 step is held at PARITY_TOL.
+LONG_PARITY_TOL = {"bfloat16": dict(PARITY_TOL["bfloat16"], rel=math.inf,
+                                    cos=-1.0)}
+
+
+def long_captions(rng: np.random.Generator, n: int) -> list:
+    """Captions of 257-512 tokens with [CLS] and [SEP] (one word a token
+    for the hashing tokenizer), so that the key bias masks padding."""
+    lengths = rng.integers(LONG_SEQ // 2 - 1, LONG_SEQ - 1, n)
+    return [" ".join(rng.choice(WORDS, k)) for k in lengths]
+
+
+def long_serving() -> dict:
+    """(a) The flagship's text tower through EncoderBundle at S = 512 on
+    N_ITEMS captions of 257-512 tokens, batch BATCH: K1 12 x 2 launches,
+    all on the key-tiled tensor-core route; the embeddings against the
+    same weights through the plain attention at TEXT_TOL bf16; captions/s."""
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.tokenizers import HashingTokenizer
+    from clip_lite_torch.eval_utils import EncoderBundle
+
+    cfg = Config(str(FLAGSHIP), LONG)
+    bundle = EncoderBundle(cfg, batch_size=BATCH, device="cuda")
+    tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE, LONG_SEQ)
+    texts = long_captions(np.random.default_rng(15), N_ITEMS)
+    tokens = [sum(m) for m in tok(texts)["attention_mask"]]
+    bundle.encode_texts(texts[:BATCH], tok)  # warm-up
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    emb = bundle.encode_texts(texts, tok)
+    launches, counts = k1_route_counts(), attention_counts()
+    want = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS * math.ceil(N_ITEMS / BATCH)
+    log(f"long serving: {N_ITEMS} captions of {min(tokens)}-{max(tokens)} tokens "
+        f"at S = {LONG_SEQ}; K1 launches by route {launches}")
+    check_embeddings("long text embeddings", emb)
+    if launches["all"] != want or launches["tensor_core_tiled"] != want:
+        raise AssertionError(f"long serving: K1 launches {launches}, expected "
+                             f"{want}, all on the key-tiled tensor-core route")
+    plain = EncoderBundle(Config(str(FLAGSHIP), LONG + [
+        "MODEL.TEXTUAL.FUSED_ATTENTION", "false"]),
+        state_dict=bundle.model.state_dict(), device="cuda")
+    agree = text_agreement(emb, plain.encode_texts(texts, tok))
+    del plain
+    log(f"long serving: text embeddings, K1 vs plain attention, bf16: {agree} "
+        f"(tol {TEXT_TOL['bfloat16']})")
+    if agree["max_abs"] > TEXT_TOL["bfloat16"]["max_abs"] or \
+            agree["min_cos"] < TEXT_TOL["bfloat16"]["min_cos"]:
+        raise AssertionError(f"long serving: embeddings disagree: {agree}")
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle.encode_texts(texts, tok)
+        rates.append(N_ITEMS / (time.perf_counter() - t0))
+    log(f"long serving throughput at batch {BATCH}, S = {LONG_SEQ} (numpy in, "
+        f"numpy out): captions/s {rates} (median {statistics.median(rates)})")
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=counts, agreement=agree,
+                captions_per_s=statistics.median(rates))
+
+
+def long_training(overrides=(), name: str = "long training", batch=None,
+                  steps: int = LONG_STEPS) -> dict:
+    """(b), (d) ``steps`` steps of ``batch`` pairs through train_step at
+    S = 512 (dropout 0.1), the counts set to 0 just before and read just
+    after: finite losses and grad norms, K1 and K2 12 a step, every launch
+    on its key-tiled route (check_routes); MPNet's relative bias table's
+    gradient (the sum of every layer's dbias) finite and non-zero at every
+    step.  The median step after the first, pairs/s, peak memory."""
+    from clip_lite_torch.config import Config
+    from clip_lite_torch.data.tokenizers import HashingTokenizer
+    from clip_lite_torch.engine import (
+        create_train_state, make_train_step, metrics_to_floats)
+
+    batch = batch or BATCH
+    cfg = Config(str(FLAGSHIP), LONG + list(overrides))
+    state = create_train_state(cfg, device="cuda")
+    tok = HashingTokenizer(cfg.MODEL.TEXTUAL.VOCAB_SIZE, LONG_SEQ)
+    rng = np.random.default_rng(16)
+    batches = [training_batch(rng, tok, batch, cfg.DATA.IMAGE_CROP_SIZE,
+                              long_captions) for _ in range(steps)]
+    params = dict(state.model.named_parameters())
+    tables = [n for n in params if n.endswith("relative_attention_bias.weight")]
+    train_step = make_train_step(cfg)
+    records = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    for batch_ in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch_)
+        values = metrics_to_floats(metrics)
+        records.append(dict(seconds=time.perf_counter() - t0, **values))
+        if not (math.isfinite(values["total_loss"])
+                and math.isfinite(values["grad_norm"])):
+            raise AssertionError(f"{name} step {state.step}: {values}")
+        for n in tables:
+            gmax = float(params[n].grad.abs().max())
+            records[-1]["table_grad_max"] = gmax
+            if not 0.0 < gmax < math.inf:
+                raise AssertionError(f"{name} step {state.step}: the relative "
+                                     f"bias table's gradient has max {gmax}")
+    torch.cuda.synchronize()
+    launches = attention_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    for i, rec in enumerate(records):
+        log(f"{name} step {i + 1}: {json.dumps(rec)}")
+    n = cfg.MODEL.TEXTUAL.NUM_HIDDEN_LAYERS * steps
+    if launches["attention_fwd"] != n or launches["attention_bwd"] != n:
+        raise AssertionError(f"{name}: launches {launches}, expected {n} each")
+    check_routes(cfg, LONG_SEQ, launches, training=True)
+    median = statistics.median(r["seconds"] for r in records[1:])
+    log(f"{name}: {text_tower(cfg, state.model)} at S = {LONG_SEQ}, batch "
+        f"{batch}, AMP {cfg.AMP}: launches {launches}; median step {median} s "
+        f"over steps 2-{steps}, {batch / median} pairs/s; peak memory "
+        f"{peak_mib} MiB")
+    del state, params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=median, pairs_per_s=batch / median,
+                peak_mib=peak_mib, batch=batch)
+
+
+def float64_attention(qkv, bias, g, nh, rate, keep, chunk: int = 8):
+    """``attention_float64``, (out, dqkv, dbias), a chunk of the batch at a
+    time to bound its memory (its float64 probabilities are 3.2 GB at
+    (128, 12, 512, 512))."""
+    from clip_lite_torch.ops.attention import attention_float64
+
+    parts = [attention_float64(qkv[i:i + chunk], bias[i:i + chunk], g[i:i + chunk],
+                               nh, rate, None if keep is None else keep[i:i + chunk])
+             for i in range(0, qkv.shape[0], chunk)]
+    return [None if parts[0][k] is None else torch.cat([p[k] for p in parts])
+            for k in range(3)]
+
+
+def long_kernel_rows() -> dict:
+    """(f) K1 and K2 at (128, 512, 2304), 12 heads, dropout RATE from the
+    kernels' Philox draw: key bias (lengths 257-512) in bf16 and fp32, and
+    MPNet's full bias in bf16; each against its plain version (TOLS; dbias
+    at fp32's) and the float64 evaluation (bf16 within twice the plain
+    version's distance, fp32 within four times plus 2^-21 of the output's
+    size), then timed by time_attention; bf16 with the key bias also
+    without dropout."""
+    from clip_lite_torch.ops.attention import (
+        attention_backward, attention_backward_reference, attention_forward,
+        attention_reference, dropout_keep_mask)
+
+    b, s, nh, h = BATCH, LONG_SEQ, 12, 768
+    qkv32, key_bias, valid = attention_inputs(s, (s // 2 + 1, s))
+    g32 = torch.randn(b, s, h, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(15))
+    seed = 1515
+    keep = dropout_keep_mask(seed, b, nh, s, RATE, "cuda")
+    rows = {}
+    for variant, dtype in (("key", torch.bfloat16), ("key", torch.float32),
+                           ("full", torch.bfloat16)):
+        bias = mpnet_bias(key_bias) if variant == "full" else key_bias
+        qkv, g = qkv32.to(dtype), g32.to(dtype)
+        out = attention_forward(qkv, bias, nh, dropout_rate=RATE, seed=seed)
+        dqkv, dbias = attention_backward(qkv, bias, g, nh, dropout_rate=RATE,
+                                         seed=seed)
+        ref = attention_reference(qkv, bias, nh, RATE, keep)
+        dref, dbias_ref = attention_backward_reference(qkv, bias, g, nh, RATE,
+                                                       keep)
+        torch.cuda.synchronize()
+        errs = [(a.float() - r.float()).abs().max().item()
+                for a, r in ((out, ref), (dqkv, dref))]
+        name = f"long K1/K2 {variant} bias {str(dtype).replace('torch.', '')}"
+        log(f"{name} rate {RATE}: max|kernel-plain| {errs}")
+        # The float64 reading first, so that a failing bar below comes
+        # with it.
+        f64 = float64_bar(name, [(out, ref), (dqkv, dref), (dbias, dbias_ref)],
+                          float64_attention(qkv, bias, g, nh, RATE, keep),
+                          tf32x3=dtype == torch.float32)
+        torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+        torch.testing.assert_close(dqkv.float(), dref.float(), **TOLS[dtype])
+        if variant == "full":
+            errs.append((dbias - dbias_ref).abs().max().item())
+            torch.testing.assert_close(dbias, dbias_ref, **TOLS[torch.float32])
+        del out, ref, dqkv, dref, dbias, dbias_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        k1, k2 = time_attention(qkv, g, bias, valid, RATE, seed, keep)
+        if variant == "key" and dtype == torch.bfloat16:
+            # Without dropout: what the kernels' Philox draws cost.
+            for r, r0 in zip((k1, k2), time_attention(qkv, g, bias, valid, 0.0,
+                                                      seed, None)):
+                r.update(ms_no_dropout=r0["ms"],
+                         ms_device_no_dropout=r0["ms_device"])
+        k1.update(max_abs_err=errs[0], float64_err=f64["out"],
+                  shape=[b, s, 3 * h], heads=nh, bias=variant, dropout_rate=RATE)
+        k2.update(max_abs_err=errs[1],
+                  float64_err={k: v for k, v in f64.items() if k != "out"},
+                  shape=[b, s, 3 * h], heads=nh, bias=variant, dropout_rate=RATE)
+        if variant == "full":
+            k2["dbias_max_abs_err"] = errs[2]
+        for kname, r in (("K1", k1), ("K2", k2)):
+            log(f"{name} {kname}: {json.dumps(r)}")
+        rows[variant, str(dtype).replace("torch.", "")] = dict(k1=k1, k2=k2)
+        del qkv, g, bias
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_long() -> dict:
+    """Phase 15: the flagship at DATA.MAX_CAPTION_LENGTH 512, past the
+    256 tokens where the JAX package's wrapper takes XLA: (a) serving, (b)
+    training, (c) step parity in bf16 and (e) in fp32 at PARITY_BATCH
+    (long captions; the plain attention keeps (B, 12, 512, 512) fp32
+    probabilities a layer), (d) MPNet, (f) the kernels at (128, 512,
+    2304)."""
+    t0 = time.perf_counter()
+    serving = long_serving()
+    training = long_training()
+    parity = phase_training_parity(LONG, "long training parity", long_captions,
+                                   LONG_PARITY_TOL, ("bfloat16", "text_bf16"))
+    mpnet = long_training(MPNET, "long MPNet training", LONG_MPNET_BATCH,
+                          LONG_MPNET_STEPS)
+    rows = long_kernel_rows()
+    log(f"long: phase 15 in {time.perf_counter() - t0} s")
+    by_path = {"long_serving": serving["launches"],
+               "long_training": training["launches"],
+               "long_mpnet_training": mpnet["launches"],
+               **{f"long_parity_{k}": v for k, v in parity["launches"].items()}}
+    return dict(serving=serving, training=training, parity=parity, mpnet=mpnet,
+                rows=rows, by_path=by_path)
+
+
 def crop_kernel_only() -> int:
     """``--crop-kernel``: phase 10d's records, then crop_resize_flip_u8
     alone (native_kernel_alone), its row printed as one JSON line."""
@@ -5603,6 +5897,9 @@ def main() -> int:
         "--clip", action="store_true",
         help="run phases 1, 2 and 14 (retrieval --weight-init clip) alone")
     parser.add_argument(
+        "--long", action="store_true",
+        help="run phases 1, 2 and 15 (the flagship at 512 tokens) alone")
+    parser.add_argument(
         "--crop-kernel", action="store_true",
         help="build decode_crop.cu, check and time crop_resize_flip_u8 alone "
              "on phase 10d's records and print its row, nothing else (to "
@@ -5640,6 +5937,10 @@ def main() -> int:
     if args.clip:
         phase_build()
         phase_clip()
+        return 0
+    if args.long:
+        phase_build()
+        phase_long()
         return 0
     script_t0 = time.perf_counter()
     seconds = {}
@@ -5685,6 +5986,7 @@ def main() -> int:
     matrix = {f"matrix_{run}": result["launches"]
               for run, result in timed("13", phase_matrix).items()}
     clip = timed("14", phase_clip)
+    long = timed("15", phase_long)
     log(f"phase seconds: {json.dumps(seconds)}; the script so far "
         f"{time.perf_counter() - script_t0} s after phase 1")
     cli = {"cli_host_loader": data["a"]["launches"],
@@ -5722,7 +6024,8 @@ def main() -> int:
                    **{k: n["K1 attention_fwd"] for k, n in ranks.items()},
                    **{k: n["K1 attention_fwd"] for k, n in matrix.items()
                       if n["K1 attention_fwd"]},
-                   "clip_retrieval": clip["launches"]}
+                   "clip_retrieval": clip["launches"],
+                   **{k: n["attention_fwd"] for k, n in long["by_path"].items()}}
     k2_launches = {"training": training["launches"]["attention_bwd"],
                    "mpnet_training": mpnet_training["launches"]["attention_bwd"],
                    "uint8_training": uint8["launches"]["attention_bwd"],
@@ -5737,7 +6040,9 @@ def main() -> int:
                        quality["clusters"]["attention_bwd"],
                    **{k: n["K2 attention_bwd"] for k, n in ranks.items()},
                    **{k: n["K2 attention_bwd"] for k, n in matrix.items()
-                      if n["K2 attention_bwd"]}}
+                      if n["K2 attention_bwd"]},
+                   **{k: n["attention_bwd"] for k, n in long["by_path"].items()
+                      if n.get("attention_bwd")}}
     k3_fused_launches = {
         "uint8_training": uint8["launches"]["augment_normalize"],
         "ssl_visual_training": ssl["launches"]["K3 augment_normalize_u8"],
@@ -5778,6 +6083,10 @@ def main() -> int:
                     **{f"{key}_no_dropout": off[key] for key in timed[:4]},
                     **at_s20(variant, k))
 
+    def long_on(key: str) -> dict:
+        """Phase 15's launches on a key-tiled route, by path."""
+        return {k: n[key] for k, n in long["by_path"].items() if n.get(key)}
+
     kernels = [
         dict(name="attention_fwd (K1)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_fwd.cu",
@@ -5809,18 +6118,43 @@ def main() -> int:
              source="clip_lite_torch/ops/csrc/attention_fwd.cu",
              replaces="clip_lite_tpu/ops/attention.py:95",
              **clip["rows"]["vit_l14"],
-             launches=clip["tf32x3_tiled_launches"],
-             launches_by_path={f"clip_retrieval_{k}":
-                               leg["launches"]["tf32x3_tiled"]
-                               for k, leg in clip["legs"].items()},
+             launches=clip["tf32x3_tiled_launches"]
+             + sum(long_on("attention_fwd_tf32x3_tiled").values()),
+             launches_by_path={**{f"clip_retrieval_{k}":
+                                  leg["launches"]["tf32x3_tiled"]
+                                  for k, leg in clip["legs"].items()},
+                               **long_on("attention_fwd_tf32x3_tiled")},
              vit_b16=clip["rows"]["vit_b16"],
-             vit_l14_336=clip["rows"]["vit_l14_336"]),
+             vit_l14_336=clip["rows"]["vit_l14_336"],
+             long_s512_training=long["rows"]["key", "float32"]["k1"]),
         dict(name="attention_bwd (K2)", route="cuda",
              source="clip_lite_torch/ops/csrc/attention_bwd.cu",
              replaces="clip_lite_tpu/ops/attention.py:122",
              launches=sum(k2_launches.values()), launches_by_path=k2_launches,
              **attention_row("k2", attn, "key bias"),
              full_bias=attention_row("k2", full, "full bias")),
+        # Past 256 tokens (phase 15, the flagship at 512).  bf16 K1's
+        # key-tiled tensor-core kernel: main keys at qkv (128, 512, 2304),
+        # 12 heads, key bias of 257-512 real keys, dropout RATE; MPNet's
+        # full bias beside them.
+        dict(name="attention_fwd_tc_tiled (K1, bf16, S > 256)", route="cuda",
+             source="clip_lite_torch/ops/csrc/attention_fwd.cu",
+             replaces="clip_lite_tpu/ops/attention.py:95",
+             **long["rows"]["key", "bfloat16"]["k1"],
+             launches=sum(long_on("attention_fwd_tc_tiled").values()),
+             launches_by_path=long_on("attention_fwd_tc_tiled"),
+             full_bias=long["rows"]["full", "bfloat16"]["k1"]),
+        # K2's key-tiled pair (one launch of K2: a kernel by query rows and
+        # one by key columns), bf16 and fp32.  Main keys: bf16 at the same
+        # shape and draws; fp32 (3xTF32) and MPNet's full bias beside them.
+        dict(name="attention_bwd_tiled (K2, S > 256)", route="cuda",
+             source="clip_lite_torch/ops/csrc/attention_bwd.cu",
+             replaces="clip_lite_tpu/ops/attention.py:122",
+             **long["rows"]["key", "bfloat16"]["k2"],
+             launches=sum(long_on("attention_bwd_tiled").values()),
+             launches_by_path=long_on("attention_bwd_tiled"),
+             float32=long["rows"]["key", "float32"]["k2"],
+             full_bias=long["rows"]["full", "bfloat16"]["k2"]),
         # The eval sweep's launch (uint8 in, no draws); the main keys are
         # that variant, the other three beside it.
         dict(name="normalize_u8 (K3)", route="cuda",

@@ -1,4 +1,4 @@
-"""Multi-head self-attention over packed QKV for short sequences.
+"""Multi-head self-attention over packed QKV, up to 1024 tokens.
 
 Two hand-written CUDA kernels, the port of the JAX package's Pallas pair
 (``clip_lite_tpu/ops/attention.py``):
@@ -41,14 +41,19 @@ on ``mma.sync``, every qkv and g byte read once).  float32 K1 at
 S <= ``TF32X3_MAX_SEQ`` (80) outside training takes the 3xTF32 kernel
 (``attention_fwd_tf32x3``: each fp32 product as three TF32 products on
 ``mma.sync``, to about 2^-21 of it; plain TF32 would change the numbers),
-and above 80, up to ``TF32X3_TILED_MAX_SEQ`` (1024), the key-tiled 3xTF32
-kernel (``attention_fwd_tf32x3_tiled``: keys streamed through shared
-memory in tiles, an online softmax; CLIP's vision towers at 197, 257 and
-577).  The rest takes the CUDA-core kernels (``attention_fwd``/
-``attention_bwd``: fp32 products, S <= ``MAX_SEQ`` (256)): float32 K2,
-float32 K1 in training (K2 regenerates that kernel's probabilities), and
-bfloat16 above 64.  The choice is never a fallback: a refused launch
-raises.
+and above 80 the key-tiled 3xTF32 kernel (``attention_fwd_tf32x3_tiled``:
+keys streamed through shared memory in tiles, an online softmax; CLIP's
+vision towers at 197, 257 and 577).  Up to ``MAX_SEQ`` (256) the rest
+takes the CUDA-core kernels (``attention_fwd``/``attention_bwd``: fp32
+products, a head staged whole): float32 K2, float32 K1 in training (K2
+regenerates that kernel's probabilities), and bfloat16 above 64.  Above
+256, up to ``TILED_MAX_SEQ`` (1024), every kernel streams: bfloat16 K1
+takes the key-tiled tensor-core kernel (``attention_fwd_tc_tiled``),
+float32 K1 in training the key-tiled 3xTF32 one, and K2 in either type
+its key-tiled pair (``attention_bwd_tiled``: one kernel by query rows,
+one by key columns, the 3xTF32 scores of K1's kernel in float32), so
+BERT and MPNet train and serve at their 512 and 514 positions.  The
+choice is never a fallback: a refused launch raises.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ MASK_VALUE = float(np.finfo(np.float32).min) * 0.5
 MAX_SEQ = 256
 TC_MAX_SEQ = 64
 TF32X3_MAX_SEQ = 80
-TF32X3_TILED_MAX_SEQ = 1024
+TILED_MAX_SEQ = 1024
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -212,23 +217,33 @@ def attention_route(dtype: torch.dtype, seq: int, kernel: str,
     (bf16 products on ``mma.sync``, a block stages its head whole);
     ``"tf32x3"`` for float32 K1 at ``seq <= TF32X3_MAX_SEQ`` unless
     ``training`` (3xTF32 products on ``mma.sync``), ``"tf32x3_tiled"``
-    for it above (the key-tiled 3xTF32 kernel, up to
-    ``TF32X3_TILED_MAX_SEQ``); else ``"cuda_core"`` (fp32 products, up to
-    ``MAX_SEQ``): float32 K2 at any length, float32 K1 in training (K2
-    takes the gradient and regenerates this kernel's probabilities), and
-    bfloat16 at 64 < ``seq``."""
+    for it above (the key-tiled 3xTF32 kernel), and for float32 K1 in
+    training above ``MAX_SEQ``; ``"tensor_core_tiled"`` for bfloat16 K1
+    above ``MAX_SEQ`` (the key-tiled bf16 kernel); ``"tiled"`` for K2 in
+    either type above ``MAX_SEQ`` (its key-tiled pair of kernels); else
+    ``"cuda_core"`` (fp32 products, up to ``MAX_SEQ``): float32 K2,
+    float32 K1 in training (K2 takes the gradient and regenerates this
+    kernel's probabilities), and bfloat16 at 64 < ``seq``.  The streaming
+    routes take up to ``TILED_MAX_SEQ``."""
     if dtype == torch.bfloat16 and seq <= TC_MAX_SEQ:
         return "tensor_core"
     if kernel == "forward" and dtype == torch.float32 and not training:
         return "tf32x3" if seq <= TF32X3_MAX_SEQ else "tf32x3_tiled"
-    return "cuda_core"
+    if seq <= MAX_SEQ:
+        return "cuda_core"
+    if kernel == "backward":
+        return "tiled"
+    return "tf32x3_tiled" if dtype == torch.float32 else "tensor_core_tiled"
+
+
+_TILED_ROUTES = ("tf32x3_tiled", "tensor_core_tiled", "tiled")
 
 
 def max_seq(route: str) -> int:
     """The longest sequence the kernel of ``route`` takes: the key-tiled
-    3xTF32 kernel streams the keys (``TF32X3_TILED_MAX_SEQ``); the others
-    stage a head whole (``MAX_SEQ``)."""
-    return TF32X3_TILED_MAX_SEQ if route == "tf32x3_tiled" else MAX_SEQ
+    kernels stream (``TILED_MAX_SEQ``); the others stage a head whole
+    (``MAX_SEQ``)."""
+    return TILED_MAX_SEQ if route in _TILED_ROUTES else MAX_SEQ
 
 
 @functools.cache
@@ -242,7 +257,8 @@ def _library(name: str) -> ctypes.CDLL:
         lib.routes = {"cuda_core": lib.attention_fwd,
                       "tensor_core": lib.attention_fwd_tc,
                       "tf32x3": lib.attention_fwd_tf32x3,
-                      "tf32x3_tiled": lib.attention_fwd_tf32x3_tiled}
+                      "tf32x3_tiled": lib.attention_fwd_tf32x3_tiled,
+                      "tensor_core_tiled": lib.attention_fwd_tc_tiled}
         for fn in lib.routes.values():
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + dropout_args
             fn.restype = ctypes.c_int
@@ -252,9 +268,13 @@ def _library(name: str) -> ctypes.CDLL:
         lib.attention_dropout_mask.restype = ctypes.c_int
     else:
         lib.routes = {"cuda_core": lib.attention_bwd,
-                      "tensor_core": lib.attention_bwd_tc}
-        for fn in lib.routes.values():
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + dropout_args
+                      "tensor_core": lib.attention_bwd_tc,
+                      "tiled": lib.attention_bwd_tiled}
+        for route, fn in lib.routes.items():
+            # The key-tiled pair takes its row statistics' scratch too.
+            pointers = 7 if route == "tiled" else 6
+            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 6
+                           + dropout_args)
             fn.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
@@ -292,7 +312,9 @@ def _dropout_args(rate: float, seed: int):
 
 _ROUTE_NAMES = {"cuda_core": "", "tensor_core": " (tensor-core route)",
                 "tf32x3": " (3xTF32 route)",
-                "tf32x3_tiled": " (key-tiled 3xTF32 route)"}
+                "tf32x3_tiled": " (key-tiled 3xTF32 route)",
+                "tensor_core_tiled": " (key-tiled tensor-core route)",
+                "tiled": " (key-tiled route)"}
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, kernel: str,
@@ -333,8 +355,8 @@ def _launch_fwd(qkv: torch.Tensor, mask_bias: torch.Tensor, num_heads: int,
                 rate: float, seed: int, keep_mask: Optional[torch.Tensor],
                 route: str) -> torch.Tensor:
     """Launch K1 on CUDA tensors on ``route`` (``"cuda_core"``,
-    ``"tensor_core"``, ``"tf32x3"`` or ``"tf32x3_tiled"``) and count the
-    launch.
+    ``"tensor_core"``, ``"tf32x3"``, ``"tf32x3_tiled"`` or
+    ``"tensor_core_tiled"``) and count the launch.
     :func:`attention_forward` picks the route by :func:`attention_route`;
     ``chip_smoke.py`` names the CUDA-core kernel to time it beside the
     others."""
@@ -355,6 +377,7 @@ def _launch_fwd(qkv: torch.Tensor, mask_bias: torch.Tensor, num_heads: int,
     fused_short_attention.tc_launches += route == "tensor_core"
     fused_short_attention.tf32x3_launches += route == "tf32x3"
     fused_short_attention.tf32x3_tiled_launches += route == "tf32x3_tiled"
+    fused_short_attention.tc_tiled_launches += route == "tensor_core_tiled"
     return out
 
 
@@ -363,8 +386,9 @@ def _launch_bwd(qkv: torch.Tensor, mask_bias: torch.Tensor, g: torch.Tensor,
                 keep_mask: Optional[torch.Tensor], route: str
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch K2 on CUDA tensors (``g`` contiguous, in the type of
-    ``qkv``) on ``route`` (``"cuda_core"`` or ``"tensor_core"``), and
-    count the launch: as :func:`_launch_fwd`."""
+    ``qkv``) on ``route`` (``"cuda_core"``, ``"tensor_core"`` or
+    ``"tiled"``: its two kernels, one launch of K2), and count the launch:
+    as :func:`_launch_fwd`."""
     keep = _check_cuda(qkv, mask_bias, num_heads, keep_mask)
     b, s, three_h = qkv.shape
     if g.shape != (b, s, three_h // 3) or g.device != qkv.device:
@@ -373,19 +397,25 @@ def _launch_bwd(qkv: torch.Tensor, mask_bias: torch.Tensor, g: torch.Tensor,
     full = mask_bias.ndim == 4
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(mask_bias) if full else None
+    # The key-tiled pair's scratch: each query row's softmax max, sum and
+    # D, written by its first kernel and read by its second.
+    stats = ([torch.empty((b, num_heads, s, 3), dtype=torch.float32,
+                          device=qkv.device).data_ptr()]
+             if route == "tiled" else [])
     lib = _library("attention_bwd")
     launch = lib.routes[route]
     with torch.cuda.device(qkv.device):
         err = launch(
             qkv.data_ptr(), mask_bias.data_ptr(), g.data_ptr(),
             None if keep is None else keep.data_ptr(), dqkv.data_ptr(),
-            None if dbias is None else dbias.data_ptr(), b, s, num_heads,
-            HEAD_DIM, _DTYPE_CODES[qkv.dtype], int(full),
+            None if dbias is None else dbias.data_ptr(), *stats, b, s,
+            num_heads, HEAD_DIM, _DTYPE_CODES[qkv.dtype], int(full),
             *_dropout_args(rate, seed),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "K2", route)
     attention_backward.launches += 1
     attention_backward.tc_launches += route == "tensor_core"
+    attention_backward.tiled_launches += route == "tiled"
     return dqkv, dbias
 
 
@@ -406,7 +436,8 @@ def attention_forward(qkv: torch.Tensor, mask_bias: torch.Tensor,
     tensor-core route to ``fused_short_attention.tc_launches`` too, one on
     the 3xTF32 route to ``fused_short_attention.tf32x3_launches``, one on
     the key-tiled 3xTF32 route to
-    ``fused_short_attention.tf32x3_tiled_launches``.
+    ``fused_short_attention.tf32x3_tiled_launches``, one on the key-tiled
+    tensor-core route to ``fused_short_attention.tc_tiled_launches``.
     """
     _check_seq(qkv, mask_bias, num_heads, "forward", training)
     rate = float(dropout_rate)
@@ -433,7 +464,8 @@ def attention_backward(qkv: torch.Tensor, mask_bias: torch.Tensor,
     CPU tensors take :func:`attention_backward_reference`.  CUDA tensors
     launch K2 on the route :func:`attention_route` picks, or raise; every
     launch adds one to ``attention_backward.launches``, and one on the
-    tensor-core route to ``attention_backward.tc_launches`` too.
+    tensor-core route to ``attention_backward.tc_launches`` too, one on the
+    key-tiled route to ``attention_backward.tiled_launches``.
     """
     _check_seq(qkv, mask_bias, num_heads, "backward")
     rate = float(dropout_rate)
@@ -517,7 +549,7 @@ def fused_short_attention(qkv: torch.Tensor, mask_bias: torch.Tensor,
     """
     rate = 0.0 if deterministic else float(dropout_rate)
     # Training as _FusedAttention.forward will see it: K2 takes the
-    # gradient, and both kernels are held to the CUDA-core limit.
+    # gradient, and K1 runs on its training route.
     _check_seq(qkv, mask_bias, num_heads, "forward",
                torch.is_grad_enabled()
                and (qkv.requires_grad or mask_bias.requires_grad))
@@ -533,8 +565,10 @@ fused_short_attention.launches = 0
 fused_short_attention.tc_launches = 0
 fused_short_attention.tf32x3_launches = 0
 fused_short_attention.tf32x3_tiled_launches = 0
+fused_short_attention.tc_tiled_launches = 0
 attention_backward.launches = 0
 attention_backward.tc_launches = 0
+attention_backward.tiled_launches = 0
 
 
 def resolve_fused_flag(flag, device) -> bool:
@@ -553,4 +587,4 @@ __all__ = ["fused_short_attention", "attention_forward", "attention_backward",
            "attention_reference", "attention_backward_reference",
            "attention_float64", "attention_route", "dropout_keep_mask",
            "philox_keep_mask", "resolve_fused_flag", "max_seq", "MASK_VALUE",
-           "TC_MAX_SEQ", "TF32X3_MAX_SEQ", "TF32X3_TILED_MAX_SEQ"]
+           "TC_MAX_SEQ", "TF32X3_MAX_SEQ", "TILED_MAX_SEQ"]

@@ -104,6 +104,17 @@ __device__ __forceinline__ bool keep_at(const Dropout& d, int b, int h, int i,
 // (b, h) slices whole, S padded to a multiple of 16, one warp per 16 rows.
 constexpr int kTcMaxSeq = 64;
 
+// The key-tiled routes (K1's in both types, K2's): a block of four warps
+// owns one (b, h) and 64 rows, a warp 16 of them, and streams the other
+// side of the product through shared memory in tiles, so nothing in a
+// block grows with S but the count of tiles.  One cap for all of them:
+// 1024, the longest length the card tests hold them at, past BERT's 512
+// positions, MPNet's 514 and CLIP's ViT-L/14-336 vision tower's 577.
+constexpr int kTiledMaxSeq = 1024;
+constexpr int kTiledWarps = 4;
+constexpr int kTiledThreads = 32 * kTiledWarps;
+constexpr int kTiledRows = 16 * kTiledWarps;  // rows a block
+
 // The softmax of each row of a warp's accumulator tiles of scores in
 // place (keys out of the softmax hold -inf): the row max and sum over the
 // four lanes that hold a row.  kFastMath: __expf and one reciprocal a row

@@ -28,11 +28,12 @@
 // block per (b, h) stages its q, k and v rows (S x HD each) in shared
 // memory, and nothing but the context leaves the block.
 //
-// Four routes compute that function (attention_route() in
+// Five routes compute that function (attention_route() in
 // clip_lite_torch/ops/attention.py picks one by dtype, S and, for
 // float32, whether K2 takes the gradient):
 //   - the CUDA-core route, attention_fwd(): fp32 products, float32 in
-//     training, bf16 at S > 64; S <= 256 (q, k and v staged whole).
+//     training at 80 < S <= 256 and below, bf16 at 64 < S <= 256 (q, k
+//     and v staged whole).
 //   - the tensor-core route, attention_fwd_tc(): bf16 at S <= 64, the
 //     products on mma.sync (below, after the CUDA-core kernel).
 //   - the 3xTF32 route, attention_fwd_tf32x3(): float32 inference at
@@ -40,8 +41,11 @@
 //     about 2^-21 of each (plain TF32 would change the numbers).
 //   - the key-tiled 3xTF32 route, attention_fwd_tf32x3_tiled(): float32
 //     inference at 80 < S <= 1024 (CLIP's ViT-B/16 at 197, ViT-L/14 at
-//     257, ViT-L/14-336 at 577), keys streamed in tiles with an online
-//     softmax.
+//     257, ViT-L/14-336 at 577) and float32 training at 256 < S <= 1024,
+//     keys streamed in tiles with an online softmax.
+//   - the key-tiled tensor-core route, attention_fwd_tc_tiled(): bf16 at
+//     256 < S <= 1024 (BERT and MPNet past 256 tokens), the same scheme
+//     on bf16 mma.sync.
 //
 // CUDA-core route.  Layout of the work inside a block: each warp owns query rows
 // i = warp, warp + kWarps, ...; for its row it keeps q in registers, lane
@@ -626,16 +630,13 @@ attention_fwd_tf32x3_kernel(const float* __restrict__ qkv, const float* __restri
 // head has one warp with rows (one of them real), the other three only
 // copy k and v for it.
 //
-// The limit, S <= 1024 (kTf32TiledMaxSeq): nothing in the kernel depends
-// on S but the count of tiles; 1024 is the longest length the card tests
-// hold it at, past ViT-L/14-336's 577, the longest sequence of a
-// published OpenAI CLIP tower.
-constexpr int kTf32TiledMaxSeq = 1024;
+// The limit, S <= 1024 (kTiledMaxSeq, attention_common.cuh): nothing in
+// the kernel depends on S but the count of tiles.  Training takes this
+// kernel too above 256 tokens (K2's key-tiled route regenerates its
+// probabilities with the same 3xTF32 scores); at 80 < S <= 256 it keeps
+// the CUDA-core kernel, whose probabilities the CUDA-core K2 regenerates.
 constexpr int kTiledKeys = 32;            // keys a tile
 constexpr int kTiledNT = kTiledKeys / 8;  // 8-key chunks a tile
-constexpr int kTiledWarps = 4;            // 16 query rows each
-constexpr int kTiledThreads = 32 * kTiledWarps;
-constexpr int kTiledRows = 16 * kTiledWarps;  // query rows a block
 
 // One stage: k (32 x kKRow), v (32 x kVRow) and the key bias (32), fp32:
 // 18,048 bytes; two a block.
@@ -854,6 +855,257 @@ attention_fwd_tf32x3_tiled_kernel(const float* __restrict__ qkv,
   store_context(out, o, b, h, i0, S, NH * 64, lane);
 }
 
+// ---- key-tiled tensor-core route: bf16, 256 < S <= 1024 -----------------
+//
+// Replaces the same TPU kernel, clip_lite_tpu/ops/attention.py::
+// _attention_fwd_kernel, where the JAX package's wrapper falls back to XLA
+// (above 256 tokens, attention.py:353-356): BERT and MPNet over captions
+// of up to 512 and 514 tokens, in bf16 (every config sets AMP), in
+// inference and in training.  The tensor-core route above stages a head
+// whole and stops at 64; the CUDA-core kernel stages q, k and v in fp32
+// and stops at 256.
+//
+// What bounds it: bytes.  At (B, S, NH) = (128, 512, 12) one launch reads
+// 302 MB of qkv and writes 101 MB of context (0.120 ms at 3.35 TB/s),
+// against 103 GFLOP of bf16 products (0.104 ms at the 989 TFLOP/s dense
+// peak); a full bias adds 1.61 GB of fp32 reads (0.60 ms).  The design is
+// the key-tiled 3xTF32 kernel's above on bf16 mma.sync m16n8k16: one block
+// of four warps owns one (b, h) and 64 query rows, a warp 16 of them, q's
+// A fragments in registers (straight from device memory, 0 on rows
+// i >= S); keys and values stream through shared memory in tiles of 64
+// (kTcTiledKeys), two stages: tile t + 1's k, v and key bias are copied
+// with cp.async while tile t computes, rows at the tensor-core route's
+// stride of 144 bytes (ldmatrix free of bank conflicts).  Per tile each
+// warp takes its 16 x 64 scores (A = q, B = k rows by ldmatrix), adds the
+// scale and the bias (a full bias read straight from device memory into
+// the score fragments, each element once), and updates an online softmax
+// in fp32: the running max a row, a lane's share of the running sum, the
+// sum and the context rescaled by __expf(m_old - m_new) when the max
+// rises; p = __expf(s - m_new); dropout (keep_at: Philox, or the explicit
+// keep mask) scales kept p by 1 / (1 - rate) and zeroes the rest, the sum
+// taking the undropped p; p rounded to bf16 and repacked in registers as
+// the A operand of ctx += P V (mma.cuh's accum_to_a; V by
+// ldmatrix.trans).  One reciprocal a row at the end normalises the
+// context, which leaves through shared memory with 16-byte stores.
+//
+// Rounding: the TPU kernel and the plain version round the normalised
+// probabilities p / l to bf16 before P V; an online softmax rounds the
+// unnormalised p = exp(s - m) <= 1 instead, and divides the fp32 sum by l
+// after.  Both roundings are relative, 2^-9 of each term, so the context
+// lies as far from the exact function as the plain version's does, but
+// not at the same bits: the bar is bf16's (rtol 1.6e-2, atol 1e-2 against
+// the plain version) and, as for the tensor-core route, at most twice the
+// plain version's distance from a float64 evaluation of the same inputs.
+// The context's products are chained in fp32 over all of S: in bf16 the
+// rounding of p, not the accumulation, sets the error.
+//
+// The ragged tail: the last tile holds S mod 64 keys (1 at S = 257), its
+// other rows zeroed in shared memory and their keys out of the softmax
+// (-inf, so p = 0 exactly against zero rows of v).  Query rows past S
+// (the last block of a head) see q = 0 and are never written.
+constexpr int kTcTiledKeys = 64;
+constexpr int kTcTiledNT = kTcTiledKeys / 8;
+// One stage: k, v (64 x kRow bf16 each) and the key bias (64 fp32):
+// 18,688 bytes; two a block.
+constexpr int kTcTiledStageBytes =
+    2 * kTcTiledKeys * mma::kRow * (int)sizeof(bf16) + kTcTiledKeys * (int)sizeof(float);
+
+// Start the copies of key tile [key0, key0 + 64) of (b, h): k, v and (for
+// a key bias) the bias; the tile's rows past S zeroed.
+template <bool kFull>
+__device__ __forceinline__ void stage_tc_key_tile(unsigned char* stage, const bf16* qkv,
+                                                  const float* bias, int b, int h,
+                                                  int key0, int S, int NH, int tid) {
+  const int n = min(kTcTiledKeys, S - key0);
+  const size_t row3 = (size_t)3 * NH * 64;
+  const bf16* src = qkv + ((size_t)b * S + key0) * row3 + (size_t)h * 64;
+  bf16* k_s = reinterpret_cast<bf16*>(stage);
+  bf16* v_s = k_s + kTcTiledKeys * mma::kRow;
+  mma::stage_rows(k_s, src + NH * 64, row3, n, kTcTiledKeys, tid, kTiledThreads);
+  mma::stage_rows(v_s, src + 2 * NH * 64, row3, n, kTcTiledKeys, tid, kTiledThreads);
+  if (!kFull) {
+    float* key_bias = reinterpret_cast<float*>(v_s + kTcTiledKeys * mma::kRow);
+    for (int j = tid; j < kTcTiledKeys; j += kTiledThreads) {
+      if (j < n) {
+        mma::cp_async4(key_bias + j, bias + (size_t)b * S + key0 + j);
+      } else {
+        key_bias[j] = 0.f;
+      }
+    }
+  }
+}
+
+// This lane's A fragments of q (rows i0 + g, i0 + g + 8; 16-deep chunk
+// kc of the head), from device memory; 0 on rows i >= S.
+__device__ __forceinline__ void load_q_bf16(uint32_t (&qa)[4][4], const bf16* qkv, int b,
+                                            int h, int S, int NH, int i0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row3 = (size_t)3 * NH * 64;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + g + 8 * r;
+    const bf16* row = qkv + ((size_t)b * S + min(i, S - 1)) * row3 + (size_t)h * 64 + 2 * t;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      qa[kc][r] = i < S ? *reinterpret_cast<const uint32_t*>(row + 16 * kc) : 0u;
+      qa[kc][r + 2] = i < S ? *reinterpret_cast<const uint32_t*>(row + 16 * kc + 8) : 0u;
+    }
+  }
+}
+
+// One key tile [key0, key0 + 64) of a warp's 16 query rows: the scores,
+// the online softmax's update of (m, l, o), and ctx += P V.
+template <bool kFull>
+__device__ __forceinline__ void tc_tiled_step(const uint32_t (&qa)[4][4], float (&m)[2],
+                                              float (&l)[2], float (&o)[8][4],
+                                              const unsigned char* stage,
+                                              const float* bias_bh, int key0, int b,
+                                              int h, int i0, int S, int NH, float scale,
+                                              const Dropout& drop, int lane) {
+  using namespace mma;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* k_s = reinterpret_cast<const bf16*>(stage);
+  const bf16* v_s = k_s + kTcTiledKeys * kRow;
+  const float* key_bias = reinterpret_cast<const float*>(v_s + kTcTiledKeys * kRow);
+
+  float s[kTcTiledNT][4] = {};
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+    for (int np = 0; np < kTcTiledNT / 2; ++np) {
+      uint32_t bk[4];
+      ldmatrix_x4(bk, bt_rows(k_s, kRow, np * 16, kc * 16, lane));
+      mma_bf16(s[2 * np], qa[kc], bk[0], bk[1]);
+      mma_bf16(s[2 * np + 1], qa[kc], bk[2], bk[3]);
+    }
+  }
+  // s * scale + bias, keys j >= S out; the tile's row max.
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < kTcTiledNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + 8 * (e >> 1);
+      const int j = key0 + n * 8 + 2 * t + (e & 1);
+      float v = -INFINITY;
+      if (j < S) {
+        const float bij = kFull ? (i < S ? bias_bh[(size_t)i * S + j] : 0.f)
+                                : key_bias[j - key0];
+        v = s[n][e] * scale + bij;
+      }
+      s[n][e] = v;
+      mx[e >> 1] = fmaxf(mx[e >> 1], v);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  // Every tile holds a key of finite score, so mx is finite and the first
+  // tile's factor is __expf(-inf) = 0.
+  const float corr[2] = {__expf(m[0] - mx[0]), __expf(m[1] - mx[1])};
+  m[0] = mx[0];
+  m[1] = mx[1];
+  l[0] *= corr[0];
+  l[1] *= corr[1];
+#pragma unroll
+  for (int np = 0; np < 8; ++np) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[np][e] *= corr[e >> 1];
+  }
+#pragma unroll
+  for (int n = 0; n < kTcTiledNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = __expf(s[n][e] - mx[e >> 1]);  // exp(-inf) = 0
+      s[n][e] = p;
+      l[e >> 1] += p;
+    }
+  }
+  if (drop.active) tile_dropout<kTcTiledNT>(s, drop, b, h, i0, S, NH, lane, key0);
+
+  // ctx += P V: p rounded to bf16 as P's A fragment, V by ldmatrix.trans.
+#pragma unroll
+  for (int kc = 0; kc < kTcTiledKeys / 16; ++kc) {
+    uint32_t a[4];
+    accum_to_a(a, s, kc);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, b_rows(v_s, kRow, kc * 16, np * 16, lane));
+      mma_bf16(o[2 * np], a, bv[0], bv[1]);
+      mma_bf16(o[2 * np + 1], a, bv[2], bv[3]);
+    }
+  }
+}
+
+template <bool kFull>
+__global__ void __launch_bounds__(kTiledThreads)
+attention_fwd_tc_tiled_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                              bf16* __restrict__ out, int S, int NH, int q_tiles,
+                              float scale, Dropout drop) {
+  using namespace mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int w = blockIdx.x / q_tiles;  // (b, h)
+  const int b = w / NH, h = w % NH;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int row0 = (blockIdx.x % q_tiles) * kTiledRows;
+  const int r0 = (tid >> 5) * 16;  // the warp's rows in the block
+  const int i0 = row0 + r0;
+  const bool rows = i0 < S;  // this warp has a real query row
+  const int n_tiles = (S + kTcTiledKeys - 1) / kTcTiledKeys;
+
+  stage_tc_key_tile<kFull>(smem_raw, qkv, bias, b, h, 0, S, NH, tid);
+  cp_async_commit();
+  uint32_t qa[4][4];
+  load_q_bf16(qa, qkv, b, h, S, NH, i0, lane);
+  const float* bias_bh = kFull ? bias + ((size_t)b * NH + h) * S * S : nullptr;
+
+  // Rows g and g + 8: the running max, and this lane's share of the sum.
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[8][4] = {};
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_tiles) {
+      stage_tc_key_tile<kFull>(smem_raw + (buf ^ 1) * kTcTiledStageBytes, qkv, bias, b, h,
+                               (kt + 1) * kTcTiledKeys, S, NH, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (rows) {
+      tc_tiled_step<kFull>(qa, m, l, o, smem_raw + buf * kTcTiledStageBytes, bias_bh,
+                           kt * kTcTiledKeys, b, h, i0, S, NH, scale, drop, lane);
+    }
+    // Every warp is done with this stage before the next tile refills it.
+    __syncthreads();
+  }
+  // The context, normalised, through the first stage's k rows, then out.
+  bf16* tile = reinterpret_cast<bf16*>(smem_raw);
+  if (rows) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+    for (int np = 0; np < 8; ++np) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[np][e] *= inv[e >> 1];
+    }
+    accum_to_tile(tile, r0, o, lane);
+  }
+  __syncthreads();
+  const int H = NH * 64;
+  store_rows(out + ((size_t)b * S + row0) * H + (size_t)h * 64, H, tile,
+             min(kTiledRows, S - row0), tid, kTiledThreads);
+}
+
 __global__ void dropout_mask_kernel(int8_t* __restrict__ keep, int B, int NH,
                                     int S, Dropout drop) {
   const size_t n = (size_t)B * NH * S * S;
@@ -980,6 +1232,22 @@ int launch_tf32x3_tiled(const void* qkv, const void* bias, void* out, int B, int
   return (int)cudaGetLastError();
 }
 
+template <bool kFull>
+int launch_tc_tiled(const void* qkv, const void* bias, void* out, int B, int S, int NH,
+                    const Dropout& drop, cudaStream_t stream) {
+  // Two stages, 37,376 bytes: no opt-in needed.
+  const size_t smem = 2 * kTcTiledStageBytes;
+  // One block a (b, h) and 64 query rows, the query tiles of a head next
+  // to each other, so that the blocks sharing k and v run together.
+  const int q_tiles = (S + kTiledRows - 1) / kTiledRows;
+  const long long blocks = (long long)B * NH * q_tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  attention_fwd_tc_tiled_kernel<kFull><<<(unsigned)blocks, kTiledThreads, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
+      static_cast<bf16*>(out), S, NH, q_tiles, 1.0f / sqrtf(64.0f), drop);
+  return (int)cudaGetLastError();
+}
+
 bool misaligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 }  // namespace
@@ -1062,7 +1330,7 @@ int attention_fwd_tf32x3_tiled(const void* qkv, const void* bias, const void* ke
                                int full_bias, int dropout, unsigned int threshold,
                                float inv_keep, unsigned long long seed, void* stream) {
   if (HD != 64 || dtype != 0 || B < 1 || B > 65535 || S <= kTf32MaxSeq ||
-      S > kTf32TiledMaxSeq || NH < 1) {
+      S > kTiledMaxSeq || NH < 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (misaligned16(qkv) || misaligned16(out)) return (int)cudaErrorMisalignedAddress;
@@ -1071,6 +1339,26 @@ int attention_fwd_tf32x3_tiled(const void* qkv, const void* bias, const void* ke
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return full_bias ? launch_tf32x3_tiled<true>(qkv, bias, out, B, S, NH, drop, st)
                    : launch_tf32x3_tiled<false>(qkv, bias, out, B, S, NH, drop, st);
+}
+
+// The key-tiled tensor-core route: attention_fwd's arguments and function,
+// for bf16 (dtype 1) at 1 <= S <= 1024 (attention_route() sends it
+// 256 < S); any other dtype or S is refused with cudaErrorInvalidValue,
+// and qkv or out not 16-byte aligned with cudaErrorMisalignedAddress.
+int attention_fwd_tc_tiled(const void* qkv, const void* bias, const void* keep,
+                           void* out, int B, int S, int NH, int HD, int dtype,
+                           int full_bias, int dropout, unsigned int threshold,
+                           float inv_keep, unsigned long long seed, void* stream) {
+  if (HD != 64 || dtype != 1 || B < 1 || B > 65535 || S < 1 || S > kTiledMaxSeq ||
+      NH < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (misaligned16(qkv) || misaligned16(out)) return (int)cudaErrorMisalignedAddress;
+  const Dropout drop{static_cast<const int8_t*>(keep), seed, threshold,
+                     inv_keep, dropout != 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return full_bias ? launch_tc_tiled<true>(qkv, bias, out, B, S, NH, drop, st)
+                   : launch_tc_tiled<false>(qkv, bias, out, B, S, NH, drop, st);
 }
 
 // Writes the Philox keep mask that K1 and K2 use for (seed, threshold)

@@ -259,8 +259,9 @@ def train_loop(state: TrainState, train_step: Callable, batches: Iterable,
 
 def kernel_launches() -> Dict[str, int]:
     """Each hand-written kernel's launches in this process so far, by the
-    name of its wrapper's trace range, K1/K2's on the tensor cores and
-    K1's on the 3xTF32 routes."""
+    name of its wrapper's trace range, K1/K2's on the tensor cores, K1's
+    on the 3xTF32 routes and K1/K2's on the key-tiled routes above 256
+    tokens."""
     from clip_lite_torch.data import native
     from clip_lite_torch.ops.attention import (
         attention_backward, fused_short_attention)
@@ -270,8 +271,10 @@ def kernel_launches() -> Dict[str, int]:
             "K1 tensor cores": fused_short_attention.tc_launches,
             "K1 3xTF32": fused_short_attention.tf32x3_launches,
             "K1 key-tiled 3xTF32": fused_short_attention.tf32x3_tiled_launches,
+            "K1 key-tiled tensor cores": fused_short_attention.tc_tiled_launches,
             "K2 attention_bwd": attention_backward.launches,
             "K2 tensor cores": attention_backward.tc_launches,
+            "K2 key-tiled": attention_backward.tiled_launches,
             "K3 normalize_u8": normalize_u8.launches,
             "K3 augment_normalize_u8": augment_normalize_u8.launches,
             "crop_resize_flip_u8": native.crop_resize_flip_u8.launches}

@@ -20,7 +20,7 @@ from clip_lite_torch.ops.attention import (
     MAX_SEQ,
     TC_MAX_SEQ,
     TF32X3_MAX_SEQ,
-    TF32X3_TILED_MAX_SEQ,
+    TILED_MAX_SEQ,
     _raise_on,
     attention_backward,
     attention_backward_reference,
@@ -155,18 +155,18 @@ def test_unsupported_shapes_raise(inputs):
     with pytest.raises(ValueError):  # a broadcast view, as on the card
         fused_short_attention(qkv, torch.zeros(1, NH, S, S).expand(B, -1, -1, -1),
                               NH)
-    # Above the limit of the route the card would take: fp32 K1 without a
-    # gradient streams keys up to TF32X3_TILED_MAX_SEQ; the others stop at
-    # MAX_SEQ.
-    cap = TF32X3_TILED_MAX_SEQ + 1
+    # Above the limit of the route the card would take: every route above
+    # MAX_SEQ streams up to TILED_MAX_SEQ, fp32 and bf16, with a gradient
+    # or without.
+    cap = TILED_MAX_SEQ + 1
     with pytest.raises(ValueError):
         fused_short_attention(torch.zeros(1, cap, 3 * H), torch.zeros(1, cap), NH)
     with pytest.raises(ValueError):
-        fused_short_attention(torch.zeros(1, 257, 3 * H, dtype=torch.bfloat16),
-                              torch.zeros(1, 257), NH)
+        fused_short_attention(torch.zeros(1, cap, 3 * H, dtype=torch.bfloat16),
+                              torch.zeros(1, cap), NH)
     with pytest.raises(ValueError):  # training: K2 takes the gradient
-        fused_short_attention(torch.zeros(1, 257, 3 * H, requires_grad=True),
-                              torch.zeros(1, 257), NH)
+        fused_short_attention(torch.zeros(1, cap, 3 * H, requires_grad=True),
+                              torch.zeros(1, cap), NH)
 
 
 def test_wrapper_without_kernel_device_raises(inputs):
@@ -215,16 +215,21 @@ def test_resolve_fused_flag(flag, device, expected):
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 65, "cuda_core"),
     (torch.bfloat16, 256, "cuda_core"), (torch.float32, 1, "cuda_core"),
     (torch.float32, 30, "cuda_core"), (torch.float32, 64, "cuda_core"),
-    (torch.float32, 65, "cuda_core"),
+    (torch.float32, 65, "cuda_core"), (torch.bfloat16, 257, "tiled"),
+    (torch.bfloat16, 512, "tiled"), (torch.float32, 257, "tiled"),
+    (torch.float32, 1024, "tiled"),
 ])
 def test_attention_route(dtype, seq, route):
-    """K2's route, and K1's outside the 3xTF32 route: bf16 at S <= 64 takes
-    the tensor cores; fp32 K2 never does (plain TF32 would change its
-    numbers), nor bf16 above 64."""
-    assert TC_MAX_SEQ == 64
+    """K2's route, and bf16 K1's: bf16 at S <= 64 takes the tensor cores;
+    fp32 K2 takes the CUDA cores up to 256 (plain TF32 would change its
+    numbers), and so does bf16 at 64 < S <= 256; above 256 K2 takes its
+    key-tiled pair in either type, and bf16 K1 its key-tiled tensor-core
+    kernel."""
+    assert TC_MAX_SEQ == 64 and MAX_SEQ == 256
     assert attention_route(dtype, seq, "backward") == route
-    if not (dtype == torch.float32 and seq <= TF32X3_MAX_SEQ):
-        assert attention_route(dtype, seq, "forward") == route
+    if dtype == torch.bfloat16:
+        assert attention_route(dtype, seq, "forward") == (
+            "tensor_core_tiled" if route == "tiled" else route)
 
 
 @pytest.mark.parametrize("seq,route", [
@@ -236,14 +241,18 @@ def test_attention_route(dtype, seq, route):
 def test_float32_forward_route(seq, route):
     """fp32 K1 takes the 3xTF32 kernel up to S = 80 (CLIP's 77 among them)
     for inference and the key-tiled 3xTF32 kernel above (ViT-B/16's 197,
-    ViT-L/14's 257, ViT-L/14-336's 577, up to its cap of 1024), and the
-    CUDA cores in training (K2 regenerates that kernel's probabilities);
-    fp32 K2 stays on the CUDA cores."""
-    assert TF32X3_MAX_SEQ == 80 and TF32X3_TILED_MAX_SEQ == 1024
+    ViT-L/14's 257, ViT-L/14-336's 577, up to its cap of 1024); in
+    training the CUDA cores up to 256 (the CUDA-core K2 regenerates that
+    kernel's probabilities) and the key-tiled 3xTF32 kernel above (the
+    key-tiled K2 regenerates its 3xTF32 scores); fp32 K2 stays on the CUDA
+    cores up to 256 and takes its key-tiled pair above."""
+    assert TF32X3_MAX_SEQ == 80 and TILED_MAX_SEQ == 1024
+    long = seq > MAX_SEQ
     assert attention_route(torch.float32, seq, "forward") == route
-    assert attention_route(torch.float32, seq, "forward",
-                           training=True) == "cuda_core"
-    assert attention_route(torch.float32, seq, "backward") == "cuda_core"
+    assert attention_route(torch.float32, seq, "forward", training=True) == (
+        "tf32x3_tiled" if long else "cuda_core")
+    assert attention_route(torch.float32, seq, "backward") == (
+        "tiled" if long else "cuda_core")
     assert attention_route(torch.bfloat16, seq, "forward", training=True) == \
         attention_route(torch.bfloat16, seq, "forward")
 
@@ -252,8 +261,10 @@ def test_float32_forward_route(seq, route):
     ("K1", "cuda_core", "K1"), ("K1", "tensor_core", "K1 (tensor-core route)"),
     ("K1", "tf32x3", "K1 (3xTF32 route)"),
     ("K1", "tf32x3_tiled", "K1 (key-tiled 3xTF32 route)"),
+    ("K1", "tensor_core_tiled", "K1 (key-tiled tensor-core route)"),
     ("K2", "cuda_core", "K2"),
     ("K2", "tensor_core", "K2 (tensor-core route)"),
+    ("K2", "tiled", "K2 (key-tiled route)"),
 ])
 def test_failed_launch_names_its_kernel_and_route(kernel, route, name):
     """A refused launch raises with its kernel, its route and the CUDA
@@ -327,36 +338,48 @@ def test_float64_evaluation_matches_jax(inputs, full_bias_inputs, full):
                                    rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("seq", [257, 577, TF32X3_TILED_MAX_SEQ])
+@pytest.mark.parametrize("seq", [257, 577, TILED_MAX_SEQ])
 def test_sequence_limits_follow_the_route(seq):
     """The CPU wrappers hold callers to the limit of the route the card
-    would take: fp32 K1 without a gradient passes up to the key-tiled
-    kernel's cap (and raises one above it); fp32 K1 in training, fp32 K2
-    and bf16 K1 and K2 raise above MAX_SEQ (256)."""
+    would take: above MAX_SEQ (256) every route streams, so fp32 K1 with
+    and without a gradient, fp32 K2 and bf16 K1 and K2 equal their twins
+    up to the key-tiled kernels' cap, and each raises one above it."""
     assert MAX_SEQ == 256
     rng = np.random.RandomState(seq)
     nh = 1
     qkv = torch.from_numpy(rng.randn(1, seq, 3 * 64).astype(np.float32))
     bias = torch.zeros(1, seq)
-    g = torch.zeros(1, seq, 64)
+    g = torch.from_numpy(rng.randn(1, seq, 64).astype(np.float32))
     with torch.no_grad():
         out = fused_short_attention(qkv, bias, nh)
     torch.testing.assert_close(out, attention_reference(qkv, bias, nh),
                                rtol=0, atol=0)
-    attention_forward(qkv, bias, nh)
-    long = torch.zeros(1, TF32X3_TILED_MAX_SEQ + 1, 3 * 64)
+    for x in (qkv, qkv.bfloat16()):
+        for training in (False, True):
+            torch.testing.assert_close(
+                attention_forward(x, bias, nh, training=training),
+                attention_reference(x, bias, nh), rtol=0, atol=0)
+        got = attention_backward(x, bias, g, nh)
+        want = attention_backward_reference(x, bias, g.to(x.dtype), nh)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        assert got[1] is None and want[1] is None
+    trained = fused_short_attention(qkv.clone().requires_grad_(), bias, nh)
+    torch.testing.assert_close(trained.detach(), out, rtol=0, atol=0)
+    long = torch.zeros(1, TILED_MAX_SEQ + 1, 3 * 64)
+    long_bias = torch.zeros(long.shape[:2])
+    long_g = torch.zeros(1, TILED_MAX_SEQ + 1, 64)
     with pytest.raises(ValueError, match="tf32x3_tiled"):
-        attention_forward(long, torch.zeros(long.shape[:2]), nh)
-    with pytest.raises(ValueError, match="cuda_core"):
-        attention_forward(qkv, bias, nh, training=True)
-    with pytest.raises(ValueError, match="cuda_core"):
-        fused_short_attention(qkv.clone().requires_grad_(), bias, nh)
-    with pytest.raises(ValueError, match="cuda_core"):
-        attention_backward(qkv, bias, g, nh)
-    with pytest.raises(ValueError, match="cuda_core"):
-        attention_forward(qkv.bfloat16(), bias, nh)
-    with pytest.raises(ValueError, match="cuda_core"):
-        attention_backward(qkv.bfloat16(), bias, g, nh)
+        attention_forward(long, long_bias, nh)
+    with pytest.raises(ValueError, match="tf32x3_tiled"):
+        attention_forward(long, long_bias, nh, training=True)
+    with pytest.raises(ValueError, match="tf32x3_tiled"):
+        fused_short_attention(long.clone().requires_grad_(), long_bias, nh)
+    with pytest.raises(ValueError, match="tiled"):
+        attention_backward(long, long_bias, long_g, nh)
+    with pytest.raises(ValueError, match="tensor_core_tiled"):
+        attention_forward(long.bfloat16(), long_bias, nh)
+    with pytest.raises(ValueError, match="tiled"):
+        attention_backward(long.bfloat16(), long_bias, long_g, nh)
 
 
 @pytest.fixture(scope="module")

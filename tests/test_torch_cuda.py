@@ -4,9 +4,12 @@ under a (B, S) key bias and under MPNet's full (B, NH, S, S) bias, whose
 gradient dbias K2 returns.  Every route: the tensor-core kernels (bf16 at
 S <= 64, checked at the edges of their tiling, and against the float64
 evaluation of the same function), fp32 K1's 3xTF32 kernels (S <= 80, and
-the key-tiled one above, up to 1024) and the CUDA-core kernels (fp32
-training and K2, bf16 above 64, and bf16 below when launched directly),
-with the dispatch between them.
+the key-tiled one above, up to 1024), the CUDA-core kernels (fp32
+training and K2 up to 256, bf16 at 64 < S <= 256, and bf16 below when
+launched directly) and, past 256 tokens, the key-tiled routes of training
+(bf16 K1's key-tiled tensor-core kernel, fp32 K1's key-tiled 3xTF32 one,
+K2's key-tiled pair in both types, up to 1024), with the dispatch between
+them.
 K3, the normalize kernel, against its plain version bit for bit; K3's
 fused flip + colour jitter + normalize pass against the plain composition;
 the on-device preprocessing and the device-resident cache on the card;
@@ -469,6 +472,98 @@ def test_cuda_core_route_in_bf16_matches_reference(device, full):
     torch.testing.assert_close(dqkv.float(), dref.float(), **TOLS[torch.bfloat16])
     if full:
         torch.testing.assert_close(dbias, dbias_ref, **TOLS[torch.float32])
+
+
+# Past 256 tokens every route streams: bf16 K1 the key-tiled tensor-core
+# kernel, fp32 K1 in training the key-tiled 3xTF32 one, K2 its key-tiled
+# pair.  ViT-L/14's 257 (a last key tile of one key, a last row block of
+# one row), 300, BERT's 512 and the cap.
+LONG_SEQS = [257, 300, 512, 1024]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("full", [False, True], ids=["key_bias", "full_bias"])
+@DTYPES
+@pytest.mark.parametrize("s", LONG_SEQS)
+def test_key_tiled_training_routes_match_reference(device, s, dtype, full, rate):
+    """Training past 256 tokens through the autograd Function: K1 and K2
+    counted on their key-tiled routes, the output, dqkv and (a full bias)
+    dbias against the twins given the kernels' Philox mask (dbias at fp32's
+    bar), and against the float64 evaluation of the same function: bf16
+    within twice the twins' distance, fp32 within four times plus 2^-21 of
+    each output's size.  Item 0 all padding: every key at MASK_VALUE."""
+    b, nh, seed = 2, 4, 8642
+    qkv, key_bias = _inputs(device, b, s, nh, seed=s)
+    key_bias[0] = MASK_VALUE
+    bias = _full_bias(device, key_bias, nh) if full else key_bias
+    qkv = qkv.to(dtype)
+    g = torch.randn(b, s, nh * 64, device=device,
+                    generator=torch.Generator(device=device).manual_seed(2)
+                    ).to(dtype)
+    keep = dropout_keep_mask(seed, b, nh, s, rate, device) if rate else None
+    k1_route = "tensor_core_tiled" if dtype == torch.bfloat16 else "tf32x3_tiled"
+    assert attention_route(dtype, s, "forward", training=True) == k1_route
+    assert attention_route(dtype, s, "backward") == "tiled"
+    counter = "tc_tiled_launches" if dtype == torch.bfloat16 else \
+        "tf32x3_tiled_launches"
+    before = (fused_short_attention.launches,
+              getattr(fused_short_attention, counter),
+              attention_backward.launches, attention_backward.tiled_launches)
+    x, y = qkv.clone().requires_grad_(), bias.clone().requires_grad_(full)
+    out = fused_short_attention(x, y, nh, dropout_rate=rate,
+                                deterministic=rate == 0.0, seed=seed)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_short_attention.launches - before[0],
+            getattr(fused_short_attention, counter) - before[1],
+            attention_backward.launches - before[2],
+            attention_backward.tiled_launches - before[3]) == (1, 1, 1, 1)
+    ref = attention_reference(qkv, bias, nh, rate, keep)
+    dref, dbias_ref = attention_backward_reference(qkv, bias, g, nh, rate, keep)
+    got = (out.detach(), x.grad, y.grad if full else None)
+    torch.testing.assert_close(got[0].float(), ref.float(), **TOLS[dtype])
+    torch.testing.assert_close(got[1].float(), dref.float(), **TOLS[dtype])
+    if full:
+        torch.testing.assert_close(got[2], dbias_ref, **TOLS[torch.float32])
+    exact = attention_float64(qkv, bias, g, nh, rate, keep)
+    for k, t, e in zip(got, (ref, dref, dbias_ref), exact):
+        if e is None:
+            continue
+        k_err = (k.double() - e).abs().max().item()
+        t_err = (t.double() - e).abs().max().item()
+        if dtype == torch.bfloat16:
+            assert k_err <= 2.0 * t_err, (k_err, t_err)
+        else:
+            assert k_err <= 4.0 * t_err + 2.0 ** -21 * e.abs().max().item(), (
+                k_err, t_err)
+
+
+def test_key_tiled_routes_refuse_what_they_do_not_take(device):
+    """The key-tiled tensor-core K1 refuses fp32, S > 1024 and a qkv not
+    16-byte aligned; the key-tiled K2 refuses S > 1024 and a qkv not
+    16-byte aligned: each launch raises and counts nothing.  The wrappers
+    raise at 1025 before any launch."""
+    qkv, bias = _inputs(device, 2, 1025, 4)
+    g = torch.zeros(2, 1025, 256, device=device)
+    flat = torch.randn(2 * 300 * 768 + 2, device=device).bfloat16()
+    shifted = flat[2:].view(2, 300, 768)  # contiguous, 4 bytes off 16
+    mid = qkv[:, :300].contiguous(), bias[:, :300].contiguous()
+    before = (fused_short_attention.launches, fused_short_attention.tc_tiled_launches,
+              attention_backward.launches, attention_backward.tiled_launches)
+    for x, b in ((mid[0], mid[1]), (qkv.bfloat16(), bias), (shifted, mid[1])):
+        with pytest.raises(RuntimeError, match="key-tiled tensor-core route"):
+            _launch_fwd(x, b, 4, 0.0, 0, None, route="tensor_core_tiled")
+    for x, b, y in ((qkv.bfloat16(), bias, g.bfloat16()),
+                    (shifted, mid[1], g[:, :300].bfloat16().contiguous())):
+        with pytest.raises(RuntimeError, match="key-tiled route"):
+            _launch_bwd(x, b, y, 4, 0.0, 0, None, route="tiled")
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="1024"):
+            fused_short_attention(qkv.to(dtype), bias, 4)
+        with pytest.raises(ValueError, match="1024"):
+            attention_backward(qkv.to(dtype), bias, g, 4)
+    assert (fused_short_attention.launches, fused_short_attention.tc_tiled_launches,
+            attention_backward.launches, attention_backward.tiled_launches) == before
 
 
 def test_full_bias_autograd_function_launches_k2_with_dbias(device):

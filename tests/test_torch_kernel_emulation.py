@@ -168,10 +168,12 @@ def libs(tmp_path_factory):
             ctypes.c_void_p]
     fwd, bwd = loaded["attention_fwd"], loaded["attention_bwd"]
     for fn in (fwd.attention_fwd, fwd.attention_fwd_tc, fwd.attention_fwd_tf32x3,
-               fwd.attention_fwd_tf32x3_tiled):
+               fwd.attention_fwd_tf32x3_tiled, fwd.attention_fwd_tc_tiled):
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + drop
     for fn in (bwd.attention_bwd, bwd.attention_bwd_tc):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + drop
+    bwd.attention_bwd_tiled.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                                        + drop)
     return fwd, bwd
 
 
@@ -384,6 +386,101 @@ def test_tf32x3_tiled_entry_point_refuses_what_it_does_not_take(libs):
         assert fwd.attention_fwd_tf32x3_tiled(
             qkv.data_ptr() + offset, bias.data_ptr(), None, out.data_ptr(), 1, s,
             1, 64, code, 0, 0, 0, 1.0, 0, None) == want
+
+
+# The key-tiled routes above 256 tokens, where training and bf16 take them:
+# bf16 K1 on the key-tiled tensor-core kernel, fp32 K1 on the key-tiled
+# 3xTF32 one, and K2 on its key-tiled pair of kernels in both types.
+# S = 257 (a last key tile of one key, a last row block of one row) and
+# 300 (tails of 12 and 44 in bf16's tiles, 12 in fp32's); both biases,
+# dropout on and off; item 0 all padding.  Two fp32 cases: each takes
+# about 17 s here (K2's fp32 tiles of 16 rows, three products each).
+LONG_CASES = [(257, False, 0.1, torch.bfloat16), (257, True, 0.0, torch.bfloat16),
+              (300, True, 0.1, torch.bfloat16), (300, False, 0.0, torch.bfloat16),
+              (257, True, 0.1, torch.float32), (300, False, 0.0, torch.float32)]
+
+
+def _run_long(libs, qkv, bias, grad, nh, rate, seed=31):
+    """K1 on its training route above 256 and K2 on the key-tiled one:
+    (out, dqkv, dbias)."""
+    fwd, bwd = libs
+    b, s, _ = qkv.shape
+    full = bias.ndim == 4
+    drop = ((1, dropout_threshold(rate), float(torch.tensor(1.0 / (1.0 - rate))), seed)
+            if rate else (0, 0, 1.0, 0))
+    code = DTYPE_CODES[qkv.dtype]
+    out = torch.empty(b, s, nh * 64, dtype=qkv.dtype)
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty_like(bias) if full else None
+    stats = torch.empty(b, nh, s, 3)
+    k1 = (fwd.attention_fwd_tc_tiled if qkv.dtype == torch.bfloat16
+          else fwd.attention_fwd_tf32x3_tiled)
+    assert k1(qkv.data_ptr(), bias.data_ptr(), None, out.data_ptr(), b, s, nh, 64,
+              code, int(full), *drop, None) == 0
+    assert bwd.attention_bwd_tiled(
+        qkv.data_ptr(), bias.data_ptr(), grad.data_ptr(), None, dqkv.data_ptr(),
+        None if dbias is None else dbias.data_ptr(), stats.data_ptr(), b, s, nh, 64,
+        code, int(full), *drop, None) == 0
+    return out, dqkv, dbias
+
+
+@pytest.mark.parametrize("s,full,rate,dtype", LONG_CASES,
+                         ids=[f"S{s}-{'full' if f else 'key'}-rate{r}-"
+                              f"{str(d).replace('torch.', '')}"
+                              for s, f, r, d in LONG_CASES])
+def test_key_tiled_training_routes_match_reference(libs, s, full, rate, dtype,
+                                                   record_property):
+    """K1 and K2 past 256 tokens against their twins at the dtype's bar
+    (dbias at fp32's), given the kernels' Philox mask, and against the
+    float64 evaluation of the same function: bf16 within twice the twins'
+    distance (the online softmax rounds the unnormalised probabilities, the
+    twin the normalised ones); fp32 within four times plus 2^-21 of each
+    output's size (3xTF32 leaves out 2^-22 of each product).  Item 0 is
+    all padding: every key at MASK_VALUE, a uniform softmax in the online
+    form and in both K2 kernels."""
+    nh, b, seed = 1, 2, 31
+    qkv, bias = _tiled_case(b, s, nh, full)
+    qkv = qkv.to(dtype)
+    grad = torch.randn(b, s, nh * 64,
+                       generator=torch.Generator().manual_seed(s + 1)).to(dtype)
+    got = _run_long(libs, qkv, bias, grad, nh, rate, seed)
+    twins, keep = _check(got, qkv, bias, grad, nh, rate, seed)
+    exact = attention_float64(qkv, bias, grad, nh, rate, keep)
+    distances = {}
+    for name, k, t, e in zip(("out", "dqkv", "dbias"), got, twins, exact):
+        if e is None:
+            continue
+        kernel, twin = ((x.double() - e).abs().max().item() for x in (k, t))
+        distances[name] = {"kernel": kernel, "twin": twin}
+        if dtype == torch.bfloat16:
+            assert kernel <= 2.0 * twin, (name, kernel, twin)
+        else:
+            assert kernel <= 4.0 * twin + 2.0 ** -21 * e.abs().max().item(), (
+                name, kernel, twin)
+    record_property("float64_distance", distances)
+
+
+def test_key_tiled_entry_points_refuse_what_they_do_not_take(libs):
+    """The key-tiled tensor-core K1 refuses fp32, S > 1024 and misaligned
+    pointers; the key-tiled K2 refuses S > 1024, a dtype it has no kernel
+    for, a null stats tensor and misaligned pointers: before any launch."""
+    fwd, bwd = libs
+    qkv, bias, grad = _case(1, 1025, 1, False, torch.bfloat16)
+    out = torch.empty(1, 1025, 64, dtype=torch.bfloat16)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty(1, 1, 1025, 3)
+    for s, code, offset, want in ((1025, 1, 0, 1), (300, 0, 0, 1), (300, 1, 2, 716)):
+        assert fwd.attention_fwd_tc_tiled(
+            qkv.data_ptr() + offset, bias.data_ptr(), None, out.data_ptr(), 1, s, 1,
+            64, code, 0, 0, 0, 1.0, 0, None) == want
+    for s, code, offset, st, want in ((1025, 1, 0, stats.data_ptr(), 1),
+                                      (300, 2, 0, stats.data_ptr(), 1),
+                                      (300, 1, 0, None, 1),
+                                      (300, 1, 2, stats.data_ptr(), 716)):
+        assert bwd.attention_bwd_tiled(
+            qkv.data_ptr() + offset, bias.data_ptr(), grad.data_ptr(), None,
+            dqkv.data_ptr(), None, st, 1, s, 1, 64, code, 0, 0, 0, 1.0, 0,
+            None) == want
 
 
 def test_tf32_split_rounds_to_nearest_ties_away(tmp_path_factory):
